@@ -1,0 +1,535 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and exits non-zero:
+
+1. device  -- the card's name and ``nvidia-smi`` name + power limit;
+2. build   -- compile the hand-written CUDA kernels from ``src/repro_torch/
+   csrc`` (timed);
+3. kernels -- every kernel of the serving path against its plain torch
+   version on the card, at the path's shapes (a (4, 64, 4096) prefill and
+   a (4, 1, 4096) decode boundary, seeded) and beyond (indices, packed
+   bytes, histograms and rANS blobs exact; reconstructions within 1 ulp),
+   with median times beside the plain version's and the bound;
+4. serve   -- codeqwen1.5-7b at full width and depth (bf16, random
+   weights from seed 0), 4 requests of 64 prompt + 8 new tokens, N=4,
+   through (a) the in-graph ``codec=`` hookup and (b) the host bitstream
+   hookup ``decode_stream(encode_stream(x, chunk_elems=65536,
+   device_entropy=True))``; launch counts are reset before and read after
+   each run, and every kernel must have launched on its hookup.  Each
+   hookup then runs once more under ``torch.profiler`` for the device's
+   busy time and idle share.
+
+The line before the last is the per-kernel JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
+checkout of the repository, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_OPS_PER_S = 67e12        # H100 SXM CUDA-core float32 peak
+LEVELS = (2, 3, 4, 8, 16, 64)
+N_SERVE = 4
+CHUNK = 1 << 16
+REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 64, 8
+WARMUP_BATCHES = 2          # calibration batches of split-layer activations
+
+
+def bits_for(n_levels: int) -> int:
+    return max(1, (n_levels - 1).bit_length())
+
+
+def time_ms(fn, reps: int = 20, trials: int = 5) -> float:
+    """Device time of one call of ``fn``, python dispatch excluded: the
+    stream is first held by a spin kernel (``torch.cuda._sleep``) that
+    outlasts the host's enqueueing of ``reps`` calls, so the two CUDA
+    events bracket the calls' kernels running back to back.  Returns the
+    median over ``trials`` of the per-call time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    spin = int(min(2.0, 3 * host_s + 1e-3) * 2e9)     # cycles at ~2 GHz
+    out = []
+    for _ in range(trials):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def eager_ms(fn, reps: int = 20) -> float:
+    """Wall time per call dispatched eagerly from python (what a caller
+    that does not capture graphs sees), with CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+    """Least time for the work: bytes over the memory rate vs operations
+    over the CUDA-core rate (ms, and which one binds)."""
+    t_mem = n_bytes / MEM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
+
+
+def ulps(a, b) -> int:
+    """Largest distance between two same-dtype tensors in units of the
+    last place of that dtype (at the larger magnitude)."""
+    p = 7 if a.dtype == torch.bfloat16 else 23      # mantissa bits
+    a32, b32 = a.float(), b.float()
+    _, e = torch.frexp(torch.maximum(a32.abs(), b32.abs()))
+    sp = torch.ldexp(torch.ones_like(a32), e - 1 - p)
+    return int(((a32 - b32).abs() / sp).max().item())
+
+
+def synthetic_boundary(dev):
+    """Seeded stand-ins for the serving path's boundary tensors: the
+    (4, 64, 4096) prefill and (4, 1, 4096) decode activations in bf16,
+    with a clip range like the calibrated one."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pre = torch.randn(4, 64, 4096, device=dev, generator=gen) * 1.3 + 0.1
+    dec = torch.randn(4, 1, 4096, device=dev, generator=gen) * 1.3 + 0.1
+    return {"prefill": pre.to(torch.bfloat16),
+            "decode": dec.to(torch.bfloat16), "range": (-2.2, 2.9)}
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise AssertionError(what)
+
+
+# -- phase 3: kernels against their plain versions ------------------------------
+
+def kernel_checks(boundary, dev):
+    """Exactness sweep of all four kernels against their plain versions;
+    returns the worst reconstruction distance in ulps."""
+    from repro_torch.core import binarization, cabac, rans
+    from repro_torch.kernels import fused_clip_quant as fcq
+    from repro_torch.kernels import ops, rans_coder, rate_hist
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flat_cases = {
+        "prefill": boundary["prefill"],                       # (4, 64, 4096)
+        "decode": boundary["decode"],                         # (4, 1, 4096)
+        "n513": torch.randn(513, device=dev, generator=gen) * 2 + 0.5,
+    }
+    lo, hi = boundary["range"]
+    worst_deq = 0
+    for name, x0 in flat_cases.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x0.to(dtype)
+            for n in LEVELS:
+                ki, kd = fcq.clip_quant_2d(x, lo, hi, n)
+                pi, pd = fcq.clip_quant_plain(x, lo, hi, n)
+                check(torch.equal(ki, pi), f"clip_quant idx {name} {dtype} N={n}")
+                u = ulps(kd, pd)
+                check(u <= 1, f"clip_quant deq {name} {dtype} N={n}: {u} ulp")
+                worst_deq = max(worst_deq, u)
+                kh = rate_hist.index_histogram_2d(ki, n)
+                ph = rate_hist.index_histogram_plain(ki, n)
+                check(torch.equal(kh, ph), f"index_histogram {name} N={n}")
+                check(torch.equal(ops.index_histogram(ki, n_levels=n),
+                                  torch.bincount(ki.reshape(-1).long(),
+                                                 minlength=n).int()),
+                      f"index_histogram vs bincount {name} N={n}")
+                bits = bits_for(n)
+                x2d, _ = ops._to_2d(x.reshape(-1), lo)
+                r, c = x2d.shape
+                lo_r = torch.full((r, 1), float(lo), device=dev)
+                hi_r = torch.full((r, 1), float(hi), device=dev)
+                valid = fcq.band_valid_array(1, c, None, device=dev)
+                kp, kh2 = fcq.encode_tiles_2d(x2d, lo_r, hi_r, n, bits,
+                                              sb_cols=c, bs=c)
+                pp, ph2 = fcq.encode_tiles_plain(x2d, lo_r, hi_r, valid, n,
+                                                 bits, c)
+                check(torch.equal(kp, pp) and torch.equal(kh2, ph2),
+                      f"encode_tiles {name} {dtype} N={n}")
+    # banded megakernel: 3 bands, ragged valid counts, per-(row, band)
+    # ranges including a degenerate band
+    xb = torch.randn(40, 3 * 512, device=dev, generator=gen) * 3
+    lob = torch.rand(40, 3, device=dev, generator=gen) * -3
+    hib = lob + torch.rand(40, 3, device=dev, generator=gen) * 4 + 0.5
+    hib[3, 1] = lob[3, 1]
+    for n in LEVELS:
+        bits = bits_for(n)
+        valid = (512, 300, 17)
+        kp, kh = fcq.encode_tiles_2d(xb, lob, hib, n, bits, sb_cols=512,
+                                     bs=512, band_valid=valid)
+        pp, ph = fcq.encode_tiles_plain(
+            xb, lob, hib, fcq.band_valid_array(3, 512, None, valid, dev), n,
+            bits, 512)
+        check(torch.equal(kp, pp) and torch.equal(kh, ph),
+              f"encode_tiles banded N={n}")
+    # device rANS: a 65536-element chunk at several level counts, plus a
+    # sparse and a tiny stream; blobs byte-identical to the plain step
+    # loop and to the host coder
+    xs = boundary["prefill"].reshape(-1)[:CHUNK].float()
+    streams = [(f"chunk N={n}", ops.clip_quantize(xs, cmin=lo, cmax=hi,
+                                                  n_levels=n)[0], n)
+               for n in (2, 3, 4, 16)]
+    streams.append(("sparse N=4", (torch.rand(70000, device=dev,
+                                              generator=gen) > 0.97).int()
+                    * 3, 4))
+    streams.append(("n=5 N=3", torch.tensor([0, 2, 1, 2, 0], device=dev,
+                                            dtype=torch.int32), 3))
+    for name, idx, n in streams:
+        kernel_blob = rans_coder.encode_planes_device(idx, n)
+        plain = rans_coder._dispatch(idx.cpu(), n)
+        check(kernel_blob == rans_coder._finalize(plain),
+              f"rans blob vs plain step loop {name}")
+        host = rans.encode_planes(binarization.index_to_context_bits(
+            idx.cpu().numpy(), n))
+        check(kernel_blob == host, f"rans blob vs host coder {name}")
+        check(cabac.wrap_device_blob(kernel_blob)[1:]
+              == cabac._encode_rans_sharded(idx.cpu().numpy(), n, 1)[1:],
+              f"coder 4 vs host coder 2 {name}")
+    return worst_deq
+
+
+def kernel_timings(boundary, worst_deq, dev):
+    """Time each kernel at the serving path's prefill shapes beside its
+    plain version (and a one-call library equivalent where one exists)."""
+    from repro_torch.kernels import _build, ops, rans_coder, rate_hist
+    from repro_torch.kernels import fused_clip_quant as fcq
+
+    lo, hi = boundary["range"]
+    x = boundary["prefill"]                                  # bf16
+    n = x.numel()
+    rows = []
+
+    def row(name, src, line, kernel, plain, nbytes, nops, err,
+            library=None, plain_kw=None):
+        b_ms, b_by = bound(nbytes, nops)
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{src}",
+                     "replaces": line, "launches": 0, "max_abs_err": err,
+                     "ms": time_ms(kernel),
+                     "plain_ms": time_ms(plain, **(plain_kw or {})),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": None if library is None
+                     else eager_ms(library)})
+        eager[name] = eager_ms(kernel)
+
+    eager = {}
+    # kernel 1: per-tensor clip + quantize + dequantize, bf16 in/out
+    ki, kd = fcq.clip_quant_2d(x, lo, hi, N_SERVE)
+    _, pd = fcq.clip_quant_plain(x, lo, hi, N_SERVE)
+    row("clip_quant", "fused_clip_quant.cu",
+        "src/repro/kernels/fused_clip_quant.py:26",
+        lambda: fcq.clip_quant_2d(x, lo, hi, N_SERVE),
+        lambda: fcq.clip_quant_plain(x, lo, hi, N_SERVE),
+        n * (2 + 4 + 2), 6 * n, float((kd.float() - pd.float()).abs().max()))
+    # kernel 4: global index histogram, int32 indices (the library call
+    # syncs on its input's maximum, so it is timed eagerly)
+    idx = ki.reshape(-1)
+    kh = rate_hist.index_histogram_2d(idx, N_SERVE)
+    ph = rate_hist.index_histogram_plain(idx, N_SERVE)
+    row("index_histogram", "rate_hist.cu",
+        "src/repro/kernels/rate_hist.py:24",
+        lambda: rate_hist.index_histogram_2d(idx, N_SERVE),
+        lambda: rate_hist.index_histogram_plain(idx, N_SERVE),
+        n * 4 + 64 * 4, n, float((kh - ph).abs().max()),
+        library=lambda: torch.bincount(idx, minlength=N_SERVE))
+    # kernel 3: encode megakernel on the float32 boundary (host hookup);
+    # timed through its C entry with the wrapper's buffers (the wrapper
+    # copies its band-valid list from pageable host memory, which waits
+    # for the stream)
+    xf = x.float().reshape(-1)
+    x2d, _ = ops._to_2d(xf, lo)
+    r, c = x2d.shape
+    lo_r = torch.full((r, 1), float(lo), device=dev)
+    hi_r = torch.full((r, 1), float(hi), device=dev)
+    bits = bits_for(N_SERVE)
+    per = 8 // bits
+    valid = fcq.band_valid_array(1, c, None, device=dev)
+    kp, kh2 = fcq.encode_tiles_2d(x2d, lo_r, hi_r, N_SERVE, bits, sb_cols=c,
+                                  bs=c)
+    pp, ph2 = fcq.encode_tiles_plain(x2d, lo_r, hi_r, valid, N_SERVE, bits, c)
+    packed = torch.empty_like(kp)
+    hist = torch.empty_like(kh2)
+
+    def encode_launch():
+        hist.zero_()
+        _build.launch("encode_tiles", "repro_encode_tiles", x2d.data_ptr(),
+                      0, r, c, c, 1, lo_r.data_ptr(), hi_r.data_ptr(),
+                      valid.data_ptr(), N_SERVE, bits, packed.data_ptr(),
+                      hist.data_ptr())
+
+    encode_launch()
+    check(torch.equal(packed, kp) and torch.equal(hist, kh2),
+          "encode_tiles C entry vs wrapper")
+    row("encode_tiles", "fused_clip_quant.cu",
+        "src/repro/kernels/fused_clip_quant.py:130", encode_launch,
+        lambda: fcq.encode_tiles_plain(x2d, lo_r, hi_r, valid, N_SERVE,
+                                       bits, c),
+        n * 4 + n // per + r * 64 * 4 + 2 * r * 4, 8 * n,
+        float(max((kp.int() - pp.int()).abs().max(),
+                  (kh2 - ph2).abs().max())))
+    # kernel 6: the rANS step loop of one 65536-element chunk
+    coded = ops.clip_quantize(xf[:CHUNK], cmin=lo, cmax=hi,
+                              n_levels=N_SERVE)[0]
+    sizes = rans_coder._plane_sizes(coded, N_SERVE)
+    lanes = rans_coder.rans.lane_count(sum(sizes))
+    sizes = [s for s in sizes if s]
+    bits2d, f1, _ = rans_coder._build_planes(coded, sizes, lanes)
+    steps = bits2d.shape[0]
+    ks, kov, kw = rans_coder.rans_step(bits2d, f1, lanes)
+    ps, pov, pw = rans_coder.rans_step_plain(bits2d, f1, lanes)
+    err = max(int(((ks.long() & 0xFFFFFFFF) - ps).abs().max()),
+              int((kov.int() - pov.int()).abs().max()),
+              int(((kw.long() & 0xFFFF) - pw).abs().max()))
+    row("rans_step", "rans_coder.cu",
+        "src/repro/kernels/rans_coder.py:265",
+        lambda: rans_coder.rans_step(bits2d, f1, lanes),
+        lambda: rans_coder.rans_step_plain(bits2d, f1, lanes),
+        steps * lanes * (1 + 1 + 2) + steps * 4 + lanes * 4,
+        12 * steps * lanes, float(err),
+        plain_kw=dict(reps=2, trials=3))
+    print(f"rans_step timed on {steps} steps x {lanes} lanes "
+          f"({CHUNK} indices, N={N_SERVE})")
+    check(all(r_["max_abs_err"] == 0 for r_ in rows
+              if r_["name"] != "clip_quant"),
+          "integer kernel outputs must match exactly")
+    check(worst_deq <= 1, "clip_quant reconstruction beyond 1 ulp")
+    print("times per call: device time of back-to-back calls; 'eager' is "
+          "the python-dispatched wall time per call")
+    for r_ in rows:
+        print(f"  {r_['name']:16s} kernel {r_['ms']:.4f} ms  eager "
+              f"{eager[r_['name']]:.4f} ms  plain {r_['plain_ms']:.4f} ms  "
+              f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']})"
+              + (f"  library {r_['library_ms']:.4f} ms (eager)"
+                 if r_["library_ms"] is not None else ""))
+    return rows
+
+
+# -- phase 4: serving ----------------------------------------------------------
+
+def serve(dev):
+    from repro_torch.core import cabac
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.fused_clip_quant import quantize_rows
+    from repro_torch.launch import serve as S
+
+    t0 = time.perf_counter()
+    cfg, params = S.make_model("codeqwen1.5-7b", True, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"model: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
+          f"{n_params / 1e9:.2f} B params {cfg.dtype}; init {init_s:.1f} s")
+    ns = argparse.Namespace(codec_levels=N_SERVE, clip_mode="model",
+                            granularity="tensor", channel_group=1,
+                            warmup_batches=WARMUP_BATCHES,
+                            prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS)
+    codec = S._calibrate_warmup(cfg, params, ns, dev)
+    run_kw = dict(requests=REQUESTS, prompt_len=PROMPT_LEN,
+                  new_tokens=NEW_TOKENS, device=dev)
+    counts = {}
+
+    # warm-up without a codec: the library's first calls at these shapes
+    # (matmul heuristics, allocator growth) stay out of the timed runs
+    print("serve warm-up (no codec):")
+    S.run(cfg, params, **run_kw)
+
+    # (a) in-graph codec= hookup: fused fake-quant + rate estimate
+    print("serve (a): codec= hookup")
+    _build.reset_launches()
+    eng_a, reqs_a, dt_a = S.run(cfg, params, codec=codec, **run_kw)
+    torch.cuda.synchronize()
+    counts["a"] = dict(_build.LAUNCHES)
+    _check_retired(reqs_a)
+    est_bpe = float(np.mean(eng_a.rate_log))
+    profiled("(a)", lambda: S.run(cfg, params, codec=codec, **run_kw))
+
+    # (b) host bitstream hookup with the device entropy stage
+    seen = []
+
+    def host_fn(x):
+        payloads = list(codec.encode_stream(x, chunk_elems=CHUNK,
+                                            device_entropy=True))
+        seen.append((x, payloads))
+        recon = codec.decode_stream(payloads).reshape(x.shape)
+        return recon, 8.0 * sum(map(len, payloads)) / x.size
+
+    print("serve (b): codec_host_fn = decode_stream(encode_stream(x, "
+          f"chunk_elems={CHUNK}, device_entropy=True))")
+    _build.reset_launches()
+    eng_b, reqs_b, dt_b = S.run(cfg, params, codec_host_fn=host_fn, **run_kw)
+    torch.cuda.synchronize()
+    counts["b"] = dict(_build.LAUNCHES)
+    _check_retired(reqs_b)
+    wire_bpe = float(np.mean(eng_b.rate_log))
+    n_seen = len(seen)
+    profiled("(b)", lambda: S.run(cfg, params, codec_host_fn=host_fn,
+                                  **run_kw))
+    del seen[n_seen:]
+
+    # the prefill boundary tensor of (b): wire indices vs the clip-quant
+    # kernel's indices on the same tensor
+    x_pre, payloads = seen[0]
+    check(x_pre.shape == (REQUESTS, PROMPT_LEN, cfg.d_model),
+          f"prefill boundary shape {x_pre.shape}")
+    wire_idx = np.concatenate([
+        cabac.decode_indices(p[4:], min(CHUNK, x_pre.size - i * CHUNK),
+                             N_SERVE)
+        for i, p in enumerate(payloads[1:])])
+    xt = torch.as_tensor(x_pre, device=dev)
+    k_idx = ops.clip_quantize(xt, cmin=codec.cmin, cmax=codec.cmax,
+                              n_levels=N_SERVE)[0].reshape(-1).cpu().numpy()
+    # the wire's indices come from the tiled formula (float32 span and
+    # divide on the device), the clip-quant kernel's from the per-tensor
+    # one (scale divided in double): the wire must hold the tiled
+    # formula's indices exactly, so it differs from the clip-quant kernel
+    # only where those two roundings do
+    lo_t = torch.tensor([[np.float32(codec.cmin)]], device=dev)
+    hi_t = torch.tensor([[np.float32(codec.cmax)]], device=dev)
+    t_idx = quantize_rows(xt.reshape(1, -1), lo_t, hi_t,
+                          N_SERVE).reshape(-1).cpu().numpy()
+    check(np.array_equal(wire_idx, t_idx),
+          "wire indices differ from the megakernel formula")
+    print(f"prefill boundary: {x_pre.size} wire indices equal the "
+          f"clip-quant kernel's but for {int((t_idx != k_idx).sum())} "
+          "elements where the per-tensor and tiled range formulas round "
+          "apart")
+    for i, p in enumerate(payloads[1:]):
+        seg = wire_idx[i * CHUNK:(i + 1) * CHUNK]
+        check(p[4] == 4 and p[5:] == cabac._encode_rans_sharded(
+            seg, N_SERVE, 1)[1:], f"chunk {i}: coder 4 != host coder 2")
+    print(f"coder-4 payloads of {len(payloads) - 1} chunks equal host coder "
+          "2 past the id byte")
+    tok = REQUESTS * NEW_TOKENS
+    print(f"serve summary: (a) {tok / dt_a:.1f} tok/s estimated "
+          f"{est_bpe:.4f} bits/element; (b) {tok / dt_b:.1f} tok/s wire "
+          f"{wire_bpe:.4f} bits/element; init {init_s:.1f} s")
+    return counts
+
+
+def profiled(label: str, run) -> None:
+    """Repeat one serving run under ``torch.profiler`` and print the
+    device's busy time (summed kernel durations, one stream) against the
+    wall clock."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
+          f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
+          f"{len(kernels)} device kernels")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _check_retired(reqs):
+    check(all(r.done and len(r.out_tokens) == NEW_TOKENS for r in reqs),
+          "a request did not retire with its tokens")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # 1. device
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    smi = smi.splitlines()[0]
+    print(f"device: {name} (torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda})")
+    print(smi)
+
+    # 2. build
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.library()
+    built = _build.build_seconds
+    print(f"build: {time.perf_counter() - t0:.1f} s "
+          f"({'compiled' if built is not None else 'cached'} "
+          f"{_build.LIB_NAME})")
+
+    # 3. kernels against their plain versions, then timings
+    boundary = synthetic_boundary(dev)
+    worst = kernel_checks(boundary, dev)
+    print(f"kernels: exact against their plain versions (worst "
+          f"reconstruction {worst} ulp)")
+    rows = kernel_timings(boundary, worst, dev)
+
+    # 4. serve
+    counts = serve(dev)
+
+    # 5. launch counts of the serving runs
+    hookup = {"clip_quant": "a", "index_histogram": "a",
+              "encode_tiles": "b", "rans_step": "b"}
+    for r_ in rows:
+        r_["launches"] = counts[hookup[r_["name"]]][r_["name"]]
+        check(r_["launches"] > 0, f"{r_['name']} never launched on the "
+              f"serving path ({hookup[r_['name']]})")
+    print(f"launches: (a) {counts['a']}  (b) {counts['b']}")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

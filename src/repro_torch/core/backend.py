@@ -1,0 +1,567 @@
+"""QuantBackend: one dispatch point for every quantization primitive.
+
+``FeatureCodec`` (and everything above it: the serving engine, the
+launchers) routes through a backend object, so the hot path picks the
+hand-written CUDA kernels on the card and the plain torch reference on
+the CPU, from a single code path.
+
+Backends implement seven primitives over a :class:`QuantSpec`:
+
+    quantize(x, spec)             -> int32 indices
+    dequantize(idx, spec, dtype)  -> reconstructed values
+    quantize_dequantize(x, spec)  -> (indices, reconstruction)  [fused]
+    histogram(idx, n_levels)      -> (n_levels,) int32 counts
+    tile_histogram(idx, spec)     -> (n_cgroups, n_sblocks, N) counts
+    pack_indices(idx, bits)       -> uint8 wire bytes (in-graph pack)
+    encode_fused(x, spec, bits)   -> (coded-order indices, per-tile hists)
+
+``encode_fused`` is the host encode path's single-pass contract: on the
+CUDA backend one fused megakernel pass (clip -> quantize -> bit-pack ->
+per-tile histogram) produces wire-width packed bytes plus tile index
+counts, so exactly one device->host transfer feeds the entropy stage.
+The torch backend fulfils the same contract with its vectorized
+formulas.  Both return bit-identical coded-order indices, which keeps
+the entropy payload byte-identical to the unfused reference path.
+
+``encode_fused(..., emit_wire=True)`` moves the *entropy stage itself*
+onto the tensor's device: quantize, coded-order permute and the
+interleaved-rANS bit-plane coder (:mod:`repro_torch.kernels.rans_coder`)
+run there, and the call returns ``(payload, None)`` where ``payload`` is
+a finished coder-id-4 bitstream (or a list of per-chunk payloads when
+``chunk_bounds`` is given).  Payloads are byte-identical to the host
+coder id 2 single-shard stream past the id byte; level counts above
+:data:`~repro_torch.kernels.rans_coder.MAX_DEVICE_LEVELS` are host-coded
+inside the same container.  ``want_hist`` is incompatible with
+``emit_wire``.
+
+Selection: ``get_backend()`` with no name is the CUDA backend, and it
+raises where no CUDA device exists; ``get_backend("torch")`` (or
+``CodecConfig(backend="torch")``) is the CPU reference.
+
+Granularity is a :class:`~repro_torch.core.tiling.TilePlan`: ``spec.plan
+is None`` with scalar cmin/cmax is the paper's per-tensor mode; a plan
+makes cmin/cmax (n_cgroups, n_sblocks) per-tile tables over the
+channel-major view.  The legacy per-channel spec form -- (C,) vectors
+plus ``channel_axis`` -- is normalized into a one-spatial-block plan on
+entry.  The torch backend covers every plan and ECSQ form; the CUDA
+backend covers the per-tensor uniform quantizer so far and raises
+``NotImplementedError`` for the rest until their kernels are ported.
+Dequantize-only calls (receiver side) use the torch formula on the
+tensor's device in both backends -- the reference has no kernel there
+either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..obs.tracing import tracer
+from . import uniform
+from .tiling import TileECSQ, TilePlan
+
+_CHANNEL_EPS = 1e-12  # degenerate-range guard, shared with the tile kernel
+_TILED_TODO = ("{} on the CUDA backend waits for the tiled/channel "
+               "granularity slice (banded layout + kernels #2 and #5; "
+               "ROADMAP.md queue B)")
+_ECSQ_TODO = ("ECSQ on the CUDA backend waits for the ECSQ kernels "
+              "#7 and #8 (ROADMAP.md queue B)")
+_PACK_TODO = ("in-graph packing on the CUDA backend waits for the pack "
+              "kernel #9 (ROADMAP.md queue B)")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantSpec:
+    """Everything a backend needs to quantize one tensor.
+
+    ``cmin``/``cmax`` are floats (per-tensor), (C,) arrays broadcast
+    along ``channel_axis`` (legacy per-channel form), or
+    (n_cgroups, n_sblocks) per-tile tables when ``plan`` is set.
+    ``ecsq`` optionally carries a designed non-uniform quantizer: an
+    ``ECSQQuantizer`` (per-tensor) or a ``TileECSQ`` (per-tile, with
+    ``plan``).
+    """
+
+    cmin: Any
+    cmax: Any
+    n_levels: int
+    channel_axis: int | None = None
+    ecsq: Any = None
+    plan: TilePlan | None = None
+
+    @property
+    def per_channel(self) -> bool:
+        return self.channel_axis is not None or self.plan is not None
+
+
+def _normalize(spec: QuantSpec) -> QuantSpec:
+    """Fold the legacy (C,)-vector per-channel form into a TilePlan, and
+    reject spec combinations that would otherwise be silently ignored."""
+    if spec.plan is not None or spec.channel_axis is not None:
+        if spec.ecsq is not None and not isinstance(spec.ecsq, TileECSQ):
+            raise ValueError(
+                "a tiled QuantSpec needs per-tile TileECSQ tables; a "
+                "per-tensor ECSQQuantizer cannot be combined with a "
+                "plan or channel_axis")
+    if spec.plan is not None:
+        return spec
+    if spec.channel_axis is None:
+        return spec
+    lo = np.asarray(spec.cmin, np.float32).reshape(-1, 1)
+    hi = np.asarray(spec.cmax, np.float32).reshape(-1, 1)
+    plan = TilePlan(channel_axis=spec.channel_axis, channel_group_size=1,
+                    spatial_block_size=0, n_channels=lo.shape[0])
+    return dataclasses.replace(spec, cmin=lo, cmax=hi, plan=plan)
+
+
+def host_tensor(a, dtype=None, device=None) -> torch.Tensor:
+    """Host array -> tensor (on ``device``), copying read-only or
+    non-contiguous buffers (e.g. header tables read with frombuffer)."""
+    arr = np.require(np.asarray(a, dtype), requirements=["C", "W"])
+    return torch.as_tensor(arr, device=device)
+
+
+def _div(num, den: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded elementwise divide against a full-shape operand
+    (torch may turn a division by a scalar into a reciprocal multiply)."""
+    if not isinstance(num, torch.Tensor):
+        return torch.full_like(den, float(num)) / den
+    return num / torch.broadcast_to(den, num.shape).contiguous()
+
+
+def _tile_tables(shape, spec: QuantSpec, device):
+    """Per-element (C, M) range views for a plan spec over ``shape``.
+
+    Returns (axis, C, M, lo, hi) with lo/hi broadcastable against the
+    channel-major (C, M) view: (C, 1) for one spatial block, full (C, M)
+    gathers otherwise.
+    """
+    plan = spec.plan
+    axis, c, m = plan.resolve(tuple(shape))
+    shape2 = (plan.n_cgroups, plan.n_sblocks)
+    lo = host_tensor(spec.cmin, np.float32, device).reshape(shape2)
+    hi = host_tensor(spec.cmax, np.float32, device).reshape(shape2)
+    cg = torch.as_tensor(plan.cgroup_ids(), device=device).long()
+    if plan.n_sblocks == 1:
+        return axis, c, m, lo[cg], hi[cg]          # (C, 1) broadcast
+    sb = torch.as_tensor(plan.sblock_ids(m), device=device).long()
+    return axis, c, m, lo[cg][:, sb], hi[cg][:, sb]
+
+
+def _restore(a: torch.Tensor, shape, axis: int, c: int, dtype):
+    """(C, M) channel-major view -> tensor layout ``shape``."""
+    moved = (c,) + tuple(s for d, s in enumerate(shape) if d != axis)
+    return torch.movedim(a.reshape(moved), 0, axis).to(dtype)
+
+
+def _coded_order(idx: np.ndarray, spec: QuantSpec) -> np.ndarray:
+    """Flat coded-order view of quantizer indices (tile-major for plans)."""
+    if spec.plan is not None:
+        return spec.plan.to_coded_order(idx)
+    return np.asarray(idx).ravel()
+
+
+def _coded_order_device(q: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Device mirror of :func:`_coded_order`: coded-order indices with no
+    host round-trip (the spatial permutation is a gather)."""
+    plan = spec.plan
+    if plan is None:
+        return q.reshape(-1)
+    axis, c, m = plan.resolve(tuple(q.shape))
+    rows = torch.movedim(q, axis, 0).reshape(c, m)
+    perm = plan.spatial_perm(m)
+    if perm is not None:
+        rows = rows[:, torch.as_tensor(perm, device=q.device)]
+    return rows.reshape(-1)
+
+
+def _unpack_bytes_device(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Device mirror of ``ops.unpack_bytes`` (uint8 -> int32 indices)."""
+    per = 8 // bits if bits in (1, 2, 4) else 1
+    if per == 1:
+        return packed.to(torch.int32)
+    shifts = (torch.arange(per, device=packed.device) * bits)[None, :]
+    vals = (packed.reshape(-1, 1).to(torch.int32) >> shifts) \
+        & ((1 << bits) - 1)
+    return vals.reshape(tuple(packed.shape[:-1]) + (-1,)).to(torch.int32)
+
+
+def _unpack_layout_device(idx2d: torch.Tensor, lay) -> torch.Tensor:
+    """Device mirror of ``PaddedLayout.unpack_indices``: strip the
+    megakernel's padded (rows, cols) view down to flat coded order."""
+    idx2d = idx2d.reshape(lay.rows, lay.cols)
+    if lay.flat_n is not None:
+        return idx2d.reshape(-1)[:lay.flat_n]
+    if lay.band_valid is not None:
+        cols = torch.as_tensor(lay.coded_cols(), device=idx2d.device)
+        return idx2d[:lay.ch][:, cols].reshape(-1)
+    a = idx2d[:lay.ch].reshape(lay.ch, lay.n_sblocks, lay.sb_cols)
+    a = a[:, :, :lay.bs].reshape(lay.ch, -1)[:, :lay.m]
+    return a.reshape(-1)
+
+
+def _encode_wire(coded: torch.Tensor, spec: QuantSpec, chunk_bounds):
+    """Device entropy stage: coded-order indices (on the device) ->
+    finished coder-id-4 payload bytes (one, or one per chunk range)."""
+    from ..kernels import rans_coder
+    if chunk_bounds is None:
+        return rans_coder.encode_indices_device(coded, spec.n_levels)
+    return rans_coder.encode_index_chunks_device(coded, spec.n_levels,
+                                                 list(chunk_bounds))
+
+
+def _tile_hists_np(coded: np.ndarray, spec: QuantSpec) -> np.ndarray:
+    """Host per-tile histograms from coded-order indices:
+    (n_cgroups, n_sblocks, N); (1, 1, N) for per-tensor specs."""
+    n = spec.n_levels
+    if spec.plan is None:
+        return np.bincount(coded, minlength=n).reshape(1, 1, n) \
+            .astype(np.int32)
+    plan = spec.plan
+    c = plan.n_channels
+    m = coded.size // max(c, 1)
+    arr = coded.reshape(c, m)
+    gc = plan.channel_group_size
+    bounds = plan.coded_band_bounds(m)
+    out = np.zeros((plan.n_cgroups, plan.n_sblocks, n), np.int32)
+    for g in range(plan.n_cgroups):
+        rows = arr[g * gc:min((g + 1) * gc, c)]
+        for b in range(plan.n_sblocks):
+            out[g, b] = np.bincount(
+                rows[:, bounds[b]:bounds[b + 1]].ravel(), minlength=n)
+    return out
+
+
+def _dequantize(idx: torch.Tensor, spec: QuantSpec, dtype) -> torch.Tensor:
+    """Reconstruction from indices (torch formulas on idx's device)."""
+    spec = _normalize(spec)
+    if spec.plan is not None:
+        axis, c, m, lo, hi = _tile_tables(idx.shape, spec, idx.device)
+        im = torch.movedim(idx, axis, 0).reshape(c, m).long()
+        if isinstance(spec.ecsq, TileECSQ):
+            lv = host_tensor(spec.ecsq.levels, np.float32,
+                                 device=idx.device)
+            tid = torch.as_tensor(spec.plan.tile_ids_2d(m),
+                                  device=idx.device).long()
+            out = lv[tid, im]
+        else:
+            span_ = torch.maximum(hi - lo, torch.full_like(hi, _CHANNEL_EPS))
+            delta = _div(span_, torch.full_like(span_, spec.n_levels - 1))
+            out = lo + im.to(torch.float32) * delta
+        return _restore(out, idx.shape, axis, c, dtype)
+    if spec.ecsq is not None:
+        lv = host_tensor(spec.ecsq.levels, np.float32,
+                             device=idx.device)
+        return lv[idx.long()].to(dtype)
+    return uniform.dequantize(idx, spec.cmin, spec.cmax, spec.n_levels,
+                              dtype=dtype)
+
+
+def _check_cpu(t: torch.Tensor) -> torch.Tensor:
+    if t.device.type != "cpu":
+        raise ValueError("the torch backend is the CPU reference; CUDA "
+                         "tensors go through the CUDA backend")
+    return t
+
+
+class TorchBackend:
+    """Plain torch reference path on CPU tensors (mirrors the JAX
+    package's jnp backend method for method)."""
+
+    name = "torch"
+    device = torch.device("cpu")
+
+    def _tiled_qdq(self, x, spec: QuantSpec, want_deq: bool):
+        axis, c, m, lo, hi = _tile_tables(x.shape, spec, x.device)
+        xm = torch.movedim(x, axis, 0).reshape(c, m).to(torch.float32)
+        if isinstance(spec.ecsq, TileECSQ):
+            tid = torch.as_tensor(spec.plan.tile_ids_2d(m)).long()
+            thr = host_tensor(spec.ecsq.thresholds, np.float32)
+            xc = torch.clamp(xm, lo, hi)
+            idx = torch.zeros(xm.shape, dtype=torch.int32)
+            for k in range(spec.n_levels - 1):
+                idx += (xc >= thr[:, k][tid]).to(torch.int32)
+            deq = None
+            if want_deq:
+                lv = host_tensor(spec.ecsq.levels, np.float32)
+                deq = lv[tid, idx.long()]
+        else:
+            span_ = torch.maximum(hi - lo, torch.full_like(hi, _CHANNEL_EPS))
+            scale = _div(spec.n_levels - 1, span_)
+            xc = torch.clamp(xm, lo, hi)
+            q = torch.floor((xc - lo) * scale + 0.5)
+            idx = q.to(torch.int32)
+            deq = (lo + q * _div(span_, torch.full_like(
+                span_, spec.n_levels - 1))) if want_deq else None
+        idx = _restore(idx, x.shape, axis, c, torch.int32)
+        return idx, (_restore(deq, x.shape, axis, c, x.dtype)
+                     if want_deq else None)
+
+    def quantize(self, x, spec: QuantSpec):
+        # index-only path: host callers (encode/estimate_rate) would
+        # otherwise materialize a discarded reconstruction tensor
+        _check_cpu(x)
+        spec = _normalize(spec)
+        if spec.plan is not None:
+            return self._tiled_qdq(x, spec, want_deq=False)[0]
+        if spec.ecsq is not None:
+            return self._ecsq_idx(x, spec)
+        return uniform.quantize(x, spec.cmin, spec.cmax, spec.n_levels)
+
+    @staticmethod
+    def _ecsq_idx(x, spec: QuantSpec):
+        t = host_tensor(spec.ecsq.thresholds, np.float32)
+        xf = x.to(torch.float32)
+        xc = torch.clamp(xf, uniform._scalar(spec.cmin, xf),
+                         uniform._scalar(spec.cmax, xf))
+        return torch.searchsorted(t, xc.contiguous(), right=True) \
+            .to(torch.int32)
+
+    def quantize_dequantize(self, x, spec: QuantSpec):
+        _check_cpu(x)
+        spec = _normalize(spec)
+        if spec.plan is not None:
+            return self._tiled_qdq(x, spec, want_deq=True)
+        if spec.ecsq is not None:
+            idx = self._ecsq_idx(x, spec)
+            lv = host_tensor(spec.ecsq.levels, np.float32)
+            return idx, lv[idx.long()].to(x.dtype)
+        idx = uniform.quantize(x, spec.cmin, spec.cmax, spec.n_levels)
+        deq = uniform.dequantize(idx, spec.cmin, spec.cmax,
+                                 spec.n_levels, dtype=x.dtype)
+        return idx, deq
+
+    def dequantize(self, idx, spec: QuantSpec, dtype=torch.float32):
+        return _dequantize(_check_cpu(idx), spec, dtype)
+
+    def histogram(self, idx, n_levels: int):
+        from .rate_model import index_histogram
+        return index_histogram(_check_cpu(idx), n_levels)
+
+    def tile_histogram(self, idx, spec: QuantSpec):
+        """(n_cgroups, n_sblocks, N) per-tile index counts."""
+        spec = _normalize(spec)
+        if spec.plan is None:
+            return self.histogram(idx, spec.n_levels).reshape(1, 1, -1)
+        _check_cpu(idx)
+        plan = spec.plan
+        axis, c, m = plan.resolve(tuple(idx.shape))
+        im = torch.movedim(idx, axis, 0).reshape(c, m).long()
+        tid = torch.as_tensor(plan.tile_ids_2d(m)).long()
+        hist = torch.zeros((plan.n_tiles, spec.n_levels), dtype=torch.int32)
+        hist.index_put_((tid, im), torch.ones_like(im, dtype=torch.int32),
+                        accumulate=True)
+        return hist.reshape(plan.n_cgroups, plan.n_sblocks, spec.n_levels)
+
+    def coded_indices_device(self, x, spec: QuantSpec, bits: int):
+        """Coded-order indices on the tensor's device, no host transfer
+        (the emit_wire intermediate)."""
+        spec = _normalize(spec)
+        return _coded_order_device(self.quantize(x, spec), spec)
+
+    def encode_fused(self, x, spec: QuantSpec, bits: int,
+                     want_hist: bool = False, emit_wire: bool = False,
+                     chunk_bounds=None):
+        """Fused-encode contract on the reference path: coded-order
+        indices plus (optionally) host per-tile histograms; with
+        ``emit_wire`` the entropy stage returns finished payload bytes
+        instead (see the module docstring)."""
+        spec = _normalize(spec)
+        tr = tracer()
+        if emit_wire:
+            if want_hist:
+                raise ValueError("emit_wire returns wire bytes; per-tile "
+                                 "histograms need the index path")
+            with tr.span("fused_launch", backend=self.name), \
+                    tr.annotate("repro.encode_fused"):
+                coded = self.coded_indices_device(x, spec, bits)
+            return _encode_wire(coded, spec, chunk_bounds), None
+        with tr.span("fused_launch", backend=self.name), \
+                tr.annotate("repro.encode_fused"):
+            q = self.quantize(x, spec)
+        with tr.span("device_to_host"):
+            q = q.numpy()
+        with tr.span("host_unpack"):
+            coded = _coded_order(q, spec)
+        hists = _tile_hists_np(coded, spec) if want_hist else None
+        return coded, hists
+
+    def pack_indices(self, idx, bits: int):
+        """Host bit-pack (the wire layout every backend shares)."""
+        per = 8 // bits if bits in (1, 2, 4) else 1
+        if per == 1:
+            return idx.to(torch.uint8)
+        flat = idx.reshape(-1).to(torch.int32)
+        pad = (-flat.shape[0]) % per
+        if pad:
+            flat = torch.cat([flat, torch.zeros(pad, dtype=flat.dtype)])
+        shifts = torch.arange(per, dtype=torch.int32) * bits
+        return (flat.reshape(-1, per) << shifts).sum(-1).to(torch.uint8)
+
+
+class CudaBackend:
+    """Hand-written CUDA kernel path (mirrors the JAX package's Pallas
+    kernel backend on CUDA tensors).
+
+    Quantization runs the fused clip+quant kernel, histograms the index
+    histogram kernel, and the fused encode the megakernel plus the
+    device rANS stage.  Level counts above a kernel's histogram width
+    use the torch formulas on the device, exactly where the reference
+    uses jnp; tile plans and ECSQ raise until their kernels are ported.
+    """
+
+    name = "cuda"
+
+    def __init__(self) -> None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the CUDA backend needs a CUDA device and none is "
+                "available; pass backend='torch' for the CPU reference")
+        self.device = torch.device("cuda")
+
+    def _in(self, x: torch.Tensor) -> torch.Tensor:
+        if x.device.type != "cuda":
+            raise ValueError(f"the CUDA backend takes CUDA tensors, got "
+                             f"{x.device}")
+        return x
+
+    def quantize(self, x, spec: QuantSpec):
+        return self.quantize_dequantize(x, spec)[0]
+
+    def quantize_dequantize(self, x, spec: QuantSpec):
+        from ..kernels import ops
+        spec = _normalize(spec)
+        if spec.plan is not None:
+            raise NotImplementedError(_TILED_TODO.format("a TilePlan spec"))
+        if spec.ecsq is not None:
+            raise NotImplementedError(_ECSQ_TODO)
+        return ops.clip_quantize(self._in(x), cmin=float(spec.cmin),
+                                 cmax=float(spec.cmax),
+                                 n_levels=spec.n_levels)
+
+    def dequantize(self, idx, spec: QuantSpec, dtype=torch.float32):
+        return _dequantize(self._in(idx), spec, dtype)
+
+    def histogram(self, idx, n_levels: int):
+        from ..kernels import ops
+        from ..kernels.rate_hist import MAX_LEVELS
+        from .rate_model import index_histogram
+        if n_levels > MAX_LEVELS:
+            return index_histogram(self._in(idx), n_levels)
+        return ops.index_histogram(self._in(idx), n_levels=n_levels)
+
+    def tile_histogram(self, idx, spec: QuantSpec):
+        spec = _normalize(spec)
+        if spec.plan is None:
+            return self.histogram(idx, spec.n_levels).reshape(1, 1, -1)
+        raise NotImplementedError(_TILED_TODO.format("tile_histogram"))
+
+    def coded_indices_device(self, x, spec: QuantSpec, bits: int):
+        """Device coded-order indices, no host transfer: the megakernel's
+        packed output is unpacked and layout-stripped on the device (the
+        emit_wire intermediate)."""
+        from ..kernels import ops
+        from ..kernels.fused_clip_quant import HIST_WIDTH
+        spec = _normalize(spec)
+        if spec.plan is not None:
+            raise NotImplementedError(_TILED_TODO.format("a TilePlan spec"))
+        if spec.ecsq is not None:
+            raise NotImplementedError(_ECSQ_TODO)
+        if spec.n_levels > HIST_WIDTH:
+            return _coded_order_device(self.quantize(x, spec), spec)
+        packed, _, lay = ops.encode_fused(
+            self._in(x), float(spec.cmin), float(spec.cmax),
+            n_levels=spec.n_levels, bits=bits)
+        return _unpack_layout_device(_unpack_bytes_device(packed, bits), lay)
+
+    def encode_fused(self, x, spec: QuantSpec, bits: int,
+                     want_hist: bool = False, emit_wire: bool = False,
+                     chunk_bounds=None):
+        """One megakernel pass -> (packed bytes + tile hists) on the
+        device; the fetch here is the path's single transfer, and the
+        host only unpacks wire-width bytes back to indices.
+
+        ``emit_wire=True`` keeps going on the device: the unpacked
+        coded-order indices feed the device rANS stage, so only the
+        finished coder-id-4 payload crosses to the host."""
+        from ..kernels import ops
+        from ..kernels.fused_clip_quant import HIST_WIDTH
+        spec = _normalize(spec)
+        tr = tracer()
+        if emit_wire:
+            if want_hist:
+                raise ValueError("emit_wire returns wire bytes; per-tile "
+                                 "histograms need the index path")
+            with tr.span("fused_launch", backend=self.name), \
+                    tr.annotate("repro.encode_fused"):
+                coded = self.coded_indices_device(x, spec, bits)
+            return _encode_wire(coded, spec, chunk_bounds), None
+        if spec.plan is not None:
+            raise NotImplementedError(_TILED_TODO.format("a TilePlan spec"))
+        if spec.ecsq is not None:
+            raise NotImplementedError(_ECSQ_TODO)
+        if spec.n_levels > HIST_WIDTH:
+            # no fused kernel for wide histograms: kernel-quantize, then
+            # the host side of the contract
+            with tr.span("fused_launch", backend=self.name), \
+                    tr.annotate("repro.encode_fused"):
+                q = self.quantize(x, spec)
+                if tr.enabled:
+                    torch.cuda.synchronize(q.device)
+            with tr.span("device_to_host"):
+                q = q.cpu().numpy()
+            with tr.span("host_unpack"):
+                coded = _coded_order(q, spec)
+            return coded, (_tile_hists_np(coded, spec) if want_hist
+                           else None)
+        with tr.span("fused_launch", backend=self.name), \
+                tr.annotate("repro.encode_fused"):
+            packed, hist, lay = ops.encode_fused(
+                self._in(x), float(spec.cmin), float(spec.cmax),
+                n_levels=spec.n_levels, bits=bits)
+            if tr.enabled:
+                # bound the launch at the device sync so the transfer
+                # span below measures only the packed-bytes fetch
+                torch.cuda.synchronize(packed.device)
+        with tr.span("device_to_host"):
+            packed = packed.cpu().numpy()
+            hist = hist.cpu().numpy() if want_hist else hist
+        with tr.span("host_unpack"):
+            coded = lay.unpack_indices(ops.unpack_bytes(packed, bits))
+        hists = lay.group_hists(hist, spec.n_levels,
+                                HIST_WIDTH) if want_hist else None
+        return coded, hists
+
+    def pack_indices(self, idx, bits: int):
+        raise NotImplementedError(_PACK_TODO)
+
+
+_BACKENDS: dict[str, Any] = {}
+
+
+def get_backend(name: str | None = None):
+    """Resolve a backend by name; ``None`` is the CUDA backend, which
+    raises where no CUDA device exists."""
+    if name is None:
+        name = "cuda"
+    if name not in _BACKENDS:
+        if name == "torch":
+            _BACKENDS[name] = TorchBackend()
+        elif name == "cuda":
+            _BACKENDS[name] = CudaBackend()
+        else:
+            raise ValueError(f"unknown quant backend {name!r}")
+    return _BACKENDS[name]
+
+
+def spec_from_numpy(cmin, cmax, n_levels: int, channel_axis: int | None,
+                    ecsq=None) -> QuantSpec:
+    """Build a QuantSpec from host (numpy/float) calibration state."""
+    if channel_axis is None:
+        return QuantSpec(float(cmin), float(cmax), n_levels, None, ecsq)
+    return QuantSpec(np.asarray(cmin, np.float32),
+                     np.asarray(cmax, np.float32),
+                     n_levels, channel_axis, ecsq)

@@ -1,0 +1,153 @@
+"""Build, load and launch the hand-written CUDA kernels.
+
+The sources under ``repro_torch/csrc`` are compiled at first use with
+``nvcc`` into one shared library with a plain C interface, cached under
+``build/repro_torch/<hash of sources and flags>/`` at the repository
+root, and loaded with ``ctypes``.  Each translation unit compiles in its
+own ``nvcc`` process, all started together, before one link step.
+
+Every C entry point launches on the stream it is given, allocates
+nothing, and returns ``cudaGetLastError()``; :func:`launch` raises on a
+non-zero status and counts the launch in :data:`LAUNCHES`, so a run can
+show which kernels its main path went through.  A missing ``nvcc`` or a
+failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC")
+LIB_NAME = "librepro_torch_kernels.so"
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_SIGNATURES = {
+    "repro_clip_quant": (_P, _I, _L, _F, _F, _F, _F, _P, _P, _P),
+    "repro_encode_tiles": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
+                           _P, _P),
+    "repro_index_histogram": (_P, _L, _I, _P, _P),
+    "repro_rans_step": (_P, _P, _I, _I, _P, _P, _P, _P),
+}
+
+# kernel name -> launches since the last reset_launches()
+LAUNCHES: dict[str, int] = {"clip_quant": 0, "encode_tiles": 0,
+                            "index_histogram": 0, "rans_step": 0}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None   # wall time of this process's build
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA "
+                           "kernels are built from source at first use")
+    return found
+
+
+def _sources() -> tuple[list[Path], str]:
+    units = sorted(CSRC.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return units, h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    errors = []
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"$ {' '.join(c)}\n{out}")
+    if errors:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+
+
+def _build(out_dir: Path) -> Path:
+    nvcc = _nvcc()
+    units, _ = _sources()
+    work = out_dir / f"work.{os.getpid()}"     # private to this process
+    work.mkdir(parents=True, exist_ok=True)
+    objs = [work / (u.stem + ".o") for u in units]
+    _run_all([[nvcc, *NVCC_FLAGS, "-c", str(u), "-o", str(o)]
+              for u, o in zip(units, objs)])
+    tmp = work / LIB_NAME
+    _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    lib = out_dir / LIB_NAME
+    os.replace(tmp, lib)                        # atomic publish
+    shutil.rmtree(work, ignore_errors=True)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is None:
+            _, digest = _sources()
+            path = BUILD_ROOT / digest / LIB_NAME
+            if not path.exists():
+                t0 = time.perf_counter()
+                path = _build(path.parent)
+                build_seconds = time.perf_counter() - t0
+            lib = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def launch(kernel: str, symbol: str, *args) -> None:
+    """Call C entry point ``symbol`` (stream appended), raise on a bad
+    status, and count one launch of ``kernel``."""
+    fn = getattr(library(), symbol)
+    status = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if status != 0:
+        raise RuntimeError(f"{symbol} launch failed: CUDA error {status}")
+    LAUNCHES[kernel] += 1
+
+
+def check_cuda(name: str, t: torch.Tensor, dtypes=None, ndim=None) -> None:
+    """Validate a kernel argument: CUDA, contiguous, dtype and rank."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if dtypes is not None and t.dtype not in dtypes:
+        raise TypeError(f"{name} dtype {t.dtype} not in {dtypes}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape "
+                         f"{tuple(t.shape)}")

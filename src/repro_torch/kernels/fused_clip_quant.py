@@ -1,0 +1,191 @@
+"""Fused clip + uniform quantize kernels (paper eq. 1), CUDA for Hopper.
+
+Two kernels, each beside its plain torch version:
+
+* :func:`clip_quant_2d` replaces the Pallas kernel
+  ``repro/kernels/fused_clip_quant.py`` ``_kernel`` (``clip_quant_2d``):
+  per-tensor clip -> quantize -> dequantize, the ``codec=`` serving
+  hookup's fake-quant pass.  Source: ``csrc/fused_clip_quant.cu``
+  ``repro_clip_quant``.
+* :func:`encode_tiles_2d` replaces ``_kernel_encode``
+  (``encode_tiles_2d``): the encode megakernel -- clip -> quantize ->
+  bit-pack -> per-(row, band) histogram in one pass, the
+  ``codec_host_fn`` hookup's device side.  Source:
+  ``csrc/fused_clip_quant.cu`` ``repro_encode_tiles``.
+
+Both are bound by bytes on the card (one read per element, a few flops);
+each makes a single pass over device memory (see the source notes).
+
+Numerics follow the reference exactly.  The per-tensor kernel takes its
+range scalars as the reference forms them -- ``scale`` and ``inv_scale``
+divided in double on the host and rounded once to float32.  The tiled
+megakernel divides in float32 on the device, ``(N-1) / max(hi-lo,
+1e-12)`` with a correctly rounded divide.  Every multiply and add is
+rounded separately (no fused multiply-add), in the kernels and in the
+plain versions, whose divides are tensor-by-tensor (torch's ``scalar /
+tensor`` multiplies by a reciprocal instead).  Indices are therefore
+bit-exact with the reference; the reconstruction ``lo + q * inv_scale``
+matches the reference's jnp formula exactly and sits within one rounding
+of its interpreted Pallas kernel, whose compiler may fuse the two steps.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+
+HIST_WIDTH = 64        # lane width of the per-(row, band) histogram output
+_EPS = 1e-12           # degenerate-range guard of the tiled formula
+
+
+def _on_cpu(x: torch.Tensor) -> bool:
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return False
+
+
+def range_scalars(cmin: float, cmax: float, n_levels: int):
+    """float32 (lo, hi, scale, inv_scale) of the per-tensor formula: the
+    ratios divide in double and round once, as the reference's static
+    Python scalars do."""
+    cmin, cmax = float(cmin), float(cmax)
+    return (np.float32(cmin), np.float32(cmax),
+            np.float32((n_levels - 1) / (cmax - cmin)),
+            np.float32((cmax - cmin) / (n_levels - 1)))
+
+
+# -- kernel 1: per-tensor clip + quantize + dequantize -------------------------
+
+def clip_quant_plain(x: torch.Tensor, cmin: float, cmax: float,
+                     n_levels: int):
+    """Plain torch version of :func:`clip_quant_2d` (same arithmetic)."""
+    lo, hi, scale, inv = (torch.full((), float(v), dtype=torch.float32,
+                                     device=x.device)
+                          for v in range_scalars(cmin, cmax, n_levels))
+    xc = torch.clamp(x.to(torch.float32), lo, hi)
+    q = torch.floor((xc - lo) * scale + 0.5)
+    return q.to(torch.int32), (lo + q * inv).to(x.dtype)
+
+
+def clip_quant_2d(x: torch.Tensor, cmin: float, cmax: float,
+                  n_levels: int):
+    """Fused clip+quantize+dequantize of ``x`` (any shape).
+
+    Returns (idx int32, deq in ``x.dtype``), both shaped like ``x``."""
+    if _on_cpu(x):
+        return clip_quant_plain(x, cmin, cmax, n_levels)
+    _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
+    idx = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    deq = torch.empty_like(x)
+    if x.numel() == 0:
+        return idx, deq
+    lo, hi, scale, inv = range_scalars(cmin, cmax, n_levels)
+    _build.launch("clip_quant", "repro_clip_quant", x.data_ptr(),
+                  _build.DTYPE_CODES[x.dtype], x.numel(), float(lo),
+                  float(hi), float(scale), float(inv), idx.data_ptr(),
+                  deq.data_ptr())
+    return idx, deq
+
+
+# -- kernel 3: fused encode megakernel -----------------------------------------
+
+def pack_width(bits: int) -> int:
+    """Indices per packed byte: 8 // bits for 1/2/4-bit, else 1."""
+    return 8 // bits if bits in (1, 2, 4) else 1
+
+
+def band_valid_array(n_sblocks: int, bs: int, bs_last: int | None,
+                     band_valid=None, device=None) -> torch.Tensor:
+    """(n_sblocks,) int32 per-band valid element counts: explicit
+    ``band_valid`` (2-D ragged tiles) or the uniform-but-for-the-last
+    1-D rule."""
+    if band_valid is not None:
+        v = list(band_valid)
+    else:
+        v = [bs] * n_sblocks
+        v[-1] = bs if bs_last is None else bs_last
+    return torch.tensor(v, dtype=torch.int32, device=device)
+
+
+def quantize_rows(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                  n_levels: int) -> torch.Tensor:
+    """The tiled formula on broadcastable range tables: float32
+    ``floor((clip(x) - lo) * ((N-1) / max(hi - lo, 1e-12)) + 0.5)``."""
+    span = torch.maximum(hi - lo, torch.full_like(hi, _EPS))
+    scale = torch.full_like(span, n_levels - 1) / span
+    xc = torch.clamp(x.to(torch.float32), lo, hi)
+    return torch.floor((xc - lo) * scale + 0.5).to(torch.int32)
+
+
+def encode_tiles_plain(x: torch.Tensor, cmin: torch.Tensor,
+                       cmax: torch.Tensor, valid: torch.Tensor,
+                       n_levels: int, bits: int, sb_cols: int):
+    """Plain torch version of :func:`encode_tiles_2d` (same arithmetic)."""
+    per = pack_width(bits)
+    r, c = x.shape
+    nb = c // sb_cols
+    q = quantize_rows(x.reshape(r, nb, sb_cols),
+                      cmin.to(torch.float32).reshape(r, nb, 1),
+                      cmax.to(torch.float32).reshape(r, nb, 1), n_levels)
+    q3 = q.reshape(r, c // per, per)
+    acc = q3[:, :, 0].clone()
+    for k in range(1, per):
+        acc += q3[:, :, k] << (k * bits)
+    packed = acc.to(torch.uint8)
+    cols = torch.arange(sb_cols, device=x.device)
+    mask = cols[None, :] < valid.to(x.device)[:, None]        # (nb, sb_cols)
+    hist = torch.zeros((r, nb, HIST_WIDTH), dtype=torch.int32,
+                       device=x.device)
+    for n in range(n_levels):
+        hist[:, :, n] = ((q == n) & mask).sum(-1, dtype=torch.int32)
+    return packed, hist.reshape(r, nb * HIST_WIDTH)
+
+
+def encode_tiles_2d(x: torch.Tensor, cmin: torch.Tensor, cmax: torch.Tensor,
+                    n_levels: int, bits: int, sb_cols: int, bs: int,
+                    bs_last: int | None = None, band_valid=None):
+    """Fused encode over a banded 2-D view.
+
+    x: (R, C) with C == n_sblocks * sb_cols; cmin/cmax: (R, n_sblocks)
+    float32 per-(row, band) ranges; ``bs`` is the valid element count per
+    band (<= sb_cols) and ``bs_last`` the last band's; ``band_valid``
+    (n_sblocks,) overrides both with explicit per-band counts (2-D plans:
+    ragged edge tiles).  Returns (packed (R, C // per) uint8,
+    hist (R, n_sblocks * HIST_WIDTH) int32).
+    """
+    if n_levels > HIST_WIDTH:
+        raise ValueError(f"n_levels {n_levels} > {HIST_WIDTH}")
+    per = pack_width(bits)
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D, got shape {tuple(x.shape)}")
+    r, c = x.shape
+    if c % sb_cols or sb_cols % per:
+        raise ValueError(f"C {c} not a multiple of sb_cols {sb_cols}, or "
+                         f"sb_cols not a multiple of {per}")
+    nb = c // sb_cols
+    if tuple(cmin.shape) != (r, nb) or tuple(cmax.shape) != (r, nb):
+        raise ValueError(f"range tables must be {(r, nb)}")
+    valid = band_valid_array(nb, bs, bs_last, band_valid, device=x.device)
+    if _on_cpu(x):
+        return encode_tiles_plain(x, cmin, cmax, valid, n_levels, bits,
+                                  sb_cols)
+    _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
+    _build.check_cuda("cmin", cmin, (torch.float32,))
+    _build.check_cuda("cmax", cmax, (torch.float32,))
+    packed = torch.empty((r, c // per), dtype=torch.uint8, device=x.device)
+    hist = torch.zeros((r, nb * HIST_WIDTH), dtype=torch.int32,
+                       device=x.device)
+    if r == 0:
+        return packed, hist
+    _build.launch("encode_tiles", "repro_encode_tiles", x.data_ptr(),
+                  _build.DTYPE_CODES[x.dtype], r, c, sb_cols, nb,
+                  cmin.data_ptr(), cmax.data_ptr(), valid.data_ptr(),
+                  n_levels, bits, packed.data_ptr(), hist.data_ptr())
+    return packed, hist

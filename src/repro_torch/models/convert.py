@@ -1,0 +1,52 @@
+"""Parameters of the JAX package's model as the port's parameter dict.
+
+The JAX model keeps each group's layers as stacked ``(n_periods, ...)``
+leaves under ``params["groups"][g]["layers"][j]`` (j = position in the
+layer pattern); the port keeps one dict per layer in run order under
+``params["layers"]``.  :func:`params_from_numpy` takes the JAX pytree
+with its leaves as numpy arrays and unstacks it, so both packages
+compute the same function from the same weights.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..configs.base import ModelConfig
+from ..core.backend import host_tensor
+from .transformer import _check_dense, torch_dtype
+
+
+def _tensor(a, dtype, device):
+    arr = np.asarray(a)
+    if arr.dtype.kind not in "fiub":     # e.g. a bfloat16 extension dtype
+        arr = arr.astype(np.float32)
+    return host_tensor(arr, device=device).to(dtype)
+
+
+def _tree(node, fn):
+    if isinstance(node, dict):
+        return {k: _tree(v, fn) for k, v in node.items()}
+    return fn(node)
+
+
+def params_from_numpy(cfg: ModelConfig, tree, *, device=None):
+    """JAX-layout parameter tree (numpy leaves) -> port parameter dict."""
+    _check_dense(cfg)
+    dtype = torch_dtype(cfg)
+    conv = lambda a: _tensor(a, dtype, device)  # noqa: E731
+    out = {k: _tree(tree[k], conv)
+           for k in ("embed", "final_norm", "head") if k in tree}
+    layers = []
+    for group in tree["groups"]:
+        specs = group["layers"]
+        n_periods = int(np.asarray(specs[0]["norm1"]["scale"]).shape[0])
+        for p in range(n_periods):
+            for spec_params in specs:
+                layers.append(_tree(spec_params,
+                                    lambda a: conv(np.asarray(a)[p])))
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, config "
+                         f"{cfg.name} has {cfg.num_layers}")
+    out["layers"] = layers
+    return out

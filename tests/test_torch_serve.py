@@ -1,0 +1,118 @@
+"""Port vs reference: the serving engine with both split hookups.
+
+The reference's random weights are carried over with
+``params_from_numpy``, both codecs get the same calibration, and the two
+engines serve the same requests on the CPU (reduced codeqwen1.5-7b,
+float32).  Tolerance: generated tokens identical; the per-step rate
+estimates rtol 1e-5.
+"""
+
+import jax
+import numpy as np
+import pytest
+
+from repro import models as jm
+from repro.configs import get_config as jget_config
+from repro.configs import reduced as jreduced
+from repro.core import CodecConfig as JCodecConfig
+from repro.core import calibrate as jcalibrate
+from repro.serving import Request as JRequest
+from repro.serving import ServeEngine as JServeEngine
+from repro_torch import models as tm
+from repro_torch.configs import get_config, reduced
+from repro_torch.core import CodecConfig, calibrate
+from repro_torch.launch import serve as tserve
+from repro_torch.serving import Request, ServeEngine
+
+CODEC = dict(n_levels=4, clip_mode="manual", manual_cmin=-2.0,
+             manual_cmax=2.0)
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg = jreduced(jget_config("codeqwen1.5-7b"), layers=4)
+    tcfg = reduced(get_config("codeqwen1.5-7b"), layers=4)
+    jparams = jm.init_params(jcfg, jax.random.PRNGKey(0))
+    tparams = tm.params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams))
+    return jcfg, jparams, tcfg, tparams
+
+
+def _requests(cls, vocab):
+    """More requests than slots, ragged lengths: epochs and refills."""
+    rng = np.random.default_rng(0)
+    spec = [(5, 4), (7, 2), (3, 6), (6, 3), (4, 5), (2, 2)]
+    return [cls(prompt=rng.integers(0, vocab, p).astype(np.int32),
+                max_new_tokens=n) for p, n in spec]
+
+
+def _host_fn(codec):
+    def roundtrip(x):
+        payloads = list(codec.encode_stream(x, chunk_elems=96,
+                                            device_entropy=True))
+        recon = codec.decode_stream(payloads).reshape(x.shape)
+        return recon, 8.0 * sum(map(len, payloads)) / x.size
+    return roundtrip
+
+
+@pytest.mark.parametrize("hookup", ["codec", "codec_host_fn"])
+def test_engine_tokens_match_reference(models, hookup):
+    jcfg, jparams, tcfg, tparams = models
+    jcodec = jcalibrate(JCodecConfig(**CODEC))
+    tcodec = calibrate(CodecConfig(backend="torch", **CODEC))
+    if hookup == "codec":
+        jkw, tkw = dict(codec=jcodec), dict(codec=tcodec)
+    else:
+        jkw = dict(codec_host_fn=_host_fn(jcodec))
+        tkw = dict(codec_host_fn=_host_fn(tcodec))
+    jeng = JServeEngine(jcfg, jparams, slots=4, max_seq=16, **jkw)
+    teng = ServeEngine(tcfg, tparams, slots=4, max_seq=16, device="cpu",
+                       **tkw)
+    jreqs = jeng.generate(_requests(JRequest, jcfg.vocab_size))
+    treqs = teng.generate(_requests(Request, tcfg.vocab_size))
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+    assert all(r.done and len(r.out_tokens) == r.max_new_tokens
+               for r in treqs)
+    np.testing.assert_allclose(list(teng.rate_log), list(jeng.rate_log),
+                               rtol=1e-5)
+    jc, tc = jeng.counters, teng.counters
+    for key in ("steps", "slot_steps", "active_slot_steps", "prefills",
+                "refills", "epochs", "requests_done"):
+        assert tc[key] == jc[key], key
+    assert tc["refills"] > 0 and len(teng.latency_log) == len(treqs)
+
+
+def test_engine_without_codec_matches_reference(models):
+    jcfg, jparams, tcfg, tparams = models
+    jreqs = JServeEngine(jcfg, jparams, slots=2, max_seq=16).generate(
+        _requests(JRequest, jcfg.vocab_size)[:3])
+    treqs = ServeEngine(tcfg, tparams, slots=2, max_seq=16,
+                        device="cpu").generate(
+        _requests(Request, tcfg.vocab_size)[:3])
+    assert [r.out_tokens for r in treqs] == [r.out_tokens for r in jreqs]
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(models):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    _, _, tcfg, tparams = models
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(tcfg, tparams)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.main(["--arch", "codeqwen1.5-7b"])
+
+
+def test_serve_cli_on_cpu(capsys):
+    tserve.main(["--arch", "codeqwen1.5-7b", "--device", "cpu",
+                 "--requests", "3", "--prompt-len", "5", "--new-tokens",
+                 "3", "--codec-levels", "4", "--warmup-batches", "1"])
+    out = capsys.readouterr().out
+    assert "calibrated codec on" in out
+    assert "9 tokens in" in out and "split-link rate:" in out
+    assert "engine:" in out and "request latency:" in out
+
+
+def test_loopback_transport_not_ported_yet():
+    with pytest.raises(NotImplementedError, match="transport"):
+        tserve.main(["--arch", "codeqwen1.5-7b", "--device", "cpu",
+                     "--transport", "loopback", "--codec-levels", "4"])
