@@ -8,19 +8,26 @@ Phases, in order; any failure raises and exits non-zero:
 1. device  -- the card's name and ``nvidia-smi`` name + power limit;
 2. build   -- compile the hand-written CUDA kernels from ``src/repro_torch/
    csrc`` (timed);
-3. kernels -- every kernel of the serving path against its plain torch
-   version on the card, at the path's shapes (a (4, 64, 4096) prefill and
-   a (4, 1, 4096) decode boundary, seeded) and beyond (indices, packed
-   bytes, histograms and rANS blobs exact; reconstructions within 1 ulp),
-   with median times beside the plain version's and the bound;
+3. kernels -- every kernel of the serving paths against its plain torch
+   version on the card, at the paths' shapes (a (4, 64, 4096) prefill and
+   a (4, 1, 4096) decode boundary, seeded; per-channel plans at g=8) and
+   beyond (a 1-D tile plan with a short last block, a ragged 2-D plan;
+   indices, packed bytes, histograms, ECSQ reconstructions and rANS blobs
+   exact; uniform reconstructions within 1 ulp), with median times beside
+   the plain version's and the bound;
 4. serve   -- codeqwen1.5-7b at full width and depth (bf16, random
    weights from seed 0), 4 requests of 64 prompt + 8 new tokens, N=4,
-   through (a) the in-graph ``codec=`` hookup and (b) the host bitstream
-   hookup ``decode_stream(encode_stream(x, chunk_elems=65536,
-   device_entropy=True))``; launch counts are reset before and read after
-   each run, and every kernel must have launched on its hookup.  Each
-   hookup then runs once more under ``torch.profiler`` for the device's
-   busy time and idle share.
+   every codec calibrated from one set of warm-up activations:
+   (a) per-tensor, the in-graph ``codec=`` hookup; (b) per-tensor, the
+   host bitstream hookup ``decode_stream(encode_stream(x,
+   chunk_elems=65536, device_entropy=True))``; (c) per-channel g=8,
+   ``codec=``; (d) per-channel g=8, the bitstream hookup; (e) per-tensor
+   ECSQ, ``codec=``; (f) per-channel ECSQ g=8, the bitstream hookup.
+   Launch counts are reset before and read after each run, and every
+   kernel must have launched on its run; on the prefill boundary of (b),
+   (d) and (f) the wire's indices must equal the quantizer kernel's.
+   (a) and (b) then run once more under ``torch.profiler`` for the
+   device's busy time and idle share.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -29,7 +36,6 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
-import argparse
 import json
 import statistics
 import subprocess
@@ -47,9 +53,11 @@ MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM CUDA-core float32 peak
 LEVELS = (2, 3, 4, 8, 16, 64)
 N_SERVE = 4
+GROUP = 8                   # channels per range (the transformer-channel cell)
 CHUNK = 1 << 16
 REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 64, 8
 WARMUP_BATCHES = 2          # calibration batches of split-layer activations
+ECSQ_LAGRANGIAN = 0.05
 
 
 def bits_for(n_levels: int) -> int:
@@ -134,6 +142,114 @@ def check(cond: bool, what: str) -> None:
 
 
 # -- phase 3: kernels against their plain versions ------------------------------
+
+def channel_plan(d_model: int):
+    """The serving codec's per-channel plan: one range per GROUP channels
+    of the (B, T, d_model) boundary."""
+    from repro_torch.core.tiling import TilePlan
+    return TilePlan(channel_axis=-1, channel_group_size=GROUP,
+                    spatial_block_size=0, n_channels=d_model)
+
+
+def tiled_cases(boundary, dev):
+    """(name, x, plan) cases of the tiled kernels: the serving boundaries
+    under the g=8 channel plan, a 1-D tile plan with a short last block
+    (256 positions in blocks of 100), and a ragged 2-D plan on an NCHW
+    map (channels not innermost)."""
+    from repro_torch.core.tiling import TilePlan, spatial_grid
+    gen = torch.Generator(device=dev).manual_seed(2)
+    pre = boundary["prefill"]
+    d_model = pre.shape[-1]
+    tile = TilePlan(channel_axis=-1, channel_group_size=GROUP,
+                    spatial_block_size=100, n_channels=d_model,
+                    spatial_extent=pre.numel() // d_model)
+    conv = torch.randn(2, 32, 28, 28, device=dev, generator=gen) * 1.3 + 0.1
+    grid = spatial_grid(tuple(conv.shape), 1)
+    tile2d = TilePlan(channel_axis=1, channel_group_size=3,
+                      spatial_block_size=0, n_channels=32,
+                      spatial_extent=grid[0] * grid[1], spatial_hw=grid,
+                      spatial_block_hw=(5, 6))
+    return [("prefill", pre, channel_plan(d_model)),
+            ("decode", boundary["decode"], channel_plan(d_model)),
+            ("tile-short-last", pre, tile),
+            ("2d-ragged", conv.to(torch.bfloat16), tile2d)]
+
+
+def tile_ranges(plan, lo: float, hi: float, dev, seed: int):
+    """Per-tile float32 (lo, hi) tables around the boundary's range, one
+    tile degenerate (lo == hi)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (plan.n_cgroups, plan.n_sblocks)
+    t_lo = lo + torch.rand(shape, device=dev, generator=gen) * 0.8 - 0.4
+    t_hi = hi + torch.rand(shape, device=dev, generator=gen) * 0.8 - 0.4
+    t_hi.view(-1)[plan.n_tiles // 2] = t_lo.view(-1)[plan.n_tiles // 2]
+    return t_lo, t_hi
+
+
+def ecsq_tables(lo: torch.Tensor, hi: torch.Tensor, n_levels: int, dev,
+                seed: int):
+    """Ascending float32 thresholds (..., N-1) and levels (..., N) in each
+    [lo, hi] (levels pinned to the ends, thresholds at midpoints)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.sort(torch.rand(tuple(lo.shape) + (n_levels - 2,), device=dev,
+                              generator=gen), -1).values
+    lo, hi = lo[..., None], hi[..., None]
+    levels = torch.cat([lo, lo + (hi - lo) * u, hi], -1)
+    return ((levels[..., 1:] + levels[..., :-1]) / 2).contiguous(), \
+        levels.contiguous()
+
+
+def tiled_checks(boundary, dev):
+    """Exactness sweep of kernels #2, #5, #7 and #8 against their plain
+    versions, and of the megakernel's plan route against its CPU plain
+    version; returns #2's worst reconstruction distance in ulps."""
+    from repro_torch.kernels import ecsq_assign as ea
+    from repro_torch.kernels import fused_clip_quant as fcq
+    from repro_torch.kernels import ops, rate_hist
+
+    lo, hi = boundary["range"]
+    worst = 0
+    for name, x0, plan in tiled_cases(boundary, dev):
+        maps = fcq.tile_maps(plan, x0.shape, dev)
+        t_lo, t_hi = tile_ranges(plan, lo, hi, dev, seed=3)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x0.to(dtype)
+            for n in LEVELS:
+                what = f"{name} {dtype} N={n}"
+                ki, kd = fcq.clip_quant_tiles(x, t_lo, t_hi, n, plan)
+                pi, pd = fcq.clip_quant_tiles_plain(x, t_lo, t_hi, n, maps)
+                check(torch.equal(ki, pi), f"clip_quant_tiles idx {what}")
+                u = ulps(kd, pd)
+                check(u <= 1, f"clip_quant_tiles deq {what}: {u} ulp")
+                worst = max(worst, u)
+                check(torch.equal(
+                    rate_hist.index_histogram_tiles(ki, n, plan),
+                    rate_hist.index_histogram_tiles_plain(ki, n, maps)),
+                    f"index_histogram_tiles {what}")
+                thr, lvl = ecsq_tables(t_lo, t_hi, n, dev, seed=n)
+                ki, kd = ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl, plan)
+                pi, pd = ea.ecsq_assign_tiles_plain(x, t_lo, t_hi, thr, lvl,
+                                                    maps)
+                check(torch.equal(ki, pi) and torch.equal(kd, pd),
+                      f"ecsq_assign_tiles {what}")
+                thr, lvl = ecsq_tables(torch.tensor(lo, device=dev),
+                                       torch.tensor(hi, device=dev), n, dev,
+                                       seed=n)
+                ki, kd = ea.ecsq_assign(x, thr, lvl, lo, hi)
+                pi, pd = ea.ecsq_assign_plain(x, thr, lvl, lo, hi)
+                check(torch.equal(ki, pi) and torch.equal(kd, pd),
+                      f"ecsq_assign {what}")
+        for n in (2, 4, 16, 64):
+            bits = bits_for(n)
+            xf = x0.float()
+            kp, kh, _ = ops.encode_fused(xf, t_lo, t_hi, n_levels=n,
+                                         bits=bits, plan=plan)
+            pp, ph, _ = ops.encode_fused(xf.cpu(), t_lo.cpu(), t_hi.cpu(),
+                                         n_levels=n, bits=bits, plan=plan)
+            check(torch.equal(kp.cpu(), pp) and torch.equal(kh.cpu(), ph),
+                  f"encode_tiles plan route {name} N={n}")
+    return worst
+
 
 def kernel_checks(boundary, dev):
     """Exactness sweep of all four kernels against their plain versions;
@@ -322,9 +438,93 @@ def kernel_timings(boundary, worst_deq, dev):
         plain_kw=dict(reps=2, trials=3))
     print(f"rans_step timed on {steps} steps x {lanes} lanes "
           f"({CHUNK} indices, N={N_SERVE})")
+
+    # kernels 2, 5, 7, 8 at the prefill boundary: the g=8 per-channel plan
+    # of runs (c)-(f), 512 tiles, bf16 in/out
+    from repro_torch.kernels import ecsq_assign as ea
+    plan = channel_plan(x.shape[-1])
+    maps = fcq.tile_maps(plan, x.shape, dev)
+    t_lo, t_hi = tile_ranges(plan, lo, hi, dev, seed=3)
+    tiles = plan.n_tiles
+    ki, kd = fcq.clip_quant_tiles(x, t_lo, t_hi, N_SERVE, plan)
+    pi, pd = fcq.clip_quant_tiles_plain(x, t_lo, t_hi, N_SERVE, maps)
+    row("clip_quant_tiles", "fused_clip_quant.cu",
+        "src/repro/kernels/fused_clip_quant.py:55",
+        lambda: fcq.clip_quant_tiles(x, t_lo, t_hi, N_SERVE, plan),
+        lambda: fcq.clip_quant_tiles_plain(x, t_lo, t_hi, N_SERVE, maps),
+        n * (2 + 4 + 2) + x.shape[-1] * 4 + tiles * 8, 10 * n,
+        float(max((ki - pi).abs().max(),
+                  (kd.float() - pd.float()).abs().max())))
+    kh = rate_hist.index_histogram_tiles(ki, N_SERVE, plan)
+    ph = rate_hist.index_histogram_tiles_plain(ki, N_SERVE, maps)
+    row("index_histogram_tiles", "rate_hist.cu",
+        "src/repro/kernels/rate_hist.py:45",
+        lambda: rate_hist.index_histogram_tiles(ki, N_SERVE, plan),
+        lambda: rate_hist.index_histogram_tiles_plain(ki, N_SERVE, maps),
+        n * 4 + tiles * N_SERVE * 4, n, float((kh - ph).abs().max()))
+    # kernel 7: one designed quantizer; the library yardstick is
+    # torch.bucketize on a float32 copy (matching dtypes), indices only
+    thr1, lvl1 = ecsq_tables(torch.tensor(lo, device=dev),
+                             torch.tensor(hi, device=dev), N_SERVE, dev, 7)
+    ki, kd = ea.ecsq_assign(x, thr1, lvl1, lo, hi)
+    pi, pd = ea.ecsq_assign_plain(x, thr1, lvl1, lo, hi)
+    xf32 = x.float()
+    row("ecsq_assign", "ecsq_assign.cu", "src/repro/kernels/ecsq_assign.py:28",
+        lambda: ea.ecsq_assign(x, thr1, lvl1, lo, hi),
+        lambda: ea.ecsq_assign_plain(x, thr1, lvl1, lo, hi),
+        n * (2 + 4 + 2) + (2 * N_SERVE - 1) * 4, (N_SERVE + 1) * n,
+        float(max((ki - pi).abs().max(),
+                  (kd.float() - pd.float()).abs().max())),
+        library=lambda: torch.bucketize(xf32, thr1, right=True))
+    thr, lvl = ecsq_tables(t_lo, t_hi, N_SERVE, dev, 8)
+    ki, kd = ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl, plan)
+    pi, pd = ea.ecsq_assign_tiles_plain(x, t_lo, t_hi, thr, lvl, maps)
+    row("ecsq_assign_tiles", "ecsq_assign.cu",
+        "src/repro/kernels/ecsq_assign.py:56",
+        lambda: ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl, plan),
+        lambda: ea.ecsq_assign_tiles_plain(x, t_lo, t_hi, thr, lvl, maps),
+        n * (2 + 4 + 2) + x.shape[-1] * 4 + tiles * (2 + 2 * N_SERVE - 1) * 4,
+        (N_SERVE + 1) * n,
+        float(max((ki - pi).abs().max(),
+                  (kd.float() - pd.float()).abs().max())))
+
+    # kernel 3's plan route: the megakernel over the banded view of the
+    # float32 prefill boundary under the g=8 plan (run (d)); timed through
+    # its C entry, as above
+    lay = ops.banded_layout(tuple(x.shape), plan)
+    xp, _ = ops._banded_view(x.float(), lay, plan)
+    lo_r, hi_r = ops._row_ranges(t_lo, t_hi, lay)
+    valid_b = fcq.band_valid_array(lay.n_sblocks, lay.bs, lay.bs_last,
+                                   device=dev)
+    kp, kh3, _ = ops.encode_fused(x.float(), t_lo, t_hi, n_levels=N_SERVE,
+                                  bits=bits, plan=plan)
+    packed_b, hist_b = torch.empty_like(kp), torch.empty_like(kh3)
+
+    def encode_plan_launch():
+        hist_b.zero_()
+        _build.launch("encode_tiles", "repro_encode_tiles", xp.data_ptr(),
+                      0, lay.rows, lay.cols, lay.sb_cols, lay.n_sblocks,
+                      lo_r.data_ptr(), hi_r.data_ptr(), valid_b.data_ptr(),
+                      N_SERVE, bits, packed_b.data_ptr(), hist_b.data_ptr())
+
+    encode_plan_launch()
+    check(torch.equal(packed_b, kp) and torch.equal(hist_b, kh3),
+          "encode_tiles plan-route C entry vs wrapper")
+    pb = lay.rows * lay.cols
+    plan_b_ms, plan_by = bound(pb * 4 + pb // per + lay.rows * 64 * 4
+                               + 2 * lay.rows * 4, 8 * pb)
+    plan_route = {"ms": time_ms(encode_plan_launch), "bound_ms": plan_b_ms,
+                  "plain_ms": time_ms(lambda: fcq.encode_tiles_plain(
+                      xp, lo_r, hi_r, valid_b, N_SERVE, bits, lay.sb_cols))}
+    print(f"encode_tiles plan route: banded ({lay.rows}, {lay.cols}) view, "
+          f"kernel {plan_route['ms']:.4f} ms  plain "
+          f"{plan_route['plain_ms']:.4f} ms  bound {plan_b_ms:.4f} ms "
+          f"({plan_by})")
+
     check(all(r_["max_abs_err"] == 0 for r_ in rows
-              if r_["name"] != "clip_quant"),
-          "integer kernel outputs must match exactly")
+              if r_["name"] not in ("clip_quant", "clip_quant_tiles")),
+          "integer kernel outputs and ECSQ reconstructions must match "
+          "exactly")
     check(worst_deq <= 1, "clip_quant reconstruction beyond 1 ulp")
     print("times per call: device time of back-to-back calls; 'eager' is "
           "the python-dispatched wall time per call")
@@ -339,8 +539,57 @@ def kernel_timings(boundary, worst_deq, dev):
 
 # -- phase 4: serving ----------------------------------------------------------
 
-def serve(dev):
+def host_roundtrip(codec, seen: list):
+    """The bitstream hookup: encode on the card (device entropy stage),
+    decode on the host; keeps each boundary tensor and its payloads."""
+    def host_fn(x):
+        payloads = list(codec.encode_stream(x, chunk_elems=CHUNK,
+                                            device_entropy=True))
+        seen.append((x, payloads))
+        recon = codec.decode_stream(payloads).reshape(x.shape)
+        return recon, 8.0 * sum(map(len, payloads)) / x.size
+    return host_fn
+
+
+def wire_indices(x_pre, payloads, codec) -> np.ndarray:
+    """Coded-order indices the prefill boundary's coder-4 chunks carry."""
     from repro_torch.core import cabac
+    ce = CHUNK if codec.plan is None else \
+        codec.plan.align_chunk_elems(CHUNK, x_pre.shape)
+    idx = np.concatenate([
+        cabac.decode_indices(p[4:], min(ce, x_pre.size - i * ce), N_SERVE)
+        for i, p in enumerate(payloads[1:])])
+    for i, p in enumerate(payloads[1:]):
+        check(p[4] == 4 and p[5:] == cabac._encode_rans_sharded(
+            idx[i * ce:(i + 1) * ce], N_SERVE, 1)[1:],
+            f"chunk {i}: coder 4 != host coder 2")
+    return idx
+
+
+def calibrate_codecs(samples: np.ndarray) -> dict:
+    """The four serving codecs from one set of warm-up activations
+    ((tokens, d_model) float32), with their calibration seconds."""
+    from repro_torch.core import CodecConfig, calibrate
+    base = dict(n_levels=N_SERVE, clip_mode="model",
+                constrain_cmin_zero=False, backend="cuda")
+    channel = dict(granularity="channel", channel_axis=-1,
+                   channel_group_size=GROUP)
+    ecsq = dict(use_ecsq=True, ecsq_lagrangian=ECSQ_LAGRANGIAN)
+    kinds = {"tensor": ({}, samples.reshape(-1)),
+             "channel": (channel, samples),
+             "ecsq_tensor": (ecsq, samples.reshape(-1)),
+             "ecsq_channel": (dict(channel, **ecsq), samples)}
+    codecs = {}
+    for kind, (kw, data) in kinds.items():
+        t0 = time.perf_counter()
+        codecs[kind] = calibrate(CodecConfig(**base, **kw), samples=data)
+        print(f"calibrated {kind} codec on {data.size} warm-up activations "
+              f"in {time.perf_counter() - t0:.1f} s")
+    return codecs
+
+
+def serve(dev):
+    from repro_torch.core.backend import _coded_order_device
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.fused_clip_quant import quantize_rows
     from repro_torch.launch import serve as S
@@ -352,90 +601,90 @@ def serve(dev):
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"model: {cfg.name} {cfg.num_layers} layers d_model {cfg.d_model} "
           f"{n_params / 1e9:.2f} B params {cfg.dtype}; init {init_s:.1f} s")
-    ns = argparse.Namespace(codec_levels=N_SERVE, clip_mode="model",
-                            granularity="tensor", channel_group=1,
-                            warmup_batches=WARMUP_BATCHES,
-                            prompt_len=PROMPT_LEN, new_tokens=NEW_TOKENS)
-    codec = S._calibrate_warmup(cfg, params, ns, dev)
+    samples = S.warmup_samples(cfg, params, batches=WARMUP_BATCHES,
+                               seq_len=min(64, PROMPT_LEN + NEW_TOKENS),
+                               device=dev)
+    codecs = calibrate_codecs(samples)
     run_kw = dict(requests=REQUESTS, prompt_len=PROMPT_LEN,
                   new_tokens=NEW_TOKENS, device=dev)
-    counts = {}
+    counts, tok_s, rates, seen = {}, {}, {}, {}
 
     # warm-up without a codec: the library's first calls at these shapes
     # (matmul heuristics, allocator growth) stay out of the timed runs
     print("serve warm-up (no codec):")
     S.run(cfg, params, **run_kw)
 
-    # (a) in-graph codec= hookup: fused fake-quant + rate estimate
-    print("serve (a): codec= hookup")
-    _build.reset_launches()
-    eng_a, reqs_a, dt_a = S.run(cfg, params, codec=codec, **run_kw)
-    torch.cuda.synchronize()
-    counts["a"] = dict(_build.LAUNCHES)
-    _check_retired(reqs_a)
-    est_bpe = float(np.mean(eng_a.rate_log))
-    profiled("(a)", lambda: S.run(cfg, params, codec=codec, **run_kw))
+    runs = {"a": ("tensor", "codec"), "b": ("tensor", "host"),
+            "c": ("channel", "codec"), "d": ("channel", "host"),
+            "e": ("ecsq_tensor", "codec"), "f": ("ecsq_channel", "host")}
+    hookups = {}
+    for run_id, (kind, hookup) in runs.items():
+        codec = codecs[kind]
+        if hookup == "codec":
+            hookups[run_id] = dict(codec=codec)
+            label = "codec= hookup"
+        else:
+            seen[run_id] = []
+            hookups[run_id] = dict(codec_host_fn=host_roundtrip(
+                codec, seen[run_id]))
+            label = ("codec_host_fn = decode_stream(encode_stream(x, "
+                     f"chunk_elems={CHUNK}, device_entropy=True))")
+        print(f"serve ({run_id}): {kind} codec, {label}")
+        _build.reset_launches()
+        eng, reqs, dt = S.run(cfg, params, **hookups[run_id], **run_kw)
+        torch.cuda.synchronize()
+        counts[run_id] = dict(_build.LAUNCHES)
+        _check_retired(reqs)
+        tok_s[run_id] = REQUESTS * NEW_TOKENS / dt
+        rates[run_id] = float(np.mean(eng.rate_log))
+    for run_id in ("a", "b"):
+        profiled(f"({run_id})", lambda: S.run(cfg, params, **hookups[run_id],
+                                              **run_kw))
 
-    # (b) host bitstream hookup with the device entropy stage
-    seen = []
-
-    def host_fn(x):
-        payloads = list(codec.encode_stream(x, chunk_elems=CHUNK,
-                                            device_entropy=True))
-        seen.append((x, payloads))
-        recon = codec.decode_stream(payloads).reshape(x.shape)
-        return recon, 8.0 * sum(map(len, payloads)) / x.size
-
-    print("serve (b): codec_host_fn = decode_stream(encode_stream(x, "
-          f"chunk_elems={CHUNK}, device_entropy=True))")
-    _build.reset_launches()
-    eng_b, reqs_b, dt_b = S.run(cfg, params, codec_host_fn=host_fn, **run_kw)
-    torch.cuda.synchronize()
-    counts["b"] = dict(_build.LAUNCHES)
-    _check_retired(reqs_b)
-    wire_bpe = float(np.mean(eng_b.rate_log))
-    n_seen = len(seen)
-    profiled("(b)", lambda: S.run(cfg, params, codec_host_fn=host_fn,
-                                  **run_kw))
-    del seen[n_seen:]
-
-    # the prefill boundary tensor of (b): wire indices vs the clip-quant
-    # kernel's indices on the same tensor
-    x_pre, payloads = seen[0]
-    check(x_pre.shape == (REQUESTS, PROMPT_LEN, cfg.d_model),
-          f"prefill boundary shape {x_pre.shape}")
-    wire_idx = np.concatenate([
-        cabac.decode_indices(p[4:], min(CHUNK, x_pre.size - i * CHUNK),
-                             N_SERVE)
-        for i, p in enumerate(payloads[1:])])
-    xt = torch.as_tensor(x_pre, device=dev)
-    k_idx = ops.clip_quantize(xt, cmin=codec.cmin, cmax=codec.cmax,
-                              n_levels=N_SERVE)[0].reshape(-1).cpu().numpy()
-    # the wire's indices come from the tiled formula (float32 span and
-    # divide on the device), the clip-quant kernel's from the per-tensor
-    # one (scale divided in double): the wire must hold the tiled
-    # formula's indices exactly, so it differs from the clip-quant kernel
-    # only where those two roundings do
-    lo_t = torch.tensor([[np.float32(codec.cmin)]], device=dev)
-    hi_t = torch.tensor([[np.float32(codec.cmax)]], device=dev)
-    t_idx = quantize_rows(xt.reshape(1, -1), lo_t, hi_t,
-                          N_SERVE).reshape(-1).cpu().numpy()
-    check(np.array_equal(wire_idx, t_idx),
-          "wire indices differ from the megakernel formula")
-    print(f"prefill boundary: {x_pre.size} wire indices equal the "
-          f"clip-quant kernel's but for {int((t_idx != k_idx).sum())} "
-          "elements where the per-tensor and tiled range formulas round "
-          "apart")
-    for i, p in enumerate(payloads[1:]):
-        seg = wire_idx[i * CHUNK:(i + 1) * CHUNK]
-        check(p[4] == 4 and p[5:] == cabac._encode_rans_sharded(
-            seg, N_SERVE, 1)[1:], f"chunk {i}: coder 4 != host coder 2")
-    print(f"coder-4 payloads of {len(payloads) - 1} chunks equal host coder "
-          "2 past the id byte")
-    tok = REQUESTS * NEW_TOKENS
-    print(f"serve summary: (a) {tok / dt_a:.1f} tok/s estimated "
-          f"{est_bpe:.4f} bits/element; (b) {tok / dt_b:.1f} tok/s wire "
-          f"{wire_bpe:.4f} bits/element; init {init_s:.1f} s")
+    # the prefill boundary of each bitstream run: the wire's indices
+    # against the quantizer kernel's on the same tensor
+    for run_id in ("b", "d", "f"):
+        codec = codecs[runs[run_id][0]]
+        x_pre, payloads = seen[run_id][0]
+        check(x_pre.shape == (REQUESTS, PROMPT_LEN, cfg.d_model),
+              f"prefill boundary shape {x_pre.shape}")
+        wire = wire_indices(x_pre, payloads, codec)
+        xt = torch.as_tensor(x_pre, device=dev)
+        if run_id == "b":
+            # the wire carries the megakernel's tiled formula (float32
+            # span and divide on the device), the clip-quant kernel the
+            # per-tensor one (scale divided in double): the wire must hold
+            # the tiled formula's indices exactly, and differs from the
+            # clip-quant kernel only where those two roundings do
+            k_idx = ops.clip_quantize(xt, cmin=codec.cmin, cmax=codec.cmax,
+                                      n_levels=N_SERVE)[0]
+            lo_t = torch.tensor([[np.float32(codec.cmin)]], device=dev)
+            hi_t = torch.tensor([[np.float32(codec.cmax)]], device=dev)
+            t_idx = quantize_rows(xt.reshape(1, -1), lo_t, hi_t,
+                                  N_SERVE).reshape(-1).cpu().numpy()
+            check(np.array_equal(wire, t_idx),
+                  "(b) wire indices differ from the megakernel formula")
+            print(f"(b) prefill boundary: {x_pre.size} wire indices equal "
+                  "the clip-quant kernel's but for "
+                  f"{int((t_idx != k_idx.reshape(-1).cpu().numpy()).sum())} "
+                  "elements where the per-tensor and tiled range formulas "
+                  "round apart")
+            continue
+        # (d) and (f): one formula on both sides, so no exception
+        k_idx = codec.backend.quantize(xt, codec.spec())
+        coded = _coded_order_device(k_idx, codec.spec()).cpu().numpy()
+        check(np.array_equal(wire, coded),
+              f"({run_id}) wire indices differ from the "
+              f"{'ECSQ' if codec.tile_ecsq is not None else 'clip-quant'} "
+              "tile kernel's")
+        print(f"({run_id}) prefill boundary: {x_pre.size} wire indices "
+              "equal the tile kernel's in coded order, no exception")
+    print(f"coder-4 payloads of the prefill boundaries of (b), (d), (f) "
+          "equal host coder 2 past the id byte")
+    print("serve summary: " + "; ".join(
+        f"({r}) {runs[r][0]} {'estimated' if runs[r][1] == 'codec' else 'wire'}"
+        f" {rates[r]:.4f} bits/element {tok_s[r]:.1f} tok/s" for r in runs)
+        + f"; init {init_s:.1f} s")
     return counts
 
 
@@ -508,7 +757,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions, then timings
     boundary = synthetic_boundary(dev)
-    worst = kernel_checks(boundary, dev)
+    worst = max(kernel_checks(boundary, dev), tiled_checks(boundary, dev))
     print(f"kernels: exact against their plain versions (worst "
           f"reconstruction {worst} ulp)")
     rows = kernel_timings(boundary, worst, dev)
@@ -516,14 +765,23 @@ def main() -> int:
     # 4. serve
     counts = serve(dev)
 
-    # 5. launch counts of the serving runs
-    hookup = {"clip_quant": "a", "index_histogram": "a",
-              "encode_tiles": "b", "rans_step": "b"}
+    # 5. launch counts of the serving runs: each kernel's count is read
+    # from the run named here, and every kernel must launch on each run
+    # listed for it
+    runs_of = {"clip_quant": "a", "index_histogram": "ae",
+               "encode_tiles": "bd", "rans_step": "bdf",
+               "clip_quant_tiles": "c", "index_histogram_tiles": "c",
+               "ecsq_assign": "e", "ecsq_assign_tiles": "f"}
+    check(sorted(r_["name"] for r_ in rows) == sorted(runs_of),
+          "the kernel table must list every ported kernel")
     for r_ in rows:
-        r_["launches"] = counts[hookup[r_["name"]]][r_["name"]]
-        check(r_["launches"] > 0, f"{r_['name']} never launched on the "
-              f"serving path ({hookup[r_['name']]})")
-    print(f"launches: (a) {counts['a']}  (b) {counts['b']}")
+        r_["launches"] = counts[runs_of[r_["name"]][0]][r_["name"]]
+        for run_id in runs_of[r_["name"]]:
+            check(counts[run_id][r_["name"]] > 0, f"{r_['name']} never "
+                  f"launched on serving run ({run_id})")
+    for run_id, c in counts.items():
+        print(f"launches ({run_id}): "
+              + ", ".join(f"{k} {v}" for k, v in c.items() if v))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

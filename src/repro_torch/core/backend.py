@@ -43,12 +43,12 @@ is None`` with scalar cmin/cmax is the paper's per-tensor mode; a plan
 makes cmin/cmax (n_cgroups, n_sblocks) per-tile tables over the
 channel-major view.  The legacy per-channel spec form -- (C,) vectors
 plus ``channel_axis`` -- is normalized into a one-spatial-block plan on
-entry.  The torch backend covers every plan and ECSQ form; the CUDA
-backend covers the per-tensor uniform quantizer so far and raises
-``NotImplementedError`` for the rest until their kernels are ported.
-Dequantize-only calls (receiver side) use the torch formula on the
-tensor's device in both backends -- the reference has no kernel there
-either.
+entry.  Both backends cover every plan and ECSQ form; the CUDA backend
+raises ``NotImplementedError`` only for ``pack_indices``, whose kernel
+is not ported yet.  Dequantize-only calls (receiver side) use the torch
+formula on the tensor's device in both backends -- the reference has no
+kernel there either -- and so do level counts above a kernel's table
+width, exactly where the reference falls back to jnp.
 """
 
 from __future__ import annotations
@@ -64,11 +64,6 @@ from . import uniform
 from .tiling import TileECSQ, TilePlan
 
 _CHANNEL_EPS = 1e-12  # degenerate-range guard, shared with the tile kernel
-_TILED_TODO = ("{} on the CUDA backend waits for the tiled/channel "
-               "granularity slice (banded layout + kernels #2 and #5; "
-               "ROADMAP.md queue B)")
-_ECSQ_TODO = ("ECSQ on the CUDA backend waits for the ECSQ kernels "
-              "#7 and #8 (ROADMAP.md queue B)")
 _PACK_TODO = ("in-graph packing on the CUDA backend waits for the pack "
               "kernel #9 (ROADMAP.md queue B)")
 
@@ -174,7 +169,7 @@ def _coded_order_device(q: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     rows = torch.movedim(q, axis, 0).reshape(c, m)
     perm = plan.spatial_perm(m)
     if perm is not None:
-        rows = rows[:, torch.as_tensor(perm, device=q.device)]
+        rows = rows[:, torch.from_numpy(perm.copy()).to(q.device)]
     return rows.reshape(-1)
 
 
@@ -267,6 +262,64 @@ def _check_cpu(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
+def _tiled_qdq(x: torch.Tensor, spec: QuantSpec, want_deq: bool):
+    """Plan specs by the torch formulas on ``x``'s device (the reference's
+    jnp formulas): (indices, reconstruction or None)."""
+    dev = x.device
+    axis, c, m, lo, hi = _tile_tables(x.shape, spec, dev)
+    xm = torch.movedim(x, axis, 0).reshape(c, m).to(torch.float32)
+    if isinstance(spec.ecsq, TileECSQ):
+        tid = torch.as_tensor(spec.plan.tile_ids_2d(m), device=dev).long()
+        thr = host_tensor(spec.ecsq.thresholds, np.float32, dev)
+        xc = torch.clamp(xm, lo, hi)
+        idx = torch.zeros(xm.shape, dtype=torch.int32, device=dev)
+        for k in range(spec.n_levels - 1):
+            idx += (xc >= thr[:, k][tid]).to(torch.int32)
+        deq = None
+        if want_deq:
+            lv = host_tensor(spec.ecsq.levels, np.float32, dev)
+            deq = lv[tid, idx.long()]
+    else:
+        span_ = torch.maximum(hi - lo, torch.full_like(hi, _CHANNEL_EPS))
+        scale = _div(spec.n_levels - 1, span_)
+        xc = torch.clamp(xm, lo, hi)
+        q = torch.floor((xc - lo) * scale + 0.5)
+        idx = q.to(torch.int32)
+        deq = (lo + q * _div(span_, torch.full_like(
+            span_, spec.n_levels - 1))) if want_deq else None
+    idx = _restore(idx, x.shape, axis, c, torch.int32)
+    return idx, (_restore(deq, x.shape, axis, c, x.dtype)
+                 if want_deq else None)
+
+
+def _ecsq_qdq(x: torch.Tensor, spec: QuantSpec, want_deq: bool):
+    """Per-tensor ECSQ by the torch formulas on ``x``'s device."""
+    t = host_tensor(spec.ecsq.thresholds, np.float32, x.device)
+    xf = x.to(torch.float32)
+    xc = torch.clamp(xf, uniform._scalar(spec.cmin, xf),
+                     uniform._scalar(spec.cmax, xf))
+    idx = torch.searchsorted(t, xc.contiguous(), right=True) \
+        .to(torch.int32)
+    if not want_deq:
+        return idx, None
+    lv = host_tensor(spec.ecsq.levels, np.float32, x.device)
+    return idx, lv[idx.long()].to(x.dtype)
+
+
+def _tile_histogram(idx: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """(n_cgroups, n_sblocks, N) per-tile counts by the torch formula on
+    ``idx``'s device."""
+    plan = spec.plan
+    axis, c, m = plan.resolve(tuple(idx.shape))
+    im = torch.movedim(idx, axis, 0).reshape(c, m).long()
+    tid = torch.as_tensor(plan.tile_ids_2d(m), device=idx.device).long()
+    hist = torch.zeros((plan.n_tiles, spec.n_levels), dtype=torch.int32,
+                       device=idx.device)
+    hist.index_put_((tid, im), torch.ones_like(im, dtype=torch.int32),
+                    accumulate=True)
+    return hist.reshape(plan.n_cgroups, plan.n_sblocks, spec.n_levels)
+
+
 class TorchBackend:
     """Plain torch reference path on CPU tensors (mirrors the JAX
     package's jnp backend method for method)."""
@@ -274,61 +327,24 @@ class TorchBackend:
     name = "torch"
     device = torch.device("cpu")
 
-    def _tiled_qdq(self, x, spec: QuantSpec, want_deq: bool):
-        axis, c, m, lo, hi = _tile_tables(x.shape, spec, x.device)
-        xm = torch.movedim(x, axis, 0).reshape(c, m).to(torch.float32)
-        if isinstance(spec.ecsq, TileECSQ):
-            tid = torch.as_tensor(spec.plan.tile_ids_2d(m)).long()
-            thr = host_tensor(spec.ecsq.thresholds, np.float32)
-            xc = torch.clamp(xm, lo, hi)
-            idx = torch.zeros(xm.shape, dtype=torch.int32)
-            for k in range(spec.n_levels - 1):
-                idx += (xc >= thr[:, k][tid]).to(torch.int32)
-            deq = None
-            if want_deq:
-                lv = host_tensor(spec.ecsq.levels, np.float32)
-                deq = lv[tid, idx.long()]
-        else:
-            span_ = torch.maximum(hi - lo, torch.full_like(hi, _CHANNEL_EPS))
-            scale = _div(spec.n_levels - 1, span_)
-            xc = torch.clamp(xm, lo, hi)
-            q = torch.floor((xc - lo) * scale + 0.5)
-            idx = q.to(torch.int32)
-            deq = (lo + q * _div(span_, torch.full_like(
-                span_, spec.n_levels - 1))) if want_deq else None
-        idx = _restore(idx, x.shape, axis, c, torch.int32)
-        return idx, (_restore(deq, x.shape, axis, c, x.dtype)
-                     if want_deq else None)
-
     def quantize(self, x, spec: QuantSpec):
         # index-only path: host callers (encode/estimate_rate) would
         # otherwise materialize a discarded reconstruction tensor
         _check_cpu(x)
         spec = _normalize(spec)
         if spec.plan is not None:
-            return self._tiled_qdq(x, spec, want_deq=False)[0]
+            return _tiled_qdq(x, spec, want_deq=False)[0]
         if spec.ecsq is not None:
-            return self._ecsq_idx(x, spec)
+            return _ecsq_qdq(x, spec, want_deq=False)[0]
         return uniform.quantize(x, spec.cmin, spec.cmax, spec.n_levels)
-
-    @staticmethod
-    def _ecsq_idx(x, spec: QuantSpec):
-        t = host_tensor(spec.ecsq.thresholds, np.float32)
-        xf = x.to(torch.float32)
-        xc = torch.clamp(xf, uniform._scalar(spec.cmin, xf),
-                         uniform._scalar(spec.cmax, xf))
-        return torch.searchsorted(t, xc.contiguous(), right=True) \
-            .to(torch.int32)
 
     def quantize_dequantize(self, x, spec: QuantSpec):
         _check_cpu(x)
         spec = _normalize(spec)
         if spec.plan is not None:
-            return self._tiled_qdq(x, spec, want_deq=True)
+            return _tiled_qdq(x, spec, want_deq=True)
         if spec.ecsq is not None:
-            idx = self._ecsq_idx(x, spec)
-            lv = host_tensor(spec.ecsq.levels, np.float32)
-            return idx, lv[idx.long()].to(x.dtype)
+            return _ecsq_qdq(x, spec, want_deq=True)
         idx = uniform.quantize(x, spec.cmin, spec.cmax, spec.n_levels)
         deq = uniform.dequantize(idx, spec.cmin, spec.cmax,
                                  spec.n_levels, dtype=x.dtype)
@@ -346,15 +362,7 @@ class TorchBackend:
         spec = _normalize(spec)
         if spec.plan is None:
             return self.histogram(idx, spec.n_levels).reshape(1, 1, -1)
-        _check_cpu(idx)
-        plan = spec.plan
-        axis, c, m = plan.resolve(tuple(idx.shape))
-        im = torch.movedim(idx, axis, 0).reshape(c, m).long()
-        tid = torch.as_tensor(plan.tile_ids_2d(m)).long()
-        hist = torch.zeros((plan.n_tiles, spec.n_levels), dtype=torch.int32)
-        hist.index_put_((tid, im), torch.ones_like(im, dtype=torch.int32),
-                        accumulate=True)
-        return hist.reshape(plan.n_cgroups, plan.n_sblocks, spec.n_levels)
+        return _tile_histogram(_check_cpu(idx), spec)
 
     def coded_indices_device(self, x, spec: QuantSpec, bits: int):
         """Coded-order indices on the tensor's device, no host transfer
@@ -404,13 +412,15 @@ class TorchBackend:
 
 class CudaBackend:
     """Hand-written CUDA kernel path (mirrors the JAX package's Pallas
-    kernel backend on CUDA tensors).
+    kernel backend branch for branch, on CUDA tensors).
 
-    Quantization runs the fused clip+quant kernel, histograms the index
-    histogram kernel, and the fused encode the megakernel plus the
-    device rANS stage.  Level counts above a kernel's histogram width
-    use the torch formulas on the device, exactly where the reference
-    uses jnp; tile plans and ECSQ raise until their kernels are ported.
+    Quantization runs the per-tensor or per-tile clip+quant kernel, or
+    the per-tensor or per-tile ECSQ assignment kernel; histograms the
+    global or per-tile index histogram kernel; the fused encode the
+    megakernel over the flat or banded view, plus the device rANS stage.
+    Level counts above a kernel's table width use the torch formulas on
+    the device, exactly where the reference uses jnp; ``pack_indices``
+    raises until its kernel is ported.
     """
 
     name = "cuda"
@@ -433,12 +443,26 @@ class CudaBackend:
 
     def quantize_dequantize(self, x, spec: QuantSpec):
         from ..kernels import ops
+        from ..kernels.ecsq_assign import MAX_LEVELS
         spec = _normalize(spec)
+        x = self._in(x)
         if spec.plan is not None:
-            raise NotImplementedError(_TILED_TODO.format("a TilePlan spec"))
+            if isinstance(spec.ecsq, TileECSQ):
+                if spec.n_levels > MAX_LEVELS:
+                    return _tiled_qdq(x, spec, want_deq=True)
+                return ops.ecsq_quantize_tiled(
+                    x, spec.cmin, spec.cmax, spec.ecsq.thresholds,
+                    spec.ecsq.levels, n_levels=spec.n_levels, plan=spec.plan)
+            return ops.clip_quantize_tiled(x, spec.cmin, spec.cmax,
+                                           n_levels=spec.n_levels,
+                                           plan=spec.plan)
         if spec.ecsq is not None:
-            raise NotImplementedError(_ECSQ_TODO)
-        return ops.clip_quantize(self._in(x), cmin=float(spec.cmin),
+            if spec.n_levels > MAX_LEVELS:
+                return _ecsq_qdq(x, spec, want_deq=True)
+            return ops.ecsq_quantize(x, spec.ecsq.thresholds,
+                                     spec.ecsq.levels, cmin=float(spec.cmin),
+                                     cmax=float(spec.cmax))
+        return ops.clip_quantize(x, cmin=float(spec.cmin),
                                  cmax=float(spec.cmax),
                                  n_levels=spec.n_levels)
 
@@ -454,27 +478,38 @@ class CudaBackend:
         return ops.index_histogram(self._in(idx), n_levels=n_levels)
 
     def tile_histogram(self, idx, spec: QuantSpec):
+        from ..kernels import ops
+        from ..kernels.rate_hist import MAX_LEVELS
         spec = _normalize(spec)
         if spec.plan is None:
             return self.histogram(idx, spec.n_levels).reshape(1, 1, -1)
-        raise NotImplementedError(_TILED_TODO.format("tile_histogram"))
+        if spec.n_levels > MAX_LEVELS:
+            return _tile_histogram(self._in(idx), spec)
+        return ops.index_histogram_tiled(self._in(idx),
+                                         n_levels=spec.n_levels,
+                                         plan=spec.plan)
+
+    def _megakernel(self, x, spec: QuantSpec, bits: int):
+        """One encode megakernel pass: (packed, hist_raw, layout)."""
+        from ..kernels import ops
+        if spec.plan is None:
+            return ops.encode_fused(self._in(x), float(spec.cmin),
+                                    float(spec.cmax), n_levels=spec.n_levels,
+                                    bits=bits)
+        return ops.encode_fused(self._in(x), spec.cmin, spec.cmax,
+                                n_levels=spec.n_levels, bits=bits,
+                                plan=spec.plan)
 
     def coded_indices_device(self, x, spec: QuantSpec, bits: int):
         """Device coded-order indices, no host transfer: the megakernel's
         packed output is unpacked and layout-stripped on the device (the
-        emit_wire intermediate)."""
-        from ..kernels import ops
+        emit_wire intermediate); designed quantizers quantize through
+        their kernel and permute to coded order."""
         from ..kernels.fused_clip_quant import HIST_WIDTH
         spec = _normalize(spec)
-        if spec.plan is not None:
-            raise NotImplementedError(_TILED_TODO.format("a TilePlan spec"))
-        if spec.ecsq is not None:
-            raise NotImplementedError(_ECSQ_TODO)
-        if spec.n_levels > HIST_WIDTH:
+        if spec.ecsq is not None or spec.n_levels > HIST_WIDTH:
             return _coded_order_device(self.quantize(x, spec), spec)
-        packed, _, lay = ops.encode_fused(
-            self._in(x), float(spec.cmin), float(spec.cmax),
-            n_levels=spec.n_levels, bits=bits)
+        packed, _, lay = self._megakernel(x, spec, bits)
         return _unpack_layout_device(_unpack_bytes_device(packed, bits), lay)
 
     def encode_fused(self, x, spec: QuantSpec, bits: int,
@@ -499,13 +534,9 @@ class CudaBackend:
                     tr.annotate("repro.encode_fused"):
                 coded = self.coded_indices_device(x, spec, bits)
             return _encode_wire(coded, spec, chunk_bounds), None
-        if spec.plan is not None:
-            raise NotImplementedError(_TILED_TODO.format("a TilePlan spec"))
-        if spec.ecsq is not None:
-            raise NotImplementedError(_ECSQ_TODO)
-        if spec.n_levels > HIST_WIDTH:
-            # no fused kernel for wide histograms: kernel-quantize, then
-            # the host side of the contract
+        if spec.ecsq is not None or spec.n_levels > HIST_WIDTH:
+            # no fused kernel for designed quantizers / wide histograms:
+            # kernel-quantize, then the host side of the contract
             with tr.span("fused_launch", backend=self.name), \
                     tr.annotate("repro.encode_fused"):
                 q = self.quantize(x, spec)
@@ -519,9 +550,7 @@ class CudaBackend:
                            else None)
         with tr.span("fused_launch", backend=self.name), \
                 tr.annotate("repro.encode_fused"):
-            packed, hist, lay = ops.encode_fused(
-                self._in(x), float(spec.cmin), float(spec.cmax),
-                n_levels=spec.n_levels, bits=bits)
+            packed, hist, lay = self._megakernel(x, spec, bits)
             if tr.enabled:
                 # bound the launch at the device sync so the transfer
                 # span below measures only the packed-bytes fetch

@@ -37,6 +37,22 @@ __device__ __forceinline__ float quant_level(float x, float lo, float hi,
   return floorf(__fadd_rn(__fmul_rn(__fsub_rn(xc, lo), scale), 0.5f));
 }
 
+// Flat tile id of element i of a contiguous tensor seen as (outer, C,
+// inner) around its channel axis: channel c = (i / inner) % C, position
+// m = (i / (inner * C)) * inner + i % inner in the channel-major (C, M)
+// view, tile = cgroup[c] * n_sblocks + sblock[m] (sblock == nullptr: one
+// spatial block).  The TilePlan's own maps, so the tiled kernels read the
+// tensor in place: no banded copy, no padding.
+__device__ __forceinline__ int tile_of(unsigned i, unsigned C, unsigned inner,
+                                       const int* __restrict__ cgroup,
+                                       const int* __restrict__ sblock,
+                                       int n_sblocks) {
+  unsigned q = i / inner;
+  int t = __ldg(&cgroup[q % C]) * n_sblocks;
+  if (sblock != nullptr) t += __ldg(&sblock[(q / C) * inner + (i - q * inner)]);
+  return t;
+}
+
 }  // namespace repro
 
 // Launch a kernel templated on the element type named by a dtype code.

@@ -39,15 +39,24 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
     "repro_clip_quant": (_P, _I, _L, _F, _F, _F, _F, _P, _P, _P),
+    "repro_clip_quant_tiles": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
+                               _P, _P, _P),
     "repro_encode_tiles": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
                            _P, _P),
     "repro_index_histogram": (_P, _L, _I, _P, _P),
+    "repro_index_histogram_tiles": (_P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
+                                    _P, _P),
     "repro_rans_step": (_P, _P, _I, _I, _P, _P, _P, _P),
+    "repro_ecsq_assign": (_P, _I, _I, _F, _F, _P, _P, _I, _P, _P, _P),
+    "repro_ecsq_assign_tiles": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P,
+                                _P, _I, _P, _P, _P),
 }
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: dict[str, int] = {"clip_quant": 0, "encode_tiles": 0,
-                            "index_histogram": 0, "rans_step": 0}
+LAUNCHES: dict[str, int] = {"clip_quant": 0, "clip_quant_tiles": 0,
+                            "encode_tiles": 0, "index_histogram": 0,
+                            "index_histogram_tiles": 0, "rans_step": 0,
+                            "ecsq_assign": 0, "ecsq_assign_tiles": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -138,6 +147,18 @@ def launch(kernel: str, symbol: str, *args) -> None:
     if status != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {status}")
     LAUNCHES[kernel] += 1
+
+
+def ptr(t: torch.Tensor | None) -> int | None:
+    """Device pointer of ``t``; ``None`` (a null pointer) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def check_numel(name: str, t: torch.Tensor) -> None:
+    """Kernels that index with 32-bit integers take < 2**31 elements."""
+    if t.numel() >= 1 << 31:
+        raise ValueError(f"{name} has {t.numel()} elements; this kernel "
+                         "takes fewer than 2**31")
 
 
 def check_cuda(name: str, t: torch.Tensor, dtypes=None, ndim=None) -> None:

@@ -1,0 +1,139 @@
+"""Non-uniform (ECSQ) quantization by decision thresholds, CUDA for Hopper.
+
+Deploy-time counterpart of the paper's Algorithm 1: given designed
+thresholds t_1..t_{N-1} and reconstruction levels x_0..x_{N-1}, each
+activation maps to ``idx = #{t_k <= clip(x)}`` (ties go to the upper
+bin, as ``searchsorted(side="right")`` does) and ``deq = level[idx]``.
+Two kernels, each beside its plain torch version:
+
+* :func:`ecsq_assign` replaces the Pallas kernel
+  ``repro/kernels/ecsq_assign.py`` ``_kernel`` (``ecsq_assign_2d``): one
+  quantizer for the tensor.  Source: ``csrc/ecsq_assign.cu``
+  ``repro_ecsq_assign``.
+* :func:`ecsq_assign_tiles` replaces ``_kernel_tiles``
+  (``ecsq_assign_tiles_2d``): one quantizer and clip range per
+  ``TilePlan`` tile, read in the tensor's own layout through the plan's
+  element -> tile maps like the uniform tile kernel.  Source:
+  ``csrc/ecsq_assign.cu`` ``repro_ecsq_assign_tiles``.
+
+Both are bound by bytes at small N (one read, two writes per element);
+the threshold count costs N-1 compares per element (see the source
+note).  Tables enter as float32, as the reference casts them; the
+reconstruction is a table entry, so kernel and plain version agree
+exactly.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core.tiling import TilePlan
+from . import _build
+from .fused_clip_quant import (_on_cpu, channel_major, check_tables, restore,
+                               tile_ids, tile_maps)
+
+MAX_LEVELS = 64
+
+
+def _check_levels(thresholds: torch.Tensor, levels: torch.Tensor) -> int:
+    n_levels = levels.shape[-1]
+    if not 2 <= n_levels <= MAX_LEVELS:
+        raise ValueError(f"n_levels {n_levels} not in [2, {MAX_LEVELS}]")
+    if thresholds.shape[-1] != n_levels - 1:
+        raise ValueError(f"{thresholds.shape[-1]} thresholds for "
+                         f"{n_levels} levels")
+    return n_levels
+
+
+# -- kernel 7: one quantizer for the tensor ------------------------------------
+
+def ecsq_assign_plain(x: torch.Tensor, thresholds: torch.Tensor,
+                      levels: torch.Tensor, cmin: float, cmax: float):
+    """Plain torch version of :func:`ecsq_assign` (same count and
+    gather)."""
+    lo, hi = (torch.tensor(float(v), dtype=torch.float32, device=x.device)
+              for v in (cmin, cmax))
+    xc = torch.clamp(x.to(torch.float32), lo, hi)
+    idx = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
+    for t in thresholds:
+        idx += (xc >= t).to(torch.int32)
+    return idx, levels[idx.long()].to(x.dtype)
+
+
+def ecsq_assign(x: torch.Tensor, thresholds: torch.Tensor,
+                levels: torch.Tensor, cmin: float, cmax: float):
+    """ECSQ quantize + dequantize of ``x`` (any shape).
+
+    thresholds (N-1,) and levels (N,): float32 on ``x``'s device; the
+    clip range rounds to float32.  Returns (idx int32, deq in
+    ``x.dtype``), both shaped like ``x``."""
+    _check_levels(thresholds, levels)
+    if _on_cpu(x):
+        return ecsq_assign_plain(x, thresholds, levels, cmin, cmax)
+    _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
+    _build.check_cuda("thresholds", thresholds, (torch.float32,), ndim=1)
+    _build.check_cuda("levels", levels, (torch.float32,), ndim=1)
+    _build.check_numel("x", x)
+    idx = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    deq = torch.empty_like(x)
+    if x.numel():
+        _build.launch("ecsq_assign", "repro_ecsq_assign", x.data_ptr(),
+                      _build.DTYPE_CODES[x.dtype], x.numel(), float(cmin),
+                      float(cmax), thresholds.data_ptr(), levels.data_ptr(),
+                      levels.shape[0], idx.data_ptr(), deq.data_ptr())
+    return idx, deq
+
+
+# -- kernel 8: one quantizer per tile ------------------------------------------
+
+def ecsq_assign_tiles_plain(x: torch.Tensor, lo: torch.Tensor,
+                            hi: torch.Tensor, thresholds: torch.Tensor,
+                            levels: torch.Tensor, maps):
+    """Plain torch version of :func:`ecsq_assign_tiles`: the reference's
+    per-tile compare loop over the channel-major view."""
+    t = tile_ids(maps)
+    xc = torch.clamp(channel_major(x, maps).to(torch.float32),
+                     lo.reshape(-1)[t], hi.reshape(-1)[t])
+    n_levels = levels.shape[-1]
+    thr = thresholds.reshape(-1, n_levels - 1)
+    idx = torch.zeros(xc.shape, dtype=torch.int32, device=x.device)
+    for k in range(n_levels - 1):
+        idx += (xc >= thr[:, k][t]).to(torch.int32)
+    deq = levels.reshape(-1, n_levels)[t, idx.long()]
+    return restore(idx, x.shape, maps), restore(deq, x.shape, maps).to(x.dtype)
+
+
+def ecsq_assign_tiles(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                      thresholds: torch.Tensor, levels: torch.Tensor,
+                      plan: TilePlan):
+    """Per-tile ECSQ quantize + dequantize of ``x`` (any shape the plan
+    takes).
+
+    lo/hi: (n_cgroups, n_sblocks) float32 clip ranges; thresholds
+    (n_cgroups, n_sblocks, N-1) and levels (n_cgroups, n_sblocks, N)
+    float32 tables (flat tile id = cgroup * n_sblocks + sblock), all on
+    ``x``'s device.  Returns (idx int32, deq in ``x.dtype``)."""
+    n_levels = _check_levels(thresholds, levels)
+    maps = tile_maps(plan, x.shape, x.device)
+    check_tables(plan, lo=lo, hi=hi, thresholds=thresholds, levels=levels)
+    if _on_cpu(x):
+        return ecsq_assign_tiles_plain(x, lo, hi, thresholds, levels, maps)
+    _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
+    for name, t in (("lo", lo), ("hi", hi), ("thresholds", thresholds),
+                    ("levels", levels)):
+        _build.check_cuda(name, t, (torch.float32,))
+    _build.check_numel("x", x)
+    idx = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    deq = torch.empty_like(x)
+    if x.numel():
+        _build.launch("ecsq_assign_tiles", "repro_ecsq_assign_tiles",
+                      x.data_ptr(), _build.DTYPE_CODES[x.dtype], x.numel(),
+                      maps.c, maps.inner, maps.cgroup.data_ptr(),
+                      _build.ptr(maps.sblock), maps.n_sblocks, lo.data_ptr(),
+                      hi.data_ptr(), thresholds.data_ptr(),
+                      levels.data_ptr(), n_levels, idx.data_ptr(),
+                      deq.data_ptr())
+    return idx, deq

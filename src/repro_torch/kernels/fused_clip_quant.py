@@ -1,26 +1,36 @@
 """Fused clip + uniform quantize kernels (paper eq. 1), CUDA for Hopper.
 
-Two kernels, each beside its plain torch version:
+Three kernels, each beside its plain torch version:
 
 * :func:`clip_quant_2d` replaces the Pallas kernel
   ``repro/kernels/fused_clip_quant.py`` ``_kernel`` (``clip_quant_2d``):
   per-tensor clip -> quantize -> dequantize, the ``codec=`` serving
   hookup's fake-quant pass.  Source: ``csrc/fused_clip_quant.cu``
   ``repro_clip_quant``.
+* :func:`clip_quant_tiles` replaces ``_kernel_tiles``
+  (``clip_quant_tiles_2d``, ``clip_quant_rows_2d``): the same with one
+  range per :class:`~repro_torch.core.tiling.TilePlan` tile, the
+  ``codec=`` hookup's pass for channel and tile granularities.  It reads
+  the tensor in its own layout through the plan's element -> tile maps
+  (:func:`tile_maps`) instead of the reference's banded, lane-padded
+  copy, and writes both outputs in that layout.  Source:
+  ``csrc/fused_clip_quant.cu`` ``repro_clip_quant_tiles``.
 * :func:`encode_tiles_2d` replaces ``_kernel_encode``
   (``encode_tiles_2d``): the encode megakernel -- clip -> quantize ->
   bit-pack -> per-(row, band) histogram in one pass, the
   ``codec_host_fn`` hookup's device side.  Source:
   ``csrc/fused_clip_quant.cu`` ``repro_encode_tiles``.
 
-Both are bound by bytes on the card (one read per element, a few flops);
-each makes a single pass over device memory (see the source notes).
+All are bound by bytes on the card (one read per element, a few
+flops); each makes a single pass over device memory (see the source
+notes).
 
 Numerics follow the reference exactly.  The per-tensor kernel takes its
 range scalars as the reference forms them -- ``scale`` and ``inv_scale``
 divided in double on the host and rounded once to float32.  The tiled
-megakernel divides in float32 on the device, ``(N-1) / max(hi-lo,
-1e-12)`` with a correctly rounded divide.  Every multiply and add is
+kernel and the megakernel divide in float32 on the device, ``(N-1) /
+max(hi-lo, 1e-12)`` and ``max(hi-lo, 1e-12) / (N-1)`` with correctly
+rounded divides.  Every multiply and add is
 rounded separately (no fused multiply-add), in the kernels and in the
 plain versions, whose divides are tensor-by-tensor (torch's ``scalar /
 tensor`` multiplies by a reciprocal instead).  Indices are therefore
@@ -34,9 +44,13 @@ or raises.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from ..core.tiling import TilePlan
 from . import _build
 
 HIST_WIDTH = 64        # lane width of the per-(row, band) histogram output
@@ -91,6 +105,123 @@ def clip_quant_2d(x: torch.Tensor, cmin: float, cmax: float,
                   _build.DTYPE_CODES[x.dtype], x.numel(), float(lo),
                   float(hi), float(scale), float(inv), idx.data_ptr(),
                   deq.data_ptr())
+    return idx, deq
+
+
+# -- kernel 2: per-tile clip + quantize + dequantize ---------------------------
+
+class TileMaps(NamedTuple):
+    """Element -> tile geometry of one tensor shape under a TilePlan, with
+    its maps on the tensor's device; shared by the tiled kernels (#2, #5,
+    #8) and their plain versions."""
+
+    axis: int                     # channel axis, normalized
+    c: int                        # channels
+    m: int                        # flattened spatial extent (channel-major)
+    inner: int                    # elements after the channel axis in memory
+    n_sblocks: int
+    group_size: int
+    cgroup: torch.Tensor          # (C,) int32 channel -> channel group
+    sblock: torch.Tensor | None   # (M,) int32 position -> spatial block
+    #                               (None: the plan has one block)
+    bounds: torch.Tensor          # (n_sblocks + 1,) int32 coded band bounds
+    perm: torch.Tensor | None     # (M,) int32 coded -> spatial position
+    #                               (2-D plans; None: identity)
+    max_tile: int                 # elements of the largest tile
+
+
+@functools.lru_cache(maxsize=64)
+def _tile_maps(plan: TilePlan, shape: tuple[int, ...],
+               device: torch.device) -> TileMaps:
+    axis, c, m = plan.resolve(shape)
+    inner = int(np.prod(shape[axis + 1:], dtype=np.int64))
+    perm = plan.spatial_perm(m)
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.int32), device=device)
+
+    return TileMaps(axis, c, m, inner, plan.n_sblocks,
+                    plan.channel_group_size, dev(plan.cgroup_ids()),
+                    dev(plan.sblock_ids(m)) if plan.n_sblocks > 1 else None,
+                    dev(plan.coded_band_bounds(m)),
+                    None if perm is None else dev(perm),
+                    min(plan.channel_group_size, c)
+                    * int(plan.band_sizes(m).max()))
+
+
+def tile_maps(plan: TilePlan, shape, device) -> TileMaps:
+    """The (cached) :class:`TileMaps` of ``shape`` under ``plan`` on
+    ``device``; raises if the shape does not fit the plan."""
+    return _tile_maps(plan, tuple(int(s) for s in shape),
+                      torch.device(device))
+
+
+def tile_ids(maps: TileMaps) -> torch.Tensor:
+    """int64 flat tile id of every element of the channel-major (C, M)
+    view: (C, M), or (C, 1) to broadcast when the plan has one block."""
+    t = maps.cgroup.long()[:, None] * maps.n_sblocks
+    return t if maps.sblock is None else t + maps.sblock.long()[None, :]
+
+
+def channel_major(x: torch.Tensor, maps: TileMaps) -> torch.Tensor:
+    """``x`` as its channel-major (C, M) view."""
+    return torch.movedim(x, maps.axis, 0).reshape(maps.c, maps.m)
+
+
+def restore(a: torch.Tensor, shape, maps: TileMaps) -> torch.Tensor:
+    """Inverse of :func:`channel_major` for a tensor of ``shape``."""
+    moved = (maps.c,) + tuple(s for d, s in enumerate(shape)
+                              if d != maps.axis)
+    return torch.movedim(a.reshape(moved), 0, maps.axis)
+
+
+def check_tables(plan: TilePlan, **tables: torch.Tensor) -> None:
+    """Per-tile tables must be (n_cgroups, n_sblocks, ...)."""
+    want = (plan.n_cgroups, plan.n_sblocks)
+    for name, t in tables.items():
+        if tuple(t.shape[:2]) != want:
+            raise ValueError(f"{name} must be shaped {want}, got "
+                             f"{tuple(t.shape)}")
+
+
+def clip_quant_tiles_plain(x: torch.Tensor, lo: torch.Tensor,
+                           hi: torch.Tensor, n_levels: int, maps: TileMaps):
+    """Plain torch version of :func:`clip_quant_tiles`: the reference's
+    tiled formula over the channel-major view, each element's range
+    gathered by its tile id."""
+    t = tile_ids(maps)
+    lo_e, hi_e = lo.reshape(-1)[t], hi.reshape(-1)[t]
+    q = quantize_rows(channel_major(x, maps), lo_e, hi_e, n_levels)
+    span = torch.maximum(hi_e - lo_e, torch.full_like(hi_e, _EPS))
+    deq = lo_e + q.to(torch.float32) * (
+        span / torch.full_like(span, n_levels - 1))
+    return restore(q, x.shape, maps), restore(deq, x.shape, maps).to(x.dtype)
+
+
+def clip_quant_tiles(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                     n_levels: int, plan: TilePlan):
+    """Per-tile clip+quantize+dequantize of ``x`` (any shape the plan
+    takes).
+
+    lo/hi: (n_cgroups, n_sblocks) float32 range tables on ``x``'s device.
+    Returns (idx int32, deq in ``x.dtype``), both shaped like ``x``."""
+    maps = tile_maps(plan, x.shape, x.device)
+    check_tables(plan, lo=lo, hi=hi)
+    if _on_cpu(x):
+        return clip_quant_tiles_plain(x, lo, hi, n_levels, maps)
+    _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
+    _build.check_cuda("lo", lo, (torch.float32,))
+    _build.check_cuda("hi", hi, (torch.float32,))
+    _build.check_numel("x", x)
+    idx = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    deq = torch.empty_like(x)
+    if x.numel() == 0:
+        return idx, deq
+    _build.launch("clip_quant_tiles", "repro_clip_quant_tiles", x.data_ptr(),
+                  _build.DTYPE_CODES[x.dtype], x.numel(), maps.c, maps.inner,
+                  maps.cgroup.data_ptr(), _build.ptr(maps.sblock),
+                  maps.n_sblocks, lo.data_ptr(), hi.data_ptr(), n_levels,
+                  idx.data_ptr(), deq.data_ptr())
     return idx, deq
 
 

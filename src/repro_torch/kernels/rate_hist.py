@@ -5,11 +5,16 @@ N-bin histogram of quantizer indices.  :func:`index_histogram_2d`
 replaces the Pallas kernel ``repro/kernels/rate_hist.py`` ``_kernel``
 (``index_histogram_2d``), the ``codec=`` serving hookup's rate estimate.
 Source: ``csrc/rate_hist.cu`` ``repro_index_histogram``.
+:func:`index_histogram_tiles` replaces ``_kernel_tiles``
+(``index_histogram_tiles_2d`` plus the wrapper's fold into channel
+groups): one N-bin histogram per ``TilePlan`` tile, the tiled codecs'
+rate estimate.  Source:
+``csrc/rate_hist.cu`` ``repro_index_histogram_tiles``.
 
-Bound by bytes on the card (one int32 read per index).  The kernel
-counts into per-warp shared-memory bins and adds each block's non-zero
-bins to a zeroed (64,) output with one atomic each (see the source
-note).
+Both are bound by bytes on the card (one int32 read per index).  The
+kernels count into per-warp shared-memory bins; the global one adds each
+block's non-zero bins to a zeroed (64,) output with one atomic each, the
+tiled one gives each tile its own block (see the source notes).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -19,7 +24,9 @@ from __future__ import annotations
 
 import torch
 
+from ..core.tiling import TilePlan
 from . import _build
+from .fused_clip_quant import channel_major, tile_ids, tile_maps
 
 MAX_LEVELS = 64
 
@@ -47,3 +54,45 @@ def index_histogram_2d(idx: torch.Tensor, n_levels: int) -> torch.Tensor:
                       idx.data_ptr(), idx.numel(), n_levels,
                       hist.data_ptr())
     return hist[:n_levels]
+
+
+def index_histogram_tiles_plain(idx: torch.Tensor, n_levels: int,
+                                maps) -> torch.Tensor:
+    """Plain torch version of :func:`index_histogram_tiles`: counts of
+    each value in [0, n_levels) by tile id over the channel-major view."""
+    im = channel_major(idx, maps).long()
+    tid = tile_ids(maps).expand(maps.c, maps.m)
+    ok = (im >= 0) & (im < n_levels)
+    n_tiles = (maps.c + maps.group_size - 1) // maps.group_size \
+        * maps.n_sblocks
+    hist = torch.zeros(n_tiles * n_levels, dtype=torch.int32,
+                       device=idx.device)
+    sel = (tid * n_levels + im)[ok]
+    hist.index_add_(0, sel, torch.ones_like(sel, dtype=torch.int32))
+    return hist.reshape(-1, maps.n_sblocks, n_levels)
+
+
+def index_histogram_tiles(idx: torch.Tensor, n_levels: int,
+                          plan: TilePlan) -> torch.Tensor:
+    """idx: int32 indices shaped like a tensor the plan takes.  Returns
+    (n_cgroups, n_sblocks, n_levels) int32 per-tile counts of each value
+    in [0, n_levels); other values are not counted."""
+    if n_levels > MAX_LEVELS:
+        raise ValueError(f"n_levels {n_levels} > {MAX_LEVELS}")
+    maps = tile_maps(plan, idx.shape, idx.device)
+    if idx.device.type == "cpu":
+        return index_histogram_tiles_plain(idx, n_levels, maps)
+    if idx.device.type != "cuda":
+        raise ValueError(f"unsupported device {idx.device}")
+    _build.check_cuda("idx", idx, (torch.int32,))
+    _build.check_numel("idx", idx)
+    shape = (plan.n_cgroups, plan.n_sblocks, n_levels)
+    if not idx.numel():
+        return torch.zeros(shape, dtype=torch.int32, device=idx.device)
+    hist = torch.empty(shape, dtype=torch.int32, device=idx.device)
+    _build.launch("index_histogram_tiles", "repro_index_histogram_tiles",
+                  idx.data_ptr(), maps.c, maps.inner, maps.group_size,
+                  plan.n_tiles, maps.n_sblocks, maps.bounds.data_ptr(),
+                  _build.ptr(maps.perm), maps.max_tile, n_levels,
+                  hist.data_ptr())
+    return hist

@@ -10,7 +10,8 @@ The codec is calibrated from a *warm-up batch of real split-layer
 activations* (``--clip-mode model|empirical|minmax|aciq``, the paper's
 calibration modes); ``--clip-mode manual`` keeps the fixed [-8, 8] range.
 ``--granularity channel`` (with ``--channel-group``) calibrates a
-TilePlan codec; on the CUDA device that waits for the tiled kernels.
+TilePlan codec with one range per group of d_model channels; on the CUDA
+device it runs the per-tile quantize and histogram kernels.
 
 ``--transport loopback`` (the framed socket transport) is not ported yet
 and raises.
@@ -24,6 +25,34 @@ import time
 import numpy as np
 
 
+def warmup_samples(cfg, params, *, batches: int, seq_len: int,
+                   device) -> np.ndarray:
+    """Split-layer activations of ``batches`` warm-up batches (4 random
+    sequences of ``seq_len`` tokens each) as float32 (tokens, d_model):
+    the calibration samples of the serving codec."""
+    import torch
+
+    from ..data import DataConfig, stream
+    from ..models import forward
+
+    probe = {}
+
+    def probe_fn(x):
+        probe["x"] = x
+        return x, 0.0
+
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=seq_len)
+    chunks = []
+    with torch.inference_mode():
+        for _, batch in zip(range(batches), stream(dcfg)):
+            forward(cfg, params, torch.as_tensor(batch["tokens"],
+                                                 device=device),
+                    codec_fn=probe_fn)
+            chunks.append(probe["x"].to(torch.float32).cpu().numpy()
+                          .reshape(-1, cfg.d_model))
+    return np.concatenate(chunks, axis=0)
+
+
 def _calibrate_warmup(cfg, params, args, device):
     """Calibrate the codec on a warm-up batch of split-layer activations.
 
@@ -34,8 +63,6 @@ def _calibrate_warmup(cfg, params, args, device):
     import torch
 
     from ..core import CodecConfig, calibrate
-    from ..data import DataConfig, stream
-    from ..models import forward
 
     backend = "cuda" if torch.device(device).type == "cuda" else "torch"
     if args.clip_mode == "manual":
@@ -50,23 +77,9 @@ def _calibrate_warmup(cfg, params, args, device):
                        granularity=args.granularity, channel_axis=-1,
                        channel_group_size=args.channel_group,
                        backend=backend)
-    probe = {}
-
-    def probe_fn(x):
-        probe["x"] = x
-        return x, 0.0
-
-    dcfg = DataConfig(vocab_size=cfg.vocab_size, batch=4,
-                      seq_len=min(64, args.prompt_len + args.new_tokens))
-    chunks = []
-    with torch.inference_mode():
-        for _, batch in zip(range(args.warmup_batches), stream(dcfg)):
-            forward(cfg, params, torch.as_tensor(batch["tokens"],
-                                                 device=device),
-                    codec_fn=probe_fn)
-            chunks.append(probe["x"].to(torch.float32).cpu().numpy()
-                          .reshape(-1, cfg.d_model))
-    samples = np.concatenate(chunks, axis=0)
+    samples = warmup_samples(
+        cfg, params, batches=args.warmup_batches,
+        seq_len=min(64, args.prompt_len + args.new_tokens), device=device)
     if args.granularity == "tensor":
         samples = samples.reshape(-1)
     codec = calibrate(ccfg, samples=samples)

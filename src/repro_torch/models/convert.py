@@ -14,7 +14,7 @@ import numpy as np
 
 from ..configs.base import ModelConfig
 from ..core.backend import host_tensor
-from .transformer import _check_dense, torch_dtype
+from .transformer import _check_dense, resolve_device, torch_dtype
 
 
 def _tensor(a, dtype, device):
@@ -30,9 +30,11 @@ def _tree(node, fn):
     return fn(node)
 
 
-def params_from_numpy(cfg: ModelConfig, tree, *, device=None):
-    """JAX-layout parameter tree (numpy leaves) -> port parameter dict."""
+def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
+    """JAX-layout parameter tree (numpy leaves) -> port parameter dict on
+    ``device`` (the card unless the CPU is asked for)."""
     _check_dense(cfg)
+    device = resolve_device(device)
     dtype = torch_dtype(cfg)
     conv = lambda a: _tensor(a, dtype, device)  # noqa: E731
     out = {k: _tree(tree[k], conv)

@@ -103,14 +103,27 @@ def _check_dense(cfg: ModelConfig) -> None:
 # parameter init
 # ---------------------------------------------------------------------------
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist (no silent
+    drop to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but no CUDA "
+                           "device is available; pass device='cpu' for "
+                           "the CPU path")
+    return dev
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
-                device=None):
-    """Random parameters drawn from ``generator`` (on ``device``).
+                device="cuda"):
+    """Random parameters drawn from ``generator`` (on ``device``, the
+    card unless the CPU is asked for; ``generator`` must live there too).
 
     Same shapes and scales as the JAX package's init; the numbers differ
     (a different generator).  To compute the same function as a JAX
     model, convert its parameters with ``params_from_numpy``."""
     _check_dense(cfg)
+    device = resolve_device(device)
     dtype = torch_dtype(cfg)
     params = {"embed": {"table": L._normal(
         generator, (cfg.vocab_size, cfg.d_model), dtype, device, 0.02)},

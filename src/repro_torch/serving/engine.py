@@ -29,7 +29,7 @@ from ..configs.base import ModelConfig
 from ..core.codec import FeatureCodec
 from ..models import (decode_from_boundary, decode_step, decode_to_boundary,
                       init_cache, prefill, prefill_from_boundary,
-                      prefill_to_boundary)
+                      prefill_to_boundary, resolve_device)
 from ..obs.metrics import BPE_BUCKETS, MetricsRegistry
 from ..obs.tracing import span
 
@@ -50,17 +50,6 @@ class Request:
         if self.t_admit is None or self.t_done is None:
             return None
         return self.t_done - self.t_admit
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must exist (no silent
-    drop to the CPU)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested but no CUDA "
-                           "device is available; pass device='cpu' for "
-                           "the CPU path")
-    return dev
 
 
 class ServeEngine:

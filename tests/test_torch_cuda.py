@@ -6,14 +6,20 @@ where no CUDA device exists and run on the card with
 
 This file imports only torch and the port, so it runs where JAX is not
 installed.  Tolerances: indices, packed bytes, histograms and rANS blobs
-exact; reconstructions within 1 ulp of their dtype.
+exact; reconstructions within 1 ulp of their dtype (the kernels and
+their plain versions round the same steps, so the checks below hold them
+bit-identical).
 """
 
+import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import binarization, rans
-from repro_torch.kernels import _build
+from repro_torch.core.backend import QuantSpec, get_backend
+from repro_torch.core.ecsq import design_ecsq
+from repro_torch.core.tiling import TileECSQ, TilePlan, spatial_grid
+from repro_torch.kernels import _build, ecsq_assign
 from repro_torch.kernels import fused_clip_quant as fcq
 from repro_torch.kernels import ops, rans_coder, rate_hist
 
@@ -81,3 +87,185 @@ def test_wrappers_refuse_bad_arguments(dev):
         rate_hist.index_histogram_2d(torch.zeros(8, device=dev), 4)
     with pytest.raises(ValueError, match="contiguous"):
         fcq.clip_quant_2d(torch.zeros(8, 8, device=dev).t(), 0.0, 1.0, 4)
+
+
+# -- tiled and ECSQ kernels (#2, #5, #7, #8) ----------------------------------
+
+# (shape, channel_axis, channel_group, spatial_block, block_hw)
+PLANS = {
+    "channel-g8": ((8, 33, 256), -1, 8, 0, None),
+    "tile-short-last": ((1000, 64), -1, 4, 300, None),
+    "2d-ragged-nchw": ((2, 16, 13, 11), 1, 3, 0, (4, 3)),
+}
+
+
+def _plan(name):
+    shape, axis, gc, bs, bhw = PLANS[name]
+    c = shape[axis]
+    m = int(np.prod(shape)) // c
+    kw = dict(channel_axis=axis, channel_group_size=gc, n_channels=c)
+    if bhw is not None:
+        kw.update(spatial_block_size=0, spatial_extent=m,
+                  spatial_hw=spatial_grid(shape, axis),
+                  spatial_block_hw=bhw)
+    else:
+        kw.update(spatial_block_size=bs, spatial_extent=m if bs else None)
+    return shape, TilePlan(**kw)
+
+
+def _ranges(plan, seed=0):
+    """Per-tile float32 (lo, hi) tables, one tile degenerate."""
+    rng = np.random.default_rng([seed, plan.n_tiles])
+    shape = (plan.n_cgroups, plan.n_sblocks)
+    lo = rng.uniform(-3, 0, shape).astype(np.float32)
+    hi = (lo + rng.uniform(0.5, 4, shape)).astype(np.float32)
+    hi.flat[plan.n_tiles // 2] = lo.flat[plan.n_tiles // 2]
+    return lo, hi
+
+
+def _ecsq_tables(lo, hi, n_levels, seed=0):
+    """Sorted float32 (thresholds (..., N-1), levels (..., N))."""
+    rng = np.random.default_rng([seed, n_levels])
+    lo = np.asarray(lo, np.float64)[..., None]
+    hi = np.asarray(hi, np.float64)[..., None]
+    u = np.sort(rng.uniform(0, 1, lo.shape[:-1] + (n_levels - 2,)), -1)
+    levels = np.concatenate([lo, lo + (hi - lo) * u, hi], -1)
+    thresholds = (levels[..., 1:] + levels[..., :-1]) / 2
+    return thresholds.astype(np.float32), levels.astype(np.float32)
+
+
+def _advanced(before, **kernels):
+    return all(_build.LAUNCHES[k] == before[k] + n for k, n in kernels.items())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_levels", [2, 4, 16, 64])
+@pytest.mark.parametrize("name", list(PLANS))
+def test_clip_quant_tiles_and_tile_histogram(dev, name, n_levels, dtype):
+    shape, plan = _plan(name)
+    g = torch.Generator(device=dev).manual_seed(n_levels)
+    x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.3).to(dtype)
+    lo, hi = (torch.from_numpy(t).to(dev) for t in _ranges(plan))
+    maps = fcq.tile_maps(plan, shape, dev)
+    before = dict(_build.LAUNCHES)
+    ki, kd = fcq.clip_quant_tiles(x, lo, hi, n_levels, plan)
+    pi, pd = fcq.clip_quant_tiles_plain(x, lo, hi, n_levels, maps)
+    assert torch.equal(ki, pi)
+    assert torch.equal(kd, pd)
+    kh = rate_hist.index_histogram_tiles(ki, n_levels, plan)
+    assert torch.equal(kh, rate_hist.index_histogram_tiles_plain(
+        ki, n_levels, maps))
+    assert int(kh.sum()) == x.numel()
+    assert _advanced(before, clip_quant_tiles=1, index_histogram_tiles=1)
+
+
+def test_tile_histogram_of_large_tiles(dev):
+    """Tiles larger than one block's part add their parts atomically."""
+    plan = TilePlan(channel_axis=-1, channel_group_size=64,
+                    spatial_block_size=0, n_channels=128)
+    g = torch.Generator(device=dev).manual_seed(5)
+    idx = torch.randint(-1, 9, (3000, 128), device=dev, generator=g,
+                        dtype=torch.int32)
+    maps = fcq.tile_maps(plan, idx.shape, dev)       # 192,000 per tile
+    assert torch.equal(rate_hist.index_histogram_tiles(idx, 8, plan),
+                       rate_hist.index_histogram_tiles_plain(idx, 8, maps))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_levels", [2, 4, 16, 64])
+def test_ecsq_assign(dev, n_levels, dtype):
+    g = torch.Generator(device=dev).manual_seed(n_levels)
+    x = (torch.randn(70001, device=dev, generator=g) * 2 + 0.3).to(dtype)
+    cmin, cmax = -1.7, 2.9
+    thr, lvl = _ecsq_tables(np.float32(cmin), np.float32(cmax), n_levels)
+    x[3] = float(thr[(n_levels - 1) // 2])     # a tie: the upper bin
+    thr[(n_levels - 1) // 2] = x[3].float().item()
+    thr = np.sort(thr)
+    t, lv = torch.from_numpy(thr).to(dev), torch.from_numpy(lvl).to(dev)
+    before = dict(_build.LAUNCHES)
+    ki, kd = ecsq_assign.ecsq_assign(x, t, lv, cmin, cmax)
+    pi, pd = ecsq_assign.ecsq_assign_plain(x, t, lv, cmin, cmax)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    assert _advanced(before, ecsq_assign=1)
+    xc = x.float().clamp(np.float32(cmin), np.float32(cmax))
+    assert torch.equal(ki, torch.bucketize(xc, t, right=True).int())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_levels", [2, 4, 16, 64])
+@pytest.mark.parametrize("name", list(PLANS))
+def test_ecsq_assign_tiles(dev, name, n_levels, dtype):
+    shape, plan = _plan(name)
+    g = torch.Generator(device=dev).manual_seed(n_levels)
+    x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.3).to(dtype)
+    lo, hi = _ranges(plan)
+    thr, lvl = _ecsq_tables(lo, hi, n_levels)
+    args = [torch.from_numpy(t).to(dev) for t in (lo, hi, thr, lvl)]
+    maps = fcq.tile_maps(plan, shape, dev)
+    before = dict(_build.LAUNCHES)
+    ki, kd = ecsq_assign.ecsq_assign_tiles(x, *args, plan)
+    pi, pd = ecsq_assign.ecsq_assign_tiles_plain(x, *args, maps)
+    assert torch.equal(ki, pi) and torch.equal(kd, pd)
+    assert _advanced(before, ecsq_assign_tiles=1)
+
+
+def _backends_agree(spec, x_cpu, bits):
+    """CudaBackend on the card and TorchBackend on the CPU copy give the
+    same indices, reconstructions, histograms and coded orders."""
+    cb, tb = get_backend("cuda"), get_backend("torch")
+    x = x_cpu.to("cuda")
+    ki, kd = cb.quantize_dequantize(x, spec)
+    ti, td = tb.quantize_dequantize(x_cpu, spec)
+    assert torch.equal(ki.cpu(), ti) and torch.equal(kd.cpu(), td)
+    assert torch.equal(cb.tile_histogram(ki, spec).cpu(),
+                       tb.tile_histogram(ti, spec))
+    kc, kh = cb.encode_fused(x, spec, bits, want_hist=True)
+    tc, th = tb.encode_fused(x_cpu, spec, bits, want_hist=True)
+    assert np.array_equal(kc, tc) and np.array_equal(kh, th)
+    assert torch.equal(cb.coded_indices_device(x, spec, bits).cpu(),
+                       tb.coded_indices_device(x_cpu, spec, bits))
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_cuda_backend_matches_torch_backend_on_plans(dev, name):
+    shape, plan = _plan(name)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(shape)
+                         .astype(np.float32) * 2)
+    lo, hi = _ranges(plan)
+    before = dict(_build.LAUNCHES)
+    _backends_agree(QuantSpec(lo, hi, 4, plan.channel_axis, plan=plan), x,
+                    bits=2)
+    # qdq + tile_histogram; encode_fused + coded_indices_device
+    assert _advanced(before, clip_quant_tiles=1, index_histogram_tiles=1,
+                     encode_tiles=2)
+
+
+def test_cuda_backend_matches_torch_backend_on_ecsq(dev):
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy((rng.standard_normal((8, 33, 256)) * 2)
+                         .astype(np.float32))
+    q = design_ecsq(x.numpy().reshape(-1)[::7], 4, 0.05, -2.5, 3.0)
+    before = dict(_build.LAUNCHES)
+    _backends_agree(QuantSpec(-2.5, 3.0, 4, ecsq=q), x, bits=2)
+    assert _advanced(before, ecsq_assign=3, index_histogram=1)
+    shape, plan = _plan("channel-g8")
+    lo, hi = _ranges(plan)
+    thr, lvl = _ecsq_tables(lo.reshape(-1), hi.reshape(-1), 4)
+    spec = QuantSpec(lo, hi, 4, -1, TileECSQ(levels=lvl, thresholds=thr),
+                     plan)
+    before = dict(_build.LAUNCHES)
+    _backends_agree(spec, x, bits=2)
+    assert _advanced(before, ecsq_assign_tiles=3, index_histogram_tiles=1)
+
+
+def test_tiled_wrappers_refuse_bad_arguments(dev):
+    shape, plan = _plan("channel-g8")
+    lo, hi = (torch.from_numpy(t).to(dev) for t in _ranges(plan))
+    x = torch.zeros(shape, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fcq.clip_quant_tiles(x.transpose(0, 1).contiguous().transpose(0, 1),
+                             lo, hi, 4, plan)
+    with pytest.raises(TypeError):
+        fcq.clip_quant_tiles(x, lo.double(), hi.double(), 4, plan)
+    with pytest.raises(TypeError):
+        rate_hist.index_histogram_tiles(x, 4, plan)

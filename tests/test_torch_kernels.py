@@ -139,15 +139,6 @@ def test_flat_layout_matches_reference(n):
         dataclasses.astuple(jops.flat_layout(n))
 
 
-def test_tiled_wrapper_raises_until_ported():
-    from repro_torch.core.tiling import TilePlan
-    plan = TilePlan(channel_axis=-1, channel_group_size=1,
-                    spatial_block_size=0, n_channels=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tops.encode_fused(torch.zeros(8, 4), np.zeros((4, 1)),
-                          np.ones((4, 1)), n_levels=4, bits=2, plan=plan)
-
-
 def test_cpu_tensors_take_plain_versions():
     _build.reset_launches()
     x = torch.from_numpy(_x(2048))

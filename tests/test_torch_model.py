@@ -27,7 +27,7 @@ def pair():
     tcfg = reduced(get_config("codeqwen1.5-7b"), layers=4)
     jparams = jm.init_params(jcfg, jax.random.PRNGKey(0))
     tparams = tm.params_from_numpy(
-        tcfg, jax.tree.map(np.asarray, jparams))
+        tcfg, jax.tree.map(np.asarray, jparams), device="cpu")
     return jcfg, jparams, tcfg, tparams
 
 
@@ -125,7 +125,8 @@ def test_sliding_window_and_softcap_layers_match():
     jcfg = jreduced(jget_config("gemma2-9b"), layers=4)
     tcfg = reduced(get_config("gemma2-9b"), layers=4)
     jparams = jm.init_params(jcfg, jax.random.PRNGKey(1))
-    tparams = tm.params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams))
+    tparams = tm.params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
+                                   device="cpu")
     toks = _tokens(tcfg, b=1, s=70, seed=3)
     jl, _ = jm.forward(jcfg, jparams, jnp.asarray(toks))
     tl, _ = tm.forward(tcfg, tparams, torch.from_numpy(toks))
@@ -135,7 +136,7 @@ def test_sliding_window_and_softcap_layers_match():
 def test_init_params_shapes_and_dense_only():
     cfg = reduced(get_config("codeqwen1.5-7b"))
     gen = torch.Generator().manual_seed(0)
-    p = tm.init_params(cfg, gen)
+    p = tm.init_params(cfg, gen, device="cpu")
     j = jax.eval_shape(lambda: jm.init_params(
         jreduced(jget_config("codeqwen1.5-7b")), jax.random.PRNGKey(0)))
     assert tuple(p["embed"]["table"].shape) == j["embed"]["table"].shape
@@ -143,6 +144,20 @@ def test_init_params_shapes_and_dense_only():
     assert tuple(p["layers"][0]["attn"]["wq"].shape) == \
         j["groups"][0]["layers"][0]["attn"]["wq"].shape[1:]
     with pytest.raises(NotImplementedError, match="dense"):
-        tm.init_params(reduced(get_config("dbrx-132b")), gen)
+        tm.init_params(reduced(get_config("dbrx-132b")), gen, device="cpu")
     with pytest.raises(NotImplementedError, match="dense"):
         tm.init_cache(reduced(get_config("rwkv6-3b")), 1, 8)
+
+
+def test_model_entry_points_default_to_the_card():
+    """Like every entry point of the port, the model's run on the card
+    unless the CPU is asked for, and raise where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = reduced(get_config("codeqwen1.5-7b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tm.init_params(cfg, torch.Generator().manual_seed(0))
+    jparams = jm.init_params(jreduced(jget_config("codeqwen1.5-7b")),
+                             jax.random.PRNGKey(0))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tm.params_from_numpy(cfg, jax.tree.map(np.asarray, jparams))

@@ -1,13 +1,15 @@
 """Port vs reference: the serving engine with both split hookups.
 
 The reference's random weights are carried over with
-``params_from_numpy``, both codecs get the same calibration, and the two
-engines serve the same requests on the CPU (reduced codeqwen1.5-7b,
-float32).  Tolerance: generated tokens identical; the per-step rate
-estimates rtol 1e-5.
+``params_from_numpy``, both codecs get the same calibration (a fixed
+range, or one shared array of the reference model's split-layer
+activations), and the two engines serve the same requests on the CPU
+(reduced codeqwen1.5-7b, float32).  Tolerance: generated tokens
+identical; the per-step rate estimates rtol 1e-5.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -26,6 +28,17 @@ from repro_torch.serving import Request, ServeEngine
 
 CODEC = dict(n_levels=4, clip_mode="manual", manual_cmin=-2.0,
              manual_cmax=2.0)
+_CALIBRATED = dict(n_levels=4, clip_mode="model", constrain_cmin_zero=False)
+_CHANNEL = dict(granularity="channel", channel_axis=-1, channel_group_size=2)
+_ECSQ = dict(use_ecsq=True, ecsq_lagrangian=0.05)
+CODECS = {"manual": CODEC,
+          "channel_g2": dict(_CALIBRATED, **_CHANNEL),
+          "ecsq_tensor": dict(_CALIBRATED, **_ECSQ),
+          "ecsq_channel": dict(_CALIBRATED, **_CHANNEL, **_ECSQ)}
+# (hookup, codec kind); the manual codec's cases keep their plain ids
+ENGINE_CASES = [("codec", "manual"), ("codec_host_fn", "manual")] + [
+    (h, k) for k in ("channel_g2", "ecsq_tensor", "ecsq_channel")
+    for h in ("codec", "codec_host_fn")]
 
 
 @pytest.fixture(scope="module")
@@ -33,8 +46,39 @@ def models():
     jcfg = jreduced(jget_config("codeqwen1.5-7b"), layers=4)
     tcfg = reduced(get_config("codeqwen1.5-7b"), layers=4)
     jparams = jm.init_params(jcfg, jax.random.PRNGKey(0))
-    tparams = tm.params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams))
+    tparams = tm.params_from_numpy(tcfg, jax.tree.map(np.asarray, jparams),
+                                   device="cpu")
     return jcfg, jparams, tcfg, tparams
+
+
+@pytest.fixture(scope="module")
+def samples(models):
+    """Split-layer activations of the reference model, (tokens, d_model)
+    float32: the one calibration array both packages use."""
+    jcfg, jparams, _, _ = models
+    probe = {}
+
+    def probe_fn(x):
+        probe["x"] = x
+        return x, 0.0
+
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (4, 12))
+    jm.forward(jcfg, jparams, jnp.asarray(toks, jnp.int32),
+               codec_fn=probe_fn)
+    return np.asarray(probe["x"], np.float32).reshape(-1, jcfg.d_model)
+
+
+def _calibrated_pair(kind, samples):
+    """(reference codec, port codec) of ``kind``, calibrated alike."""
+    cfg = CODECS[kind]
+    if cfg["clip_mode"] == "manual":
+        data = None
+    elif cfg.get("granularity", "tensor") == "tensor":
+        data = samples.reshape(-1)
+    else:
+        data = samples
+    return (jcalibrate(JCodecConfig(**cfg), samples=data),
+            calibrate(CodecConfig(backend="torch", **cfg), samples=data))
 
 
 def _requests(cls, vocab):
@@ -54,11 +98,12 @@ def _host_fn(codec):
     return roundtrip
 
 
-@pytest.mark.parametrize("hookup", ["codec", "codec_host_fn"])
-def test_engine_tokens_match_reference(models, hookup):
+@pytest.mark.parametrize(
+    "hookup,kind", ENGINE_CASES,
+    ids=[h if k == "manual" else f"{h}-{k}" for h, k in ENGINE_CASES])
+def test_engine_tokens_match_reference(models, samples, hookup, kind):
     jcfg, jparams, tcfg, tparams = models
-    jcodec = jcalibrate(JCodecConfig(**CODEC))
-    tcodec = calibrate(CodecConfig(backend="torch", **CODEC))
+    jcodec, tcodec = _calibrated_pair(kind, samples)
     if hookup == "codec":
         jkw, tkw = dict(codec=jcodec), dict(codec=tcodec)
     else:
@@ -110,6 +155,16 @@ def test_serve_cli_on_cpu(capsys):
     assert "calibrated codec on" in out
     assert "9 tokens in" in out and "split-link rate:" in out
     assert "engine:" in out and "request latency:" in out
+
+
+def test_serve_cli_channel_granularity_on_cpu(capsys):
+    tserve.main(["--arch", "codeqwen1.5-7b", "--device", "cpu",
+                 "--requests", "2", "--prompt-len", "5", "--new-tokens",
+                 "3", "--codec-levels", "4", "--warmup-batches", "1",
+                 "--granularity", "channel", "--channel-group", "8"])
+    out = capsys.readouterr().out
+    assert "granularity=channel(g=8)" in out
+    assert "6 tokens in" in out and "split-link rate:" in out
 
 
 def test_loopback_transport_not_ported_yet():
