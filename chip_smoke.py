@@ -27,7 +27,20 @@ Phases, in order; any failure raises and exits non-zero:
    kernel must have launched on its run; on the prefill boundary of (b),
    (d) and (f) the wire's indices must equal the quantizer kernel's.
    (a) and (b) then run once more under ``torch.profiler`` for the
-   device's busy time and idle share.
+   device's busy time and idle share;
+5. split   -- the packed split runtime (``repro_torch.compression.
+   split_runtime``) on the same model and weights, split 16 + 16 layers
+   with both stages on this card: 4 sequences fed 8 prompt tokens one
+   per decode step, then 8 greedy tokens (16 steps, ``max_seq`` 32), in
+   six runs -- (g) ``raw``; (h) ``packed`` per-tensor N=4; (i)
+   ``quantized_f16`` with (h)'s codec; (j) ``packed`` N=2; (k)
+   ``packed`` N=16; (l) ``packed`` per-channel g=8 N=4 -- every codec
+   calibrated in "model" mode from the serve phase's warm-up batches at
+   the split runtime's boundary.  (g) must equal the unsplit decode
+   step's logits rounded through bfloat16, (h) and (i) must give
+   identical logits, and the pack kernel must launch once per step of
+   each packed run and never in (g) or (i).  (h) then runs once more
+   under ``torch.profiler``.
 
 The line before the last is the per-kernel JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
@@ -58,6 +71,11 @@ CHUNK = 1 << 16
 REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 64, 8
 WARMUP_BATCHES = 2          # calibration batches of split-layer activations
 ECSQ_LAGRANGIAN = 0.05
+SPLIT_PROMPT, SPLIT_NEW, SPLIT_MAX_SEQ = 8, 8, 32
+# run -> (transport, split codec); the codecs are built in split_phase
+SPLIT_RUNS = {"g": ("raw", None), "h": ("packed", "tensor-4"),
+              "i": ("quantized_f16", "tensor-4"), "j": ("packed", "tensor-2"),
+              "k": ("packed", "tensor-16"), "l": ("packed", "channel-4")}
 
 
 def bits_for(n_levels: int) -> int:
@@ -337,9 +355,35 @@ def kernel_checks(boundary, dev):
     return worst_deq
 
 
+def pack_checks(dev):
+    """Kernel #9 against its plain version (bytes identical) over bit
+    widths 1/2/4 and ragged sizes up to the prefill boundary's, and the
+    CUDA backend's pack against the torch backend's for bits 1-8."""
+    from repro_torch.core.backend import get_backend
+    from repro_torch.kernels import pack_bits as pb
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for bits in (1, 2, 4):
+        for n in (1, 13, 16384, 1 << 20, (1 << 20) + 7):
+            idx = torch.randint(0, 1 << bits, (n,), device=dev,
+                                generator=gen, dtype=torch.int32)
+            check(torch.equal(pb.pack_bits(idx, bits),
+                              pb.pack_bits_plain(idx, bits)),
+                  f"pack_bits bits={bits} n={n}")
+    cuda, plain = get_backend("cuda"), get_backend("torch")
+    for bits in range(1, 9):
+        idx = torch.randint(0, 1 << bits, (4, 1, 4096), device=dev,
+                            generator=gen, dtype=torch.int32)
+        check(torch.equal(cuda.pack_indices(idx, bits).cpu(),
+                          plain.pack_indices(idx.cpu(), bits)),
+              f"CudaBackend.pack_indices bits={bits}")
+
+
 def kernel_timings(boundary, worst_deq, dev):
-    """Time each kernel at the serving path's prefill shapes beside its
-    plain version (and a one-call library equivalent where one exists)."""
+    """Time each kernel at the serving path's prefill shapes (the pack at
+    the split runtime's decode boundary, the one shape its path gives
+    it) beside its plain version (and a one-call library equivalent
+    where one exists)."""
     from repro_torch.kernels import _build, ops, rans_coder, rate_hist
     from repro_torch.kernels import fused_clip_quant as fcq
 
@@ -521,6 +565,24 @@ def kernel_timings(boundary, worst_deq, dev):
           f"{plan_route['plain_ms']:.4f} ms  bound {plan_b_ms:.4f} ms "
           f"({plan_by})")
 
+    # kernel 9: the pack of the split runtime's decode boundary (16,384
+    # indices at N=4, 2 bits), the shape the packed runs give it; then
+    # the prefill boundary's 1,048,576 indices for the byte-bound regime
+    from repro_torch.kernels import pack_bits as pb
+    idx_d = fcq.clip_quant_2d(boundary["decode"], lo, hi,
+                              N_SERVE)[0].reshape(-1)
+    nd = idx_d.numel()
+    row("pack_bits", "pack_bits.cu", "src/repro/kernels/pack_bits.py:38",
+        lambda: pb.pack_bits(idx_d, bits),
+        lambda: pb.pack_bits_plain(idx_d, bits), nd * 4 + nd // per, 2 * nd,
+        float((pb.pack_bits(idx_d, bits).int()
+               - pb.pack_bits_plain(idx_d, bits).int()).abs().max()))
+    pre_b_ms, pre_by = bound(n * 4 + n // per, 2 * n)
+    print(f"pack_bits at the prefill boundary ({n} indices, {bits} bits): "
+          f"kernel {time_ms(lambda: pb.pack_bits(idx, bits)):.4f} ms  "
+          f"plain {time_ms(lambda: pb.pack_bits_plain(idx, bits)):.4f} "
+          f"ms  bound {pre_b_ms:.4f} ms ({pre_by})")
+
     check(all(r_["max_abs_err"] == 0 for r_ in rows
               if r_["name"] not in ("clip_quant", "clip_quant_tiles")),
           "integer kernel outputs and ECSQ reconstructions must match "
@@ -685,6 +747,160 @@ def serve(dev):
         f"({r}) {runs[r][0]} {'estimated' if runs[r][1] == 'codec' else 'wire'}"
         f" {rates[r]:.4f} bits/element {tok_s[r]:.1f} tok/s" for r in runs)
         + f"; init {init_s:.1f} s")
+    return cfg, params, counts
+
+
+# -- phase 5: the packed split runtime -------------------------------------------
+
+def split_codecs(cfg, params, half: int, dev) -> dict:
+    """The split runs' codecs, calibrated in "model" mode from the serve
+    phase's warm-up batches at the split runtime's boundary."""
+    from repro_torch.core import CodecConfig, calibrate
+    from repro_torch.launch import serve as S
+    samples = S.warmup_samples(cfg, params, batches=WARMUP_BATCHES,
+                               seq_len=min(64, PROMPT_LEN + NEW_TOKENS),
+                               device=dev, split_after=half)
+    base = dict(clip_mode="model", constrain_cmin_zero=False, backend="cuda")
+    kinds = {"tensor-2": (dict(n_levels=2), samples.reshape(-1)),
+             "tensor-4": (dict(n_levels=4), samples.reshape(-1)),
+             "tensor-16": (dict(n_levels=16), samples.reshape(-1)),
+             "channel-4": (dict(n_levels=4, granularity="channel",
+                                channel_axis=-1, channel_group_size=GROUP),
+                           samples)}
+    codecs = {}
+    for kind, (kw, data) in kinds.items():
+        t0 = time.perf_counter()
+        codecs[kind] = calibrate(CodecConfig(**base, **kw), samples=data)
+        print(f"calibrated split codec {kind} on {data.size} activations "
+              f"after layer {half} in {time.perf_counter() - t0:.1f} s")
+    return codecs
+
+
+def link_counted(codec, sent: list):
+    """``codec`` with the bytes of each payload it sends appended to
+    ``sent``: the int32 indices, or the packed bytes that replace them."""
+    import dataclasses
+
+    class Counted(type(codec)):
+        def quantize(self, x):
+            idx = super().quantize(x)
+            sent.append(idx.numel() * idx.element_size())
+            return idx
+
+        def pack(self, idx):
+            out = super().pack(idx)
+            sent[-1] = out.numel() * out.element_size()
+            return out
+
+    return Counted(**{f.name: getattr(codec, f.name)
+                      for f in dataclasses.fields(codec)})
+
+
+def split_decode(step, params, caches, prompt):
+    """Feed ``prompt`` (B, P) one token per step, then greedy tokens until
+    ``SPLIT_NEW`` have been fed.  Returns (logits per step, generated
+    tokens (B, SPLIT_NEW), mean rate bits, seconds)."""
+    logits_all, rates, fed = [], [], []
+    tok = prompt[:, 0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for pos in range(SPLIT_PROMPT + SPLIT_NEW):
+        logits, caches, rate = step(params, tok, caches, pos)
+        logits_all.append(logits)
+        rates.append(rate)
+        nxt = logits.argmax(-1)
+        tok = prompt[:, pos + 1] if pos + 1 < SPLIT_PROMPT else nxt
+        if pos + 1 >= SPLIT_PROMPT:
+            fed.append(nxt)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    return (torch.stack(logits_all), torch.stack(fed[:SPLIT_NEW], 1),
+            float(np.mean([float(r) for r in rates])), dt)
+
+
+def split_phase(cfg, params, dev) -> dict:
+    """Runs (g)-(l) of the packed split runtime; returns their launch
+    counts."""
+    from repro_torch.compression import split_runtime as SR
+    from repro_torch.kernels import _build
+    from repro_torch.models import decode_step, init_cache
+
+    half, tail = SR.stage_layout(cfg)
+    check((half, tail) == (16, 0), f"stage layout {half} + {tail}")
+    sp = SR.split_params(cfg, params, edge_device=dev, cloud_device=dev)
+    check(sp["edge"]["layers"][0]["attn"]["wq"]
+          is params["layers"][0]["attn"]["wq"],
+          "the split view must share the weights, not copy them")
+    codecs = split_codecs(cfg, params, half, dev)
+    b = REQUESTS
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, SPLIT_PROMPT)), device=dev)
+    steps = SPLIT_PROMPT + SPLIT_NEW
+
+    # the unsplit decode step on the same tokens (and a warm-up)
+    cache = init_cache(cfg, b, SPLIT_MAX_SEQ, device=dev)
+
+    def unsplit_step(params_, tok, cache_, pos):
+        with torch.inference_mode():
+            logits, cache_, _ = decode_step(cfg, params_, tok, cache_, pos)
+        return logits.to(torch.bfloat16).to(torch.float32), cache_, 0.0
+
+    ref_logits, ref_tok, _, ref_s = split_decode(unsplit_step, params, cache,
+                                                 prompt)
+    print(f"split: unsplit decode_step, {steps} steps in {ref_s:.2f} s")
+
+    counts, out = {}, {}
+    for run_id, (transport, kind) in SPLIT_RUNS.items():
+        sent: list = []
+        codec = None if kind is None else link_counted(codecs[kind], sent)
+        step = SR.make_split_decode_step(cfg, codec, transport=transport,
+                                         edge_device=dev, cloud_device=dev)
+        caches = SR.init_split_cache(cfg, b, SPLIT_MAX_SEQ, edge_device=dev,
+                                     cloud_device=dev)
+        _build.reset_launches()
+        logits, toks, rate, dt = split_decode(step, sp, caches, prompt)
+        counts[run_id] = dict(_build.LAUNCHES)
+        if transport == "raw":      # the bf16 activations cross
+            sent = [b * cfg.d_model * 2] * steps
+        check(len(sent) == steps, f"({run_id}) sent {len(sent)} payloads")
+        check(bool(torch.isfinite(logits).all()) and logits.shape
+              == (steps, b, cfg.vocab_size), f"({run_id}) logits")
+        out[run_id] = (logits, toks)
+        agree = float((toks == out["g"][1]).float().mean())
+        print(f"split ({run_id}) {transport} {kind or 'no codec'}: "
+              f"{b * SPLIT_NEW / dt:.1f} tok/s ({dt / steps * 1e3:.1f} ms "
+              f"per step), rate {rate:.4f} bits/element, link "
+              f"{sent[0]} bytes per step, greedy tokens agree with (g) "
+              f"{agree:.3f}")
+        bits = 16 if kind is None else codecs[kind].bits_per_index()
+        per = 8 // bits if bits in (1, 2, 4) else 1
+        want = {"raw": b * cfg.d_model * 2,
+                "packed": -(-b * cfg.d_model // per),
+                "quantized_f16": b * cfg.d_model * 4}[transport]
+        check(set(sent) == {want}, f"({run_id}) link bytes {set(sent)} != "
+              f"{want}")
+        packs = counts[run_id]["pack_bits"]
+        check(packs == (steps if transport == "packed" else 0),
+              f"({run_id}) pack_bits launched {packs} times")
+        if run_id == "h":
+            profiled("(h)", lambda: split_decode(
+                step, sp, SR.init_split_cache(cfg, b, SPLIT_MAX_SEQ,
+                                              edge_device=dev,
+                                              cloud_device=dev), prompt))
+
+    diff = float((out["g"][0] - ref_logits).abs().max())
+    print(f"split (g) vs the unsplit decode_step rounded through bfloat16: "
+          f"largest logit difference {diff} over {steps} steps (bound 0: "
+          "the same layers run in the same order through the same ops)")
+    check(diff == 0 and torch.equal(out["g"][1], ref_tok),
+          "(g) differs from the unsplit decode step")
+    check(torch.equal(out["h"][0], out["i"][0])
+          and torch.equal(out["h"][1], out["i"][1]),
+          "(h) and (i) must give identical logits and tokens: the pack is "
+          "lossless")
+    print("split checks: (g) equals the unsplit decode; (h) and (i) "
+          "identical; pack_bits launched once per step of (h), (j), (k), "
+          "(l) and never in (g), (i)")
     return counts
 
 
@@ -758,20 +974,25 @@ def main() -> int:
     # 3. kernels against their plain versions, then timings
     boundary = synthetic_boundary(dev)
     worst = max(kernel_checks(boundary, dev), tiled_checks(boundary, dev))
+    pack_checks(dev)
     print(f"kernels: exact against their plain versions (worst "
           f"reconstruction {worst} ulp)")
     rows = kernel_timings(boundary, worst, dev)
 
     # 4. serve
-    counts = serve(dev)
+    cfg, params, counts = serve(dev)
 
-    # 5. launch counts of the serving runs: each kernel's count is read
-    # from the run named here, and every kernel must launch on each run
-    # listed for it
-    runs_of = {"clip_quant": "a", "index_histogram": "ae",
+    # 5. the packed split runtime on the same weights
+    counts.update(split_phase(cfg, params, dev))
+
+    # 6. launch counts of the serving and split runs: each kernel's count
+    # is read from the first run named here, and every kernel must launch
+    # on each run listed for it
+    runs_of = {"clip_quant": "ahijk", "index_histogram": "aehijk",
                "encode_tiles": "bd", "rans_step": "bdf",
-               "clip_quant_tiles": "c", "index_histogram_tiles": "c",
-               "ecsq_assign": "e", "ecsq_assign_tiles": "f"}
+               "clip_quant_tiles": "cl", "index_histogram_tiles": "cl",
+               "ecsq_assign": "e", "ecsq_assign_tiles": "f",
+               "pack_bits": "hjkl"}
     check(sorted(r_["name"] for r_ in rows) == sorted(runs_of),
           "the kernel table must list every ported kernel")
     for r_ in rows:

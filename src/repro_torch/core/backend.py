@@ -43,12 +43,13 @@ is None`` with scalar cmin/cmax is the paper's per-tensor mode; a plan
 makes cmin/cmax (n_cgroups, n_sblocks) per-tile tables over the
 channel-major view.  The legacy per-channel spec form -- (C,) vectors
 plus ``channel_axis`` -- is normalized into a one-spatial-block plan on
-entry.  Both backends cover every plan and ECSQ form; the CUDA backend
-raises ``NotImplementedError`` only for ``pack_indices``, whose kernel
-is not ported yet.  Dequantize-only calls (receiver side) use the torch
-formula on the tensor's device in both backends -- the reference has no
-kernel there either -- and so do level counts above a kernel's table
-width, exactly where the reference falls back to jnp.
+entry.  Both backends cover every plan and ECSQ form, and the in-graph
+pack: the CUDA backend packs 1/2/4-bit indices with the pack kernel.
+Dequantize-only calls (receiver side) use the torch formula on the
+tensor's device in both backends -- the reference has no kernel there
+either -- and so do level counts above a kernel's table width and pack
+widths of one index per byte, exactly where the reference falls back
+to jnp.
 """
 
 from __future__ import annotations
@@ -64,8 +65,6 @@ from . import uniform
 from .tiling import TileECSQ, TilePlan
 
 _CHANNEL_EPS = 1e-12  # degenerate-range guard, shared with the tile kernel
-_PACK_TODO = ("in-graph packing on the CUDA backend waits for the pack "
-              "kernel #9 (ROADMAP.md queue B)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,6 +254,16 @@ def _dequantize(idx: torch.Tensor, spec: QuantSpec, dtype) -> torch.Tensor:
                               dtype=dtype)
 
 
+def _pack_indices(idx: torch.Tensor, bits: int) -> torch.Tensor:
+    """The wire bit-pack by the torch formula on ``idx``'s device: the
+    plain pack for 1/2/4 bits, else one byte per index in ``idx``'s
+    shape (the jnp backend's layout)."""
+    from ..kernels.pack_bits import PACK_BITS, pack_bits_plain
+    if bits not in PACK_BITS:
+        return idx.to(torch.uint8)
+    return pack_bits_plain(idx, bits)
+
+
 def _check_cpu(t: torch.Tensor) -> torch.Tensor:
     if t.device.type != "cpu":
         raise ValueError("the torch backend is the CPU reference; CUDA "
@@ -399,15 +408,7 @@ class TorchBackend:
 
     def pack_indices(self, idx, bits: int):
         """Host bit-pack (the wire layout every backend shares)."""
-        per = 8 // bits if bits in (1, 2, 4) else 1
-        if per == 1:
-            return idx.to(torch.uint8)
-        flat = idx.reshape(-1).to(torch.int32)
-        pad = (-flat.shape[0]) % per
-        if pad:
-            flat = torch.cat([flat, torch.zeros(pad, dtype=flat.dtype)])
-        shifts = torch.arange(per, dtype=torch.int32) * bits
-        return (flat.reshape(-1, per) << shifts).sum(-1).to(torch.uint8)
+        return _pack_indices(_check_cpu(idx), bits)
 
 
 class CudaBackend:
@@ -417,10 +418,11 @@ class CudaBackend:
     Quantization runs the per-tensor or per-tile clip+quant kernel, or
     the per-tensor or per-tile ECSQ assignment kernel; histograms the
     global or per-tile index histogram kernel; the fused encode the
-    megakernel over the flat or banded view, plus the device rANS stage.
-    Level counts above a kernel's table width use the torch formulas on
-    the device, exactly where the reference uses jnp; ``pack_indices``
-    raises until its kernel is ported.
+    megakernel over the flat or banded view, plus the device rANS stage;
+    the in-graph pack of 1/2/4-bit indices the pack kernel.  Level counts
+    above a kernel's table width, and pack widths of one index per byte,
+    use the torch formulas on the device, exactly where the reference
+    uses jnp.
     """
 
     name = "cuda"
@@ -565,7 +567,12 @@ class CudaBackend:
         return coded, hists
 
     def pack_indices(self, idx, bits: int):
-        raise NotImplementedError(_PACK_TODO)
+        from ..kernels import ops
+        from ..kernels.pack_bits import PACK_BITS
+        idx = self._in(idx)
+        if bits not in PACK_BITS:
+            return _pack_indices(idx, bits)
+        return ops.pack_indices(idx, bits=bits)
 
 
 _BACKENDS: dict[str, Any] = {}

@@ -588,11 +588,12 @@ class FeatureCodec:
 
     def pack(self, idx):
         """Pack int32 indices into uint8 lanes (4x2b / 2x4b / 8x1b per
-        byte), backend-dispatched (the CUDA backend's pack kernel is not
-        ported yet and raises) -- every backend shares one bit layout
-        (little-end-first lanes), so packed streams are
-        backend-portable.  Sizes that do not fill the last byte are
-        zero-padded; ``unpack`` truncates back to the element count.
+        byte), backend-dispatched: the CUDA pack kernel on the card (only
+        wire-width bytes leave the quantizer), the torch formula on the
+        CPU -- both share one bit layout (little-end-first lanes), so
+        packed streams are backend-portable.  Sizes that do not fill the
+        last byte are zero-padded; ``unpack`` truncates back to the
+        element count.
         """
         return self.backend.pack_indices(idx, self.bits_per_index())
 

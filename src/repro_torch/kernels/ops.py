@@ -9,7 +9,8 @@ shared with the reference, field for field.  The tiled quantize,
 histogram and ECSQ kernels need no banded view: they look up each
 element's tile in the tensor's own layout (see
 :func:`~repro_torch.kernels.fused_clip_quant.tile_maps`), so their
-wrappers only convert the range and ECSQ tables.
+wrappers only convert the range and ECSQ tables.  :func:`pack_indices`
+takes the flat indices as they are: the pack kernel needs no lane view.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from ..core.tiling import PaddedLayout, TilePlan
 from .ecsq_assign import ecsq_assign, ecsq_assign_tiles
 from .fused_clip_quant import (clip_quant_2d, clip_quant_tiles,
                                encode_tiles_2d, pack_width)
+from .pack_bits import PACK_BITS, pack_bits
 from .rate_hist import index_histogram_2d, index_histogram_tiles
 
 _LANE = 128
@@ -265,6 +267,21 @@ def unpack_bytes(packed: np.ndarray, bits: int) -> np.ndarray:
     mask = np.uint8((1 << bits) - 1)
     vals = (packed.reshape(-1, 1) >> shifts) & mask
     return vals.reshape(packed.shape[:-1] + (-1,)).astype(np.int32)
+
+
+def pack_indices(idx: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """Pack int32 indices to ``bits``-wide uint8 lanes on the tensor's
+    device (the pack kernel on the card).
+
+    Same byte layout as ``TorchBackend.pack_indices`` (see
+    :mod:`~repro_torch.kernels.pack_bits`); ``bits`` must be 1, 2 or 4
+    (wire widths where a byte holds several indices).  Returns a flat
+    uint8 tensor of ``ceil(n / (8 // bits))`` bytes, zero-padded in the
+    last byte.
+    """
+    if bits not in PACK_BITS:
+        raise ValueError(f"packable bit widths are 1/2/4, got {bits}")
+    return pack_bits(idx.reshape(-1).to(torch.int32).contiguous(), bits)
 
 
 def index_histogram_tiled(idx: torch.Tensor, *, n_levels: int,

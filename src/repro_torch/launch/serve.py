@@ -26,29 +26,25 @@ import numpy as np
 
 
 def warmup_samples(cfg, params, *, batches: int, seq_len: int,
-                   device) -> np.ndarray:
+                   device, split_after: int | None = None) -> np.ndarray:
     """Split-layer activations of ``batches`` warm-up batches (4 random
     sequences of ``seq_len`` tokens each) as float32 (tokens, d_model):
-    the calibration samples of the serving codec."""
+    the calibration samples of the serving codec.  ``split_after`` moves
+    the boundary as in ``forward_head`` (the split runtime's boundary
+    falls after half the layers)."""
     import torch
 
     from ..data import DataConfig, stream
-    from ..models import forward
-
-    probe = {}
-
-    def probe_fn(x):
-        probe["x"] = x
-        return x, 0.0
+    from ..models import forward_head
 
     dcfg = DataConfig(vocab_size=cfg.vocab_size, batch=4, seq_len=seq_len)
     chunks = []
     with torch.inference_mode():
         for _, batch in zip(range(batches), stream(dcfg)):
-            forward(cfg, params, torch.as_tensor(batch["tokens"],
-                                                 device=device),
-                    codec_fn=probe_fn)
-            chunks.append(probe["x"].to(torch.float32).cpu().numpy()
+            x = forward_head(cfg, params, torch.as_tensor(batch["tokens"],
+                                                          device=device),
+                             split_after=split_after)
+            chunks.append(x.to(torch.float32).cpu().numpy()
                           .reshape(-1, cfg.d_model))
     return np.concatenate(chunks, axis=0)
 

@@ -6,6 +6,8 @@ layer pattern); the port keeps one dict per layer in run order under
 ``params["layers"]``.  :func:`params_from_numpy` takes the JAX pytree
 with its leaves as numpy arrays and unstacks it, so both packages
 compute the same function from the same weights.
+:func:`split_params_from_numpy` does the same for the split runtime's
+tree (stage layers stacked (2, half, ...), tail layers (t, ...)).
 """
 
 from __future__ import annotations
@@ -52,3 +54,40 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
                          f"{cfg.name} has {cfg.num_layers}")
     out["layers"] = layers
     return out
+
+
+def split_params_from_numpy(cfg: ModelConfig, tree, *, edge_device="cuda",
+                            cloud_device="cuda"):
+    """JAX split-runtime parameter tree (``init_split_params``, numpy
+    leaves) -> the port's split parameters, each stage's tensors made on
+    its own device."""
+    from ..compression.split_runtime import split_params
+    _check_dense(cfg)
+    edge = resolve_device(edge_device)
+    cloud = resolve_device(cloud_device)
+    dtype = torch_dtype(cfg)
+
+    def conv(device):
+        return lambda a: _tensor(a, dtype, device)
+
+    def unstack(stacks, lead, device):
+        """Layer dicts of a stacked tree (a one-entry list for the one
+        pattern position of a period-1 model), indexed ``lead + (i,)``."""
+        (stack,) = stacks
+        n = np.asarray(stack["norm1"]["scale"]).shape[len(lead)]
+        return [_tree(stack, lambda a, i=i: conv(device)(
+            np.asarray(a)[lead + (i,)])) for i in range(n)]
+
+    layers = unstack(tree["stages"], (0,), edge) \
+        + unstack(tree["stages"], (1,), cloud)
+    if tree.get("tail") is not None:
+        layers += unstack(tree["tail"], (), cloud)
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, config "
+                         f"{cfg.name} has {cfg.num_layers}")
+    params = {"embed": _tree(tree["embed"], conv(edge)),
+              "final_norm": _tree(tree["final_norm"], conv(cloud)),
+              "layers": layers}
+    if tree.get("head") is not None:
+        params["head"] = _tree(tree["head"], conv(cloud))
+    return split_params(cfg, params, edge_device=edge, cloud_device=cloud)

@@ -11,17 +11,22 @@ their plain versions round the same steps, so the checks below hold them
 bit-identical).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import binarization, rans
+from repro_torch.compression import split_runtime
+from repro_torch.configs import get_config, reduced
+from repro_torch.core import CodecConfig, binarization, calibrate, rans
 from repro_torch.core.backend import QuantSpec, get_backend
 from repro_torch.core.ecsq import design_ecsq
 from repro_torch.core.tiling import TileECSQ, TilePlan, spatial_grid
-from repro_torch.kernels import _build, ecsq_assign
+from repro_torch.kernels import _build, ecsq_assign, pack_bits
 from repro_torch.kernels import fused_clip_quant as fcq
 from repro_torch.kernels import ops, rans_coder, rate_hist
+from repro_torch.models import decode_step, init_cache, init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -269,3 +274,75 @@ def test_tiled_wrappers_refuse_bad_arguments(dev):
         fcq.clip_quant_tiles(x, lo.double(), hi.double(), 4, plan)
     with pytest.raises(TypeError):
         rate_hist.index_histogram_tiles(x, 4, plan)
+
+
+# -- pack kernel (#9) and the split runtime -----------------------------------
+
+@pytest.mark.parametrize("n", [1, 13, 16384, 1 << 20, (1 << 20) + 7])
+@pytest.mark.parametrize("bits", [1, 2, 4])
+def test_pack_bits(dev, bits, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    idx = torch.randint(0, 1 << bits, (n,), device=dev, generator=g,
+                        dtype=torch.int32)
+    before = dict(_build.LAUNCHES)
+    got = pack_bits.pack_bits(idx, bits)
+    assert torch.equal(got, pack_bits.pack_bits_plain(idx, bits))
+    assert _advanced(before, pack_bits=1)
+    wide = torch.randint(-40, 300, (n,), device=dev, generator=g,
+                         dtype=torch.int32)
+    assert torch.equal(pack_bits.pack_bits(wide, bits),
+                       pack_bits.pack_bits_plain(wide, bits))
+
+
+def test_cuda_backend_pack_indices(dev):
+    cb, tb = get_backend("cuda"), get_backend("torch")
+    rng = np.random.default_rng(5)
+    for bits in range(1, 9):
+        idx = torch.from_numpy(rng.integers(0, 1 << bits, (4, 1, 4096),
+                                            dtype=np.int32))
+        before = dict(_build.LAUNCHES)
+        got = cb.pack_indices(idx.to(dev), bits)
+        assert torch.equal(got.cpu(), tb.pack_indices(idx, bits))
+        assert _advanced(before, pack_bits=int(bits in (1, 2, 4)))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cb.pack_indices(idx, 2)
+
+
+def test_split_runtime_on_card(dev):
+    """Reduced model, float32: 'packed' and 'quantized_f16' give identical
+    logits (the pack is lossless), and 'raw' equals the unsplit decode
+    step rounded through bfloat16 (the same layers in the same order)."""
+    cfg = dataclasses.replace(reduced(get_config("codeqwen1.5-7b"),
+                                      layers=5), vocab_size=64)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    sp = split_runtime.split_params(cfg, params, edge_device=dev,
+                                    cloud_device=dev)
+    codec = calibrate(CodecConfig(n_levels=4, clip_mode="manual",
+                                  manual_cmin=-8.0, manual_cmax=8.0,
+                                  backend="cuda"))
+    tok0 = torch.arange(4, device=dev)
+
+    def run(transport):
+        step = split_runtime.make_split_decode_step(
+            cfg, codec, transport=transport, edge_device=dev,
+            cloud_device=dev)
+        caches = split_runtime.init_split_cache(
+            cfg, 4, 16, edge_device=dev, cloud_device=dev)
+        out, tok = [], tok0
+        for pos in range(3):
+            logits, caches, rate = step(sp, tok, caches, pos)
+            out.append(logits)
+            tok = logits.argmax(-1)
+        return torch.stack(out)
+
+    before = dict(_build.LAUNCHES)
+    packed = run("packed")
+    assert _advanced(before, pack_bits=3, clip_quant=3, index_histogram=3)
+    assert torch.equal(packed, run("quantized_f16"))
+    cache, tok, unsplit = init_cache(cfg, 4, 16, device=dev), tok0, []
+    for pos in range(3):
+        logits, cache, _ = decode_step(cfg, params, tok, cache, pos)
+        unsplit.append(logits.to(torch.bfloat16).to(torch.float32))
+        tok = unsplit[-1].argmax(-1)
+    assert torch.equal(run("raw"), torch.stack(unsplit))
