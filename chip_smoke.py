@@ -13,8 +13,15 @@ Phases, in order; any failure raises and exits non-zero:
    a (4, 1, 4096) decode boundary, seeded; per-channel plans at g=8) and
    beyond (a 1-D tile plan with a short last block, a ragged 2-D plan;
    indices, packed bytes, histograms, ECSQ reconstructions and rANS blobs
-   exact; uniform reconstructions within 1 ulp), with median times beside
-   the plain version's and the bound;
+   exact -- the prefill boundary's 16 rANS chunks coded in one launch
+   give the blobs of 16 single-chunk launches; uniform reconstructions
+   within 1 ulp), then each kernel timed at both sizes the serving paths
+   launch it at (for the rANS step loop: one chunk, the 16-chunk batch,
+   a decode tensor), beside the plain version's time and the bound (for
+   the step loop, the larger of its byte bound and its dependent chain:
+   the cycles of the step's least dependent chain, measured in this run
+   by ``tools/rans_chain_probe.cu``, per step at the top SM clock
+   ``nvidia-smi`` reports);
 4. serve   -- codeqwen1.5-7b at full width and depth (bf16, random
    weights from seed 0), 4 requests of 64 prompt + 8 new tokens, N=4,
    every codec calibrated from one set of warm-up activations:
@@ -23,8 +30,9 @@ Phases, in order; any failure raises and exits non-zero:
    chunk_elems=65536, device_entropy=True))``; (c) per-channel g=8,
    ``codec=``; (d) per-channel g=8, the bitstream hookup; (e) per-tensor
    ECSQ, ``codec=``; (f) per-channel ECSQ g=8, the bitstream hookup.
-   Launch counts are reset before and read after each run, and every
-   kernel must have launched on its run; on the prefill boundary of (b),
+   Launch counts are reset before and read after each run -- also by
+   size, prefill or decode -- and every kernel must have launched on its
+   run; on the prefill boundary of (b),
    (d) and (f) the wire's indices must equal the quantizer kernel's.
    (a) and (b) then run once more under ``torch.profiler`` for the
    device's busy time and idle share;
@@ -42,7 +50,9 @@ Phases, in order; any failure raises and exits non-zero:
    each packed run and never in (g) or (i).  (h) then runs once more
    under ``torch.profiler``.
 
-The line before the last is the per-kernel JSON record; the last line is
+The line before the last is the per-kernel JSON record (each kernel's
+numbers per size under ``sizes``, with its launches per run at that
+size); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -50,6 +60,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -64,6 +75,9 @@ SRC = ROOT / "src"
 
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM CUDA-core float32 peak
+# one-thread latency probe of a rANS step (kernel #6), for its chain bound
+PROBE = ROOT / "tools" / "rans_chain_probe.cu"
+PROBE_ITERS = 4096
 LEVELS = (2, 3, 4, 8, 16, 64)
 N_SERVE = 4
 GROUP = 8                   # channels per range (the transformer-channel cell)
@@ -343,15 +357,27 @@ def kernel_checks(boundary, dev):
                                             dtype=torch.int32), 3))
     for name, idx, n in streams:
         kernel_blob = rans_coder.encode_planes_device(idx, n)
-        plain = rans_coder._dispatch(idx.cpu(), n)
-        check(kernel_blob == rans_coder._finalize(plain),
-              f"rans blob vs plain step loop {name}")
+        plain = rans_coder.encode_planes_device(idx.cpu(), n)
+        check(kernel_blob == plain, f"rans blob vs plain step loop {name}")
         host = rans.encode_planes(binarization.index_to_context_bits(
             idx.cpu().numpy(), n))
         check(kernel_blob == host, f"rans blob vs host coder {name}")
         check(cabac.wrap_device_blob(kernel_blob)[1:]
               == cabac._encode_rans_sharded(idx.cpu().numpy(), n, 1)[1:],
               f"coder 4 vs host coder 2 {name}")
+    # the prefill boundary's 16 chunks coded in one launch: the blobs of
+    # 16 single-chunk launches, and of the plain step loop on the CPU
+    idx = ops.clip_quantize(boundary["prefill"].float(), cmin=lo, cmax=hi,
+                            n_levels=N_SERVE)[0].reshape(-1)
+    bounds = [(i * CHUNK, (i + 1) * CHUNK) for i in range(16)]
+    batch = rans_coder.encode_index_chunks_device(idx, N_SERVE, bounds)
+    check(batch == [rans_coder.encode_index_chunks_device(idx, N_SERVE,
+                                                          [b])[0]
+                    for b in bounds], "rans 16 chunks in one launch vs "
+          "16 single-chunk launches")
+    check(batch[:2] == rans_coder.encode_index_chunks_device(
+        idx[:2 * CHUNK].cpu(), N_SERVE, bounds[:2]),
+        "rans 16-chunk batch vs plain step loop")
     return worst_deq
 
 
@@ -379,223 +405,370 @@ def pack_checks(dev):
               f"CudaBackend.pack_indices bits={bits}")
 
 
-def kernel_timings(boundary, worst_deq, dev):
-    """Time each kernel at the serving path's prefill shapes (the pack at
-    the split runtime's decode boundary, the one shape its path gives
-    it) beside its plain version (and a one-call library equivalent
-    where one exists)."""
+STEP_INDICES = [0]      # indices of the rANS batch being launched
+
+
+def size_class(kernel: str, args) -> str:
+    """"prefill" or "decode": the size of one launch, from its C entry's
+    arguments (elements per call).  The step loop's arguments do not hold
+    its size, so the indices of the batch it codes are recorded as the
+    batch is dispatched (``STEP_INDICES``); a batch of at least one chunk
+    but below the prefill size is a "chunk"."""
+    if kernel == "rans_step":
+        n = STEP_INDICES[0]
+        return "prefill" if n >= 600_000 else "chunk" if n >= CHUNK \
+            else "decode"
+    n = {"encode_tiles": lambda a: a[2] * a[3],
+         "index_histogram": lambda a: a[1],
+         "index_histogram_tiles": lambda a: a[4] * a[8],
+         "pack_bits": lambda a: a[1]}.get(kernel, lambda a: a[2])(args)
+    return "prefill" if n >= 600_000 else "decode"
+
+
+SIZE_LAUNCHES: dict[tuple[str, str], int] = {}
+RUN_SIZES: dict[str, dict] = {}     # run -> SIZE_LAUNCHES of that run
+
+
+def count_sizes() -> None:
+    """Count every launch also by its size class (``SIZE_LAUNCHES``),
+    beside the wrappers' own per-kernel counts."""
+    from repro_torch.kernels import _build, rans_coder
+    real = _build.launch
+    real_dispatch = rans_coder._dispatch
+
+    def launch(kernel, symbol, *args):
+        real(kernel, symbol, *args)
+        key = (kernel, size_class(kernel, args))
+        SIZE_LAUNCHES[key] = SIZE_LAUNCHES.get(key, 0) + 1
+
+    def dispatch(coded, n_levels, bounds):
+        STEP_INDICES[0] = sum(max(e - s, 0) for s, e in bounds)
+        return real_dispatch(coded, n_levels, bounds)
+
+    _build.launch = launch
+    rans_coder._dispatch = dispatch
+
+
+def start_probe_build():
+    """Start ``nvcc`` on the chain probe, beside the kernels' build;
+    returns (process, library path)."""
+    from repro_torch.kernels import _build
+    out = _build.BUILD_ROOT / "probe"
+    out.mkdir(parents=True, exist_ok=True)
+    lib = out / f"rans_chain_probe.{os.getpid()}.so"
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                             "-o", str(lib), str(PROBE)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, lib
+
+
+def chain_cycles(proc, lib_path: Path, dev) -> dict[str, float]:
+    """Cycles per step of the rANS step's least dependent chain and of
+    the shipped kernel's form of the step, one thread looping on the
+    card; both forms must reach the same state."""
+    import ctypes
+    out, _ = proc.communicate()
+    check(proc.returncode == 0, f"chain probe build failed:\n{out}")
+    fn = ctypes.CDLL(str(lib_path)).rans_chain_probe
+    fn.argtypes = (ctypes.c_void_p,) * 3 + (ctypes.c_int, ctypes.c_void_p)
+    p1 = 4000
+    p0 = (1 << 14) - p1
+    m0, m1 = (-(-(1 << 63) // f) for f in (p0, p1))
+    vals = [70001, p0 << 18, p1 << 18, m0 >> 32, m0 & 0xFFFFFFFF, m1 >> 32,
+            m1 & 0xFFFFFFFF, p0, p1, 0x5A5A1234]
+    inp = torch.tensor([v - (1 << 32) if v >= 1 << 31 else v for v in vals],
+                       dtype=torch.int32, device=dev)
+    cycles = torch.zeros(2, dtype=torch.int64, device=dev)
+    states = torch.zeros(2, dtype=torch.int32, device=dev)
+    for _ in range(3):                      # the last call is warm
+        check(fn(inp.data_ptr(), cycles.data_ptr(), states.data_ptr(),
+                 PROBE_ITERS, torch.cuda.current_stream().cuda_stream) == 0,
+              "chain probe launch failed")
+    torch.cuda.synchronize()
+    check(states[0].item() == states[1].item(),
+          "chain probe: the least chain's states differ from the kernel's "
+          "form of the step")
+    least, shipped = (c / PROBE_ITERS for c in cycles.tolist())
+    return {"least": least, "shipped": shipped}
+
+
+def chain_ms(steps: int, cycles: float, sm_mhz: float) -> float:
+    """Least time of ``steps`` dependent rANS steps of ``cycles`` each at
+    the card's top SM clock."""
+    return steps * cycles / (sm_mhz * 1e3)
+
+
+def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
+    """Time each kernel at the two sizes the main paths launch it at --
+    the (4, 64, 4096) prefill boundary and the (4, 1, 4096) decode
+    boundary of 16,384 values -- beside its plain version, its bound and
+    a one-call library equivalent where one exists.  A row's top-level
+    numbers are its first size's."""
     from repro_torch.kernels import _build, ops, rans_coder, rate_hist
+    from repro_torch.kernels import ecsq_assign as ea
     from repro_torch.kernels import fused_clip_quant as fcq
+    from repro_torch.kernels import pack_bits as pb
 
     lo, hi = boundary["range"]
-    x = boundary["prefill"]                                  # bf16
-    n = x.numel()
-    rows = []
+    bnd = {"prefill": boundary["prefill"], "decode": boundary["decode"]}
+    rows, eager = [], {}
 
-    def row(name, src, line, kernel, plain, nbytes, nops, err,
-            library=None, plain_kw=None):
-        b_ms, b_by = bound(nbytes, nops)
+    def row(name, src, line, sizes):
+        out = {}
+        for size, c in sizes.items():
+            b_ms, b_by = bound(c["nbytes"], c["nops"])
+            r = {"ms": time_ms(c["kernel"]),
+                 "plain_ms": time_ms(c["plain"], **c.get("plain_kw", {})),
+                 "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None if c.get("library") is None
+                 else eager_ms(c["library"]),
+                 "max_abs_err": float(c["err"])}
+            if "chain_steps" in c:
+                r["byte_bound_ms"] = b_ms
+                r["chain_cycles_per_step"] = cycles["least"]
+                r["chain_ms"] = chain_ms(c["chain_steps"], cycles["least"],
+                                         sm_mhz)
+                if r["chain_ms"] > b_ms:
+                    r["bound_ms"], r["bound_by"] = r["chain_ms"], "operations"
+            eager[(name, size)] = eager_ms(c["kernel"])
+            out[size] = r
+        top = next(iter(out.values()))
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}",
-                     "replaces": line, "launches": 0, "max_abs_err": err,
-                     "ms": time_ms(kernel),
-                     "plain_ms": time_ms(plain, **(plain_kw or {})),
-                     "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": None if library is None
-                     else eager_ms(library)})
-        eager[name] = eager_ms(kernel)
+                     "replaces": line, "launches": 0, **top, "sizes": out})
 
-    eager = {}
+    def diff(a, b) -> float:
+        return float((a.double() - b.double()).abs().max())
+
     # kernel 1: per-tensor clip + quantize + dequantize, bf16 in/out
-    ki, kd = fcq.clip_quant_2d(x, lo, hi, N_SERVE)
-    _, pd = fcq.clip_quant_plain(x, lo, hi, N_SERVE)
+    sizes = {}
+    for size, x in bnd.items():
+        n = x.numel()
+        _, kd = fcq.clip_quant_2d(x, lo, hi, N_SERVE)
+        _, pd = fcq.clip_quant_plain(x, lo, hi, N_SERVE)
+        sizes[size] = dict(
+            kernel=lambda x=x: fcq.clip_quant_2d(x, lo, hi, N_SERVE),
+            plain=lambda x=x: fcq.clip_quant_plain(x, lo, hi, N_SERVE),
+            nbytes=n * (2 + 4 + 2), nops=6 * n, err=diff(kd, pd))
     row("clip_quant", "fused_clip_quant.cu",
-        "src/repro/kernels/fused_clip_quant.py:26",
-        lambda: fcq.clip_quant_2d(x, lo, hi, N_SERVE),
-        lambda: fcq.clip_quant_plain(x, lo, hi, N_SERVE),
-        n * (2 + 4 + 2), 6 * n, float((kd.float() - pd.float()).abs().max()))
+        "src/repro/kernels/fused_clip_quant.py:26", sizes)
+
     # kernel 4: global index histogram, int32 indices (the library call
     # syncs on its input's maximum, so it is timed eagerly)
-    idx = ki.reshape(-1)
-    kh = rate_hist.index_histogram_2d(idx, N_SERVE)
-    ph = rate_hist.index_histogram_plain(idx, N_SERVE)
+    sizes = {}
+    for size, x in bnd.items():
+        idx = fcq.clip_quant_2d(x, lo, hi, N_SERVE)[0].reshape(-1)
+        n = idx.numel()
+        kh = rate_hist.index_histogram_2d(idx, N_SERVE)
+        ph = rate_hist.index_histogram_plain(idx, N_SERVE)
+        sizes[size] = dict(
+            kernel=lambda i=idx: rate_hist.index_histogram_2d(i, N_SERVE),
+            plain=lambda i=idx: rate_hist.index_histogram_plain(i, N_SERVE),
+            nbytes=n * 4 + 64 * 4, nops=n, err=diff(kh, ph),
+            library=lambda i=idx: torch.bincount(i, minlength=N_SERVE))
     row("index_histogram", "rate_hist.cu",
-        "src/repro/kernels/rate_hist.py:24",
-        lambda: rate_hist.index_histogram_2d(idx, N_SERVE),
-        lambda: rate_hist.index_histogram_plain(idx, N_SERVE),
-        n * 4 + 64 * 4, n, float((kh - ph).abs().max()),
-        library=lambda: torch.bincount(idx, minlength=N_SERVE))
-    # kernel 3: encode megakernel on the float32 boundary (host hookup);
-    # timed through its C entry with the wrapper's buffers (the wrapper
-    # copies its band-valid list from pageable host memory, which waits
-    # for the stream)
-    xf = x.float().reshape(-1)
-    x2d, _ = ops._to_2d(xf, lo)
-    r, c = x2d.shape
-    lo_r = torch.full((r, 1), float(lo), device=dev)
-    hi_r = torch.full((r, 1), float(hi), device=dev)
+        "src/repro/kernels/rate_hist.py:24", sizes)
+
+    # kernel 3: the encode megakernel on the float32 boundary, flat route
+    # (run (b)) and plan route (run (d), the banded view of the g=8
+    # plan); timed through the C entry on the wrapper's buffers (the
+    # wrapper copies its band-valid list from pageable host memory,
+    # which waits for the stream)
     bits = bits_for(N_SERVE)
     per = 8 // bits
-    valid = fcq.band_valid_array(1, c, None, device=dev)
-    kp, kh2 = fcq.encode_tiles_2d(x2d, lo_r, hi_r, N_SERVE, bits, sb_cols=c,
-                                  bs=c)
-    pp, ph2 = fcq.encode_tiles_plain(x2d, lo_r, hi_r, valid, N_SERVE, bits, c)
-    packed = torch.empty_like(kp)
-    hist = torch.empty_like(kh2)
-
-    def encode_launch():
-        hist.zero_()
-        _build.launch("encode_tiles", "repro_encode_tiles", x2d.data_ptr(),
-                      0, r, c, c, 1, lo_r.data_ptr(), hi_r.data_ptr(),
-                      valid.data_ptr(), N_SERVE, bits, packed.data_ptr(),
-                      hist.data_ptr())
-
-    encode_launch()
-    check(torch.equal(packed, kp) and torch.equal(hist, kh2),
-          "encode_tiles C entry vs wrapper")
-    row("encode_tiles", "fused_clip_quant.cu",
-        "src/repro/kernels/fused_clip_quant.py:130", encode_launch,
-        lambda: fcq.encode_tiles_plain(x2d, lo_r, hi_r, valid, N_SERVE,
-                                       bits, c),
-        n * 4 + n // per + r * 64 * 4 + 2 * r * 4, 8 * n,
-        float(max((kp.int() - pp.int()).abs().max(),
-                  (kh2 - ph2).abs().max())))
-    # kernel 6: the rANS step loop of one 65536-element chunk
-    coded = ops.clip_quantize(xf[:CHUNK], cmin=lo, cmax=hi,
-                              n_levels=N_SERVE)[0]
-    sizes = rans_coder._plane_sizes(coded, N_SERVE)
-    lanes = rans_coder.rans.lane_count(sum(sizes))
-    sizes = [s for s in sizes if s]
-    bits2d, f1, _ = rans_coder._build_planes(coded, sizes, lanes)
-    steps = bits2d.shape[0]
-    ks, kov, kw = rans_coder.rans_step(bits2d, f1, lanes)
-    ps, pov, pw = rans_coder.rans_step_plain(bits2d, f1, lanes)
-    err = max(int(((ks.long() & 0xFFFFFFFF) - ps).abs().max()),
-              int((kov.int() - pov.int()).abs().max()),
-              int(((kw.long() & 0xFFFF) - pw).abs().max()))
-    row("rans_step", "rans_coder.cu",
-        "src/repro/kernels/rans_coder.py:265",
-        lambda: rans_coder.rans_step(bits2d, f1, lanes),
-        lambda: rans_coder.rans_step_plain(bits2d, f1, lanes),
-        steps * lanes * (1 + 1 + 2) + steps * 4 + lanes * 4,
-        12 * steps * lanes, float(err),
-        plain_kw=dict(reps=2, trials=3))
-    print(f"rans_step timed on {steps} steps x {lanes} lanes "
-          f"({CHUNK} indices, N={N_SERVE})")
-
-    # kernels 2, 5, 7, 8 at the prefill boundary: the g=8 per-channel plan
-    # of runs (c)-(f), 512 tiles, bf16 in/out
-    from repro_torch.kernels import ecsq_assign as ea
-    plan = channel_plan(x.shape[-1])
-    maps = fcq.tile_maps(plan, x.shape, dev)
+    plan = channel_plan(bnd["prefill"].shape[-1])
     t_lo, t_hi = tile_ranges(plan, lo, hi, dev, seed=3)
+    sizes, whole = {}, {}
+
+    def encode_case(x2d, lo_r, hi_r, lay_args, valid):
+        r, c = x2d.shape
+        sb, nsb = lay_args
+        kp, kh = fcq.encode_tiles_2d(x2d, lo_r, hi_r, N_SERVE, bits,
+                                     sb_cols=sb, bs=sb,
+                                     band_valid=valid.tolist())
+        pp, ph = fcq.encode_tiles_plain(x2d, lo_r, hi_r, valid, N_SERVE,
+                                        bits, sb)
+        packed, hist = torch.empty_like(kp), torch.empty_like(kh)
+
+        def launch():
+            _build.launch("encode_tiles", "repro_encode_tiles",
+                          x2d.data_ptr(), 0, r, c, sb, nsb, lo_r.data_ptr(),
+                          hi_r.data_ptr(), valid.data_ptr(), N_SERVE, bits,
+                          packed.data_ptr(), hist.data_ptr())
+
+        launch()
+        check(torch.equal(packed, kp) and torch.equal(hist, kh),
+              "encode_tiles C entry vs wrapper")
+        return dict(kernel=launch,
+                    plain=lambda: fcq.encode_tiles_plain(
+                        x2d, lo_r, hi_r, valid, N_SERVE, bits, sb),
+                    nbytes=r * c * 4 + r * c // per + r * nsb * 64 * 4
+                    + 2 * r * nsb * 4, nops=8 * r * c,
+                    err=max(diff(kp, pp), diff(kh, ph)))
+
+    for size, x in bnd.items():
+        x2d, _ = ops._to_2d(x.float().reshape(-1), lo)
+        r, c = x2d.shape
+        sizes[size] = encode_case(
+            x2d, torch.full((r, 1), float(lo), device=dev),
+            torch.full((r, 1), float(hi), device=dev), (c, 1),
+            fcq.band_valid_array(1, c, None, device=dev))
+    for size, x in bnd.items():
+        xf = x.float()
+        lay = ops.banded_layout(tuple(x.shape), plan)
+        xp, _ = ops._banded_view(xf, lay, plan)
+        lo_r, hi_r = ops._row_ranges(t_lo, t_hi, lay)
+        sizes["plan " + size] = encode_case(
+            xp, lo_r, hi_r, (lay.sb_cols, lay.n_sblocks),
+            fcq.band_valid_array(lay.n_sblocks, lay.bs, lay.bs_last,
+                                 device=dev))
+        whole[size] = eager_ms(lambda xf=xf: ops.encode_fused(
+            xf, t_lo, t_hi, n_levels=N_SERVE, bits=bits, plan=plan))
+    row("encode_tiles", "fused_clip_quant.cu",
+        "src/repro/kernels/fused_clip_quant.py:130", sizes)
+    for size, ms in whole.items():
+        print(f"encode_tiles plan route, whole ops.encode_fused call at the "
+              f"{size} boundary (banded copy and range expansion "
+              f"included), eager: {ms:.4f} ms")
+
+    # kernel 6: the step loop of one 65,536-index chunk, of the prefill
+    # boundary's 16 chunks in one launch, and of a decode tensor (16,384
+    # indices, one stream); chain bound: the longest stream's steps, each
+    # at the least chain's cycles measured by the probe in this run
+    coded = {size: ops.clip_quantize(x.float().reshape(-1), cmin=lo,
+                                     cmax=hi, n_levels=N_SERVE)[0]
+             for size, x in bnd.items()}
+    cases = {"chunk": (coded["prefill"][:CHUNK], [CHUNK]),
+             "prefill": (coded["prefill"], [CHUNK] * 16),
+             "decode": (coded["decode"], [coded["decode"].numel()])}
+    sizes = {}
+    for size, (idx, lengths) in cases.items():
+        bt = rans_coder._plane_batch(idx, lengths, N_SERVE)
+        lay = bt.lay
+        args = (bt.bits, bt.segs, bt.table, sum(lay.lanes), lay.n_cells)
+        kx, kov, kw = rans_coder.rans_steps(*args, max(lay.lanes))
+        px, pov, pw = rans_coder.rans_steps_plain(*args)
+        err = max(diff(kx.long() & 0xFFFFFFFF, px), diff(kov, pov),
+                  diff(kw.long() & 0xFFFF, pw))
+        steps = int(bt.table[:, 4].max())
+        cells = lay.n_cells
+        sizes[size] = dict(
+            kernel=lambda a=args, m=max(lay.lanes):
+                rans_coder.rans_steps(*a, m),
+            plain=lambda a=args: rans_coder.rans_steps_plain(*a),
+            plain_kw=dict(reps=1, trials=1) if size == "prefill"
+            else dict(reps=2, trials=3),
+            nbytes=cells * (1 + 1 + 2) + lay.n_segs * 8
+            + len(lay.lanes) * 6 * 8 + sum(lay.lanes) * 4,
+            nops=12 * cells, err=err, chain_steps=steps)
+        print(f"rans_step {size}: {len(lengths)} stream(s), lanes "
+              f"{sorted(set(lay.lanes))}, {steps} steps (longest stream), "
+              f"{cells} cells")
+    row("rans_step", "rans_coder.cu", "src/repro/kernels/rans_coder.py:265",
+        sizes)
+    dispatch = {}
+    for size, (idx, lengths) in cases.items():
+        ends = np.cumsum(lengths).tolist()
+        bounds = list(zip([0] + ends[:-1], ends))
+        dispatch[size] = eager_ms(
+            lambda i=idx, b=bounds: rans_coder.encode_index_chunks_device(
+                i, N_SERVE, b), reps=5)
+    print("rans whole encode_index_chunks_device call (sizes pre-pass, "
+          "plane build, step loop, words and fetch), eager: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in dispatch.items()))
+
+    # kernels 2, 5, 7, 8 under the g=8 per-channel plan of runs (c)-(f),
+    # 512 tiles, bf16 in/out
     tiles = plan.n_tiles
-    ki, kd = fcq.clip_quant_tiles(x, t_lo, t_hi, N_SERVE, plan)
-    pi, pd = fcq.clip_quant_tiles_plain(x, t_lo, t_hi, N_SERVE, maps)
-    row("clip_quant_tiles", "fused_clip_quant.cu",
-        "src/repro/kernels/fused_clip_quant.py:55",
-        lambda: fcq.clip_quant_tiles(x, t_lo, t_hi, N_SERVE, plan),
-        lambda: fcq.clip_quant_tiles_plain(x, t_lo, t_hi, N_SERVE, maps),
-        n * (2 + 4 + 2) + x.shape[-1] * 4 + tiles * 8, 10 * n,
-        float(max((ki - pi).abs().max(),
-                  (kd.float() - pd.float()).abs().max())))
-    kh = rate_hist.index_histogram_tiles(ki, N_SERVE, plan)
-    ph = rate_hist.index_histogram_tiles_plain(ki, N_SERVE, maps)
-    row("index_histogram_tiles", "rate_hist.cu",
-        "src/repro/kernels/rate_hist.py:45",
-        lambda: rate_hist.index_histogram_tiles(ki, N_SERVE, plan),
-        lambda: rate_hist.index_histogram_tiles_plain(ki, N_SERVE, maps),
-        n * 4 + tiles * N_SERVE * 4, n, float((kh - ph).abs().max()))
-    # kernel 7: one designed quantizer; the library yardstick is
-    # torch.bucketize on a float32 copy (matching dtypes), indices only
     thr1, lvl1 = ecsq_tables(torch.tensor(lo, device=dev),
                              torch.tensor(hi, device=dev), N_SERVE, dev, 7)
-    ki, kd = ea.ecsq_assign(x, thr1, lvl1, lo, hi)
-    pi, pd = ea.ecsq_assign_plain(x, thr1, lvl1, lo, hi)
-    xf32 = x.float()
-    row("ecsq_assign", "ecsq_assign.cu", "src/repro/kernels/ecsq_assign.py:28",
-        lambda: ea.ecsq_assign(x, thr1, lvl1, lo, hi),
-        lambda: ea.ecsq_assign_plain(x, thr1, lvl1, lo, hi),
-        n * (2 + 4 + 2) + (2 * N_SERVE - 1) * 4, (N_SERVE + 1) * n,
-        float(max((ki - pi).abs().max(),
-                  (kd.float() - pd.float()).abs().max())),
-        library=lambda: torch.bucketize(xf32, thr1, right=True))
     thr, lvl = ecsq_tables(t_lo, t_hi, N_SERVE, dev, 8)
-    ki, kd = ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl, plan)
-    pi, pd = ea.ecsq_assign_tiles_plain(x, t_lo, t_hi, thr, lvl, maps)
+    s2, s5, s7, s8 = {}, {}, {}, {}
+    for size, x in bnd.items():
+        n = x.numel()
+        maps = fcq.tile_maps(plan, x.shape, dev)
+        ki, kd = fcq.clip_quant_tiles(x, t_lo, t_hi, N_SERVE, plan)
+        pi, pd = fcq.clip_quant_tiles_plain(x, t_lo, t_hi, N_SERVE, maps)
+        s2[size] = dict(
+            kernel=lambda x=x: fcq.clip_quant_tiles(x, t_lo, t_hi, N_SERVE,
+                                                    plan),
+            plain=lambda x=x, m=maps: fcq.clip_quant_tiles_plain(
+                x, t_lo, t_hi, N_SERVE, m),
+            nbytes=n * (2 + 4 + 2) + x.shape[-1] * 4 + tiles * 8,
+            nops=10 * n, err=max(diff(ki, pi), diff(kd, pd)))
+        kh = rate_hist.index_histogram_tiles(ki, N_SERVE, plan)
+        ph = rate_hist.index_histogram_tiles_plain(ki, N_SERVE, maps)
+        s5[size] = dict(
+            kernel=lambda i=ki: rate_hist.index_histogram_tiles(
+                i, N_SERVE, plan),
+            plain=lambda i=ki, m=maps: rate_hist.index_histogram_tiles_plain(
+                i, N_SERVE, m),
+            nbytes=n * 4 + tiles * N_SERVE * 4, nops=n, err=diff(kh, ph))
+        # the library yardstick of #7 is torch.bucketize on a float32
+        # copy (matching dtypes), indices only
+        ki, kd = ea.ecsq_assign(x, thr1, lvl1, lo, hi)
+        pi, pd = ea.ecsq_assign_plain(x, thr1, lvl1, lo, hi)
+        xf32 = x.float()
+        s7[size] = dict(
+            kernel=lambda x=x: ea.ecsq_assign(x, thr1, lvl1, lo, hi),
+            plain=lambda x=x: ea.ecsq_assign_plain(x, thr1, lvl1, lo, hi),
+            nbytes=n * (2 + 4 + 2) + (2 * N_SERVE - 1) * 4,
+            nops=(N_SERVE + 1) * n, err=max(diff(ki, pi), diff(kd, pd)),
+            library=lambda xf=xf32: torch.bucketize(xf, thr1, right=True))
+        ki, kd = ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl, plan)
+        pi, pd = ea.ecsq_assign_tiles_plain(x, t_lo, t_hi, thr, lvl, maps)
+        s8[size] = dict(
+            kernel=lambda x=x: ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl,
+                                                    plan),
+            plain=lambda x=x, m=maps: ea.ecsq_assign_tiles_plain(
+                x, t_lo, t_hi, thr, lvl, m),
+            nbytes=n * (2 + 4 + 2) + x.shape[-1] * 4
+            + tiles * (2 + 2 * N_SERVE - 1) * 4,
+            nops=(N_SERVE + 1) * n, err=max(diff(ki, pi), diff(kd, pd)))
+    row("clip_quant_tiles", "fused_clip_quant.cu",
+        "src/repro/kernels/fused_clip_quant.py:55", s2)
+    row("index_histogram_tiles", "rate_hist.cu",
+        "src/repro/kernels/rate_hist.py:45", s5)
+    row("ecsq_assign", "ecsq_assign.cu", "src/repro/kernels/ecsq_assign.py:28",
+        s7)
     row("ecsq_assign_tiles", "ecsq_assign.cu",
-        "src/repro/kernels/ecsq_assign.py:56",
-        lambda: ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl, plan),
-        lambda: ea.ecsq_assign_tiles_plain(x, t_lo, t_hi, thr, lvl, maps),
-        n * (2 + 4 + 2) + x.shape[-1] * 4 + tiles * (2 + 2 * N_SERVE - 1) * 4,
-        (N_SERVE + 1) * n,
-        float(max((ki - pi).abs().max(),
-                  (kd.float() - pd.float()).abs().max())))
-
-    # kernel 3's plan route: the megakernel over the banded view of the
-    # float32 prefill boundary under the g=8 plan (run (d)); timed through
-    # its C entry, as above
-    lay = ops.banded_layout(tuple(x.shape), plan)
-    xp, _ = ops._banded_view(x.float(), lay, plan)
-    lo_r, hi_r = ops._row_ranges(t_lo, t_hi, lay)
-    valid_b = fcq.band_valid_array(lay.n_sblocks, lay.bs, lay.bs_last,
-                                   device=dev)
-    kp, kh3, _ = ops.encode_fused(x.float(), t_lo, t_hi, n_levels=N_SERVE,
-                                  bits=bits, plan=plan)
-    packed_b, hist_b = torch.empty_like(kp), torch.empty_like(kh3)
-
-    def encode_plan_launch():
-        hist_b.zero_()
-        _build.launch("encode_tiles", "repro_encode_tiles", xp.data_ptr(),
-                      0, lay.rows, lay.cols, lay.sb_cols, lay.n_sblocks,
-                      lo_r.data_ptr(), hi_r.data_ptr(), valid_b.data_ptr(),
-                      N_SERVE, bits, packed_b.data_ptr(), hist_b.data_ptr())
-
-    encode_plan_launch()
-    check(torch.equal(packed_b, kp) and torch.equal(hist_b, kh3),
-          "encode_tiles plan-route C entry vs wrapper")
-    pb = lay.rows * lay.cols
-    plan_b_ms, plan_by = bound(pb * 4 + pb // per + lay.rows * 64 * 4
-                               + 2 * lay.rows * 4, 8 * pb)
-    plan_route = {"ms": time_ms(encode_plan_launch), "bound_ms": plan_b_ms,
-                  "plain_ms": time_ms(lambda: fcq.encode_tiles_plain(
-                      xp, lo_r, hi_r, valid_b, N_SERVE, bits, lay.sb_cols))}
-    print(f"encode_tiles plan route: banded ({lay.rows}, {lay.cols}) view, "
-          f"kernel {plan_route['ms']:.4f} ms  plain "
-          f"{plan_route['plain_ms']:.4f} ms  bound {plan_b_ms:.4f} ms "
-          f"({plan_by})")
+        "src/repro/kernels/ecsq_assign.py:56", s8)
 
     # kernel 9: the pack of the split runtime's decode boundary (16,384
-    # indices at N=4, 2 bits), the shape the packed runs give it; then
-    # the prefill boundary's 1,048,576 indices for the byte-bound regime
-    from repro_torch.kernels import pack_bits as pb
-    idx_d = fcq.clip_quant_2d(boundary["decode"], lo, hi,
-                              N_SERVE)[0].reshape(-1)
-    nd = idx_d.numel()
+    # indices at N=4, 2 bits), the one size its path gives it, then the
+    # prefill boundary's 1,048,576 indices
+    sizes = {}
+    for size in ("decode", "prefill"):
+        idx = fcq.clip_quant_2d(bnd[size], lo, hi, N_SERVE)[0].reshape(-1)
+        n = idx.numel()
+        sizes[size] = dict(
+            kernel=lambda i=idx: pb.pack_bits(i, bits),
+            plain=lambda i=idx: pb.pack_bits_plain(i, bits),
+            nbytes=n * 4 + n // per, nops=2 * n,
+            err=diff(pb.pack_bits(idx, bits), pb.pack_bits_plain(idx, bits)))
     row("pack_bits", "pack_bits.cu", "src/repro/kernels/pack_bits.py:38",
-        lambda: pb.pack_bits(idx_d, bits),
-        lambda: pb.pack_bits_plain(idx_d, bits), nd * 4 + nd // per, 2 * nd,
-        float((pb.pack_bits(idx_d, bits).int()
-               - pb.pack_bits_plain(idx_d, bits).int()).abs().max()))
-    pre_b_ms, pre_by = bound(n * 4 + n // per, 2 * n)
-    print(f"pack_bits at the prefill boundary ({n} indices, {bits} bits): "
-          f"kernel {time_ms(lambda: pb.pack_bits(idx, bits)):.4f} ms  "
-          f"plain {time_ms(lambda: pb.pack_bits_plain(idx, bits)):.4f} "
-          f"ms  bound {pre_b_ms:.4f} ms ({pre_by})")
+        sizes)
 
-    check(all(r_["max_abs_err"] == 0 for r_ in rows
+    check(all(r_["sizes"][s]["max_abs_err"] == 0 for r_ in rows
+              for s in r_["sizes"]
               if r_["name"] not in ("clip_quant", "clip_quant_tiles")),
           "integer kernel outputs and ECSQ reconstructions must match "
           "exactly")
-    check(worst_deq <= 1, "clip_quant reconstruction beyond 1 ulp")
     print("times per call: device time of back-to-back calls; 'eager' is "
           "the python-dispatched wall time per call")
     for r_ in rows:
-        print(f"  {r_['name']:16s} kernel {r_['ms']:.4f} ms  eager "
-              f"{eager[r_['name']]:.4f} ms  plain {r_['plain_ms']:.4f} ms  "
-              f"bound {r_['bound_ms']:.4f} ms ({r_['bound_by']})"
-              + (f"  library {r_['library_ms']:.4f} ms (eager)"
-                 if r_["library_ms"] is not None else ""))
+        for size, t in r_["sizes"].items():
+            print(f"  {r_['name']:21s} {size:12s} kernel {t['ms']:.4f} ms  "
+                  f"eager {eager[(r_['name'], size)]:.4f} ms  plain "
+                  f"{t['plain_ms']:.4f} ms  bound {t['bound_ms']:.5f} ms "
+                  f"({t['bound_by']})"
+                  + (f"  [bytes {t['byte_bound_ms']:.5f}, chain "
+                     f"{t['chain_ms']:.4f} ms at "
+                     f"{t['chain_cycles_per_step']:.2f} cycles a step]"
+                     if "chain_ms" in t else "")
+                  + (f"  library {t['library_ms']:.4f} ms (eager)"
+                     if t["library_ms"] is not None else ""))
     return rows
 
 
@@ -693,9 +866,11 @@ def serve(dev):
                      f"chunk_elems={CHUNK}, device_entropy=True))")
         print(f"serve ({run_id}): {kind} codec, {label}")
         _build.reset_launches()
+        SIZE_LAUNCHES.clear()
         eng, reqs, dt = S.run(cfg, params, **hookups[run_id], **run_kw)
         torch.cuda.synchronize()
         counts[run_id] = dict(_build.LAUNCHES)
+        RUN_SIZES[run_id] = dict(SIZE_LAUNCHES)
         _check_retired(reqs)
         tok_s[run_id] = REQUESTS * NEW_TOKENS / dt
         rates[run_id] = float(np.mean(eng.rate_log))
@@ -858,8 +1033,10 @@ def split_phase(cfg, params, dev) -> dict:
         caches = SR.init_split_cache(cfg, b, SPLIT_MAX_SEQ, edge_device=dev,
                                      cloud_device=dev)
         _build.reset_launches()
+        SIZE_LAUNCHES.clear()
         logits, toks, rate, dt = split_decode(step, sp, caches, prompt)
         counts[run_id] = dict(_build.LAUNCHES)
+        RUN_SIZES[run_id] = dict(SIZE_LAUNCHES)
         if transport == "raw":      # the bf16 activations cross
             sent = [b * cfg.d_model * 2] * steps
         check(len(sent) == steps, f"({run_id}) sent {len(sent)} payloads")
@@ -954,30 +1131,46 @@ def main() -> int:
 
     # 1. device
     name = torch.cuda.get_device_name(0)
+    probe = start_probe_build()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
     smi = smi.splitlines()[0]
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.split()[0])
     print(f"device: {name} (torch {torch.__version__}, CUDA "
-          f"{torch.version.cuda})")
+          f"{torch.version.cuda}); top SM clock {sm_mhz:.0f} MHz")
     print(smi)
 
     # 2. build
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.library()
+    try:
+        _build.library()
+        cycles = chain_cycles(*probe, dev)
+    finally:
+        if probe[0].poll() is None:         # the kernels' build failed
+            probe[0].kill()
+            probe[0].wait()
     built = _build.build_seconds
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({'compiled' if built is not None else 'cached'} "
-          f"{_build.LIB_NAME})")
+          f"{_build.LIB_NAME}; the chain probe beside it)")
+    print(f"rans step chain (one thread, {PROBE_ITERS} steps, clock64): "
+          f"least chain {cycles['least']:.2f} cycles per step, the "
+          f"kernel's form of the step {cycles['shipped']:.2f}; both reach "
+          "the same state")
 
     # 3. kernels against their plain versions, then timings
+    count_sizes()
     boundary = synthetic_boundary(dev)
     worst = max(kernel_checks(boundary, dev), tiled_checks(boundary, dev))
     pack_checks(dev)
     print(f"kernels: exact against their plain versions (worst "
           f"reconstruction {worst} ulp)")
-    rows = kernel_timings(boundary, worst, dev)
+    rows = kernel_timings(boundary, dev, sm_mhz, cycles)
 
     # 4. serve
     cfg, params, counts = serve(dev)
@@ -996,13 +1189,26 @@ def main() -> int:
     check(sorted(r_["name"] for r_ in rows) == sorted(runs_of),
           "the kernel table must list every ported kernel")
     for r_ in rows:
-        r_["launches"] = counts[runs_of[r_["name"]][0]][r_["name"]]
-        for run_id in runs_of[r_["name"]]:
-            check(counts[run_id][r_["name"]] > 0, f"{r_['name']} never "
+        name_ = r_["name"]
+        r_["launches"] = counts[runs_of[name_][0]][name_]
+        for run_id in runs_of[name_]:
+            check(counts[run_id][name_] > 0, f"{name_} never "
                   f"launched on serving run ({run_id})")
+        # launches per run at each size class; a row's sizes named after
+        # a route ("plan prefill") take the class of their last word
+        for size, t in r_["sizes"].items():
+            cls = size.split()[-1]
+            route = runs_of[name_] if name_ != "encode_tiles" else \
+                "d" if size.startswith("plan") else "b"
+            t["launches"] = {run_id: RUN_SIZES[run_id].get((name_, cls), 0)
+                             for run_id in route}
     for run_id, c in counts.items():
         print(f"launches ({run_id}): "
-              + ", ".join(f"{k} {v}" for k, v in c.items() if v))
+              + ", ".join(f"{k} {v}" for k, v in c.items() if v)
+              + "; by size: " + ", ".join(
+                  f"{k} {cls} {v}" for (k, cls), v in
+                  sorted(RUN_SIZES[run_id].items())))
+    print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -46,7 +46,7 @@ _SIGNATURES = {
     "repro_index_histogram": (_P, _L, _I, _P, _P),
     "repro_index_histogram_tiles": (_P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                                     _P, _P),
-    "repro_rans_step": (_P, _P, _I, _I, _P, _P, _P, _P),
+    "repro_rans_step": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
     "repro_ecsq_assign": (_P, _I, _I, _F, _F, _P, _P, _I, _P, _P, _P),
     "repro_ecsq_assign_tiles": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                                 _P, _I, _P, _P, _P),

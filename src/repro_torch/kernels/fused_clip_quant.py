@@ -19,7 +19,12 @@ Three kernels, each beside its plain torch version:
   (``encode_tiles_2d``): the encode megakernel -- clip -> quantize ->
   bit-pack -> per-(row, band) histogram in one pass, the
   ``codec_host_fn`` hookup's device side.  Source:
-  ``csrc/fused_clip_quant.cu`` ``repro_encode_tiles``.
+  ``csrc/fused_clip_quant.cu`` ``repro_encode_tiles``.  A thread makes
+  four packed bytes from one vector load; a block owns whole (row, band)
+  cells, counts them with lane-group reductions and no atomics, and
+  stores each cell's histogram row once, so the output is not zeroed
+  first.  Bound more by its launch and per-thread work than by its bytes
+  (see the source note).
 
 All are bound by bytes on the card (one read per element, a few
 flops); each makes a single pass over device memory (see the source
@@ -311,7 +316,8 @@ def encode_tiles_2d(x: torch.Tensor, cmin: torch.Tensor, cmax: torch.Tensor,
     _build.check_cuda("cmin", cmin, (torch.float32,))
     _build.check_cuda("cmax", cmax, (torch.float32,))
     packed = torch.empty((r, c // per), dtype=torch.uint8, device=x.device)
-    hist = torch.zeros((r, nb * HIST_WIDTH), dtype=torch.int32,
+    # the kernel stores every histogram entry (each block owns its cells)
+    hist = torch.empty((r, nb * HIST_WIDTH), dtype=torch.int32,
                        device=x.device)
     if r == 0:
         return packed, hist

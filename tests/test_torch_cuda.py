@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.compression import split_runtime
 from repro_torch.configs import get_config, reduced
-from repro_torch.core import CodecConfig, binarization, calibrate, rans
+from repro_torch.core import (CodecConfig, binarization, cabac, calibrate,
+                              rans)
 from repro_torch.core.backend import QuantSpec, get_backend
 from repro_torch.core.ecsq import design_ecsq
 from repro_torch.core.tiling import TileECSQ, TilePlan, spatial_grid
@@ -274,6 +275,111 @@ def test_tiled_wrappers_refuse_bad_arguments(dev):
         fcq.clip_quant_tiles(x, lo.double(), hi.double(), 4, plan)
     with pytest.raises(TypeError):
         rate_hist.index_histogram_tiles(x, 4, plan)
+
+
+# -- the batched rANS step loop (#6) ------------------------------------------
+
+def _coded(dev, n, n_levels, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.rand(n_levels, device=dev, generator=g) + 0.05
+    return torch.multinomial(p / p.sum(), n, replacement=True,
+                             generator=g).int()
+
+
+@pytest.mark.parametrize("n_levels", [2, 3, 4, 16])
+def test_batched_rans_kernel_matches_plain_per_stream(dev, n_levels):
+    """One launch over a ragged batch (5 to 57,095 indices, 4 to 256
+    lanes) equals the plain loop stream by stream: states, flags, words."""
+    lengths = [5, 900, 12000, 57095]
+    idx = _coded(dev, sum(lengths), n_levels, seed=n_levels)
+    batch = rans_coder._plane_batch(idx, lengths, n_levels)
+    lay = batch.lay
+    assert len(set(lay.lanes)) >= 3
+    args = (batch.bits, batch.segs, batch.table, sum(lay.lanes),
+            lay.n_cells)
+    before = dict(_build.LAUNCHES)
+    kx, kov, kw = rans_coder.rans_steps(*args, max(lay.lanes))
+    torch.cuda.synchronize()
+    assert _advanced(before, rans_step=1)
+    px, pov, pw = rans_coder.rans_steps_plain(*args)
+    assert torch.equal(kx.long() & 0xFFFFFFFF, px)
+    assert torch.equal(kov, pov)
+    assert torch.equal(kw.long() & 0xFFFF, pw)
+
+
+def test_prefill_chunks_in_one_launch(dev):
+    """The prefill boundary's 16 chunks of 65,536 indices: one launch
+    gives the blobs of 16 single-chunk launches and of the host coder."""
+    idx = _coded(dev, 1 << 20, 4, seed=11)
+    bounds = [(i << 16, (i + 1) << 16) for i in range(16)]
+    before = dict(_build.LAUNCHES)
+    blobs = rans_coder.encode_index_chunks_device(idx, 4, bounds)
+    assert _advanced(before, rans_step=1)
+    singles = [rans_coder.encode_index_chunks_device(idx, 4, [b])[0]
+               for b in bounds]
+    assert blobs == singles
+    host = idx.cpu().numpy()
+    for (s, e), blob in zip(bounds[::5], blobs[::5]):
+        assert blob == cabac.wrap_device_blob(rans.encode_planes(
+            binarization.index_to_context_bits(host[s:e], 4)))
+
+
+# -- the encode megakernel (#3), flat and plan routes -------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_levels", [2, 3, 4, 8, 16, 64])
+@pytest.mark.parametrize("shape", [(4, 64, 4096), (4, 1, 4096), (513,),
+                                   (70001,)])
+def test_encode_flat_route(dev, shape, n_levels, dtype):
+    g = torch.Generator(device=dev).manual_seed(n_levels)
+    x = (torch.randn(shape, device=dev, generator=g) * 1.3 + 0.1).to(dtype)
+    bits = max(1, (n_levels - 1).bit_length())
+    before = dict(_build.LAUNCHES)
+    kp, kh, _ = ops.encode_fused(x, -2.2, 2.9, n_levels=n_levels, bits=bits)
+    assert _advanced(before, encode_tiles=1)
+    pp, ph, _ = ops.encode_fused(x.cpu(), -2.2, 2.9, n_levels=n_levels,
+                                 bits=bits)
+    assert torch.equal(kp.cpu(), pp) and torch.equal(kh.cpu(), ph)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_levels", [2, 3, 4, 8, 16, 64])
+@pytest.mark.parametrize("name", list(PLANS) + ["serve-g8"])
+def test_encode_plan_route(dev, name, n_levels, dtype):
+    if name == "serve-g8":       # the (4, 64, 4096) boundary at g=8
+        shape = (4, 64, 4096)
+        plan = TilePlan(channel_axis=-1, channel_group_size=8,
+                        spatial_block_size=0, n_channels=4096)
+    else:
+        shape, plan = _plan(name)
+    g = torch.Generator(device=dev).manual_seed(n_levels)
+    x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.3).to(dtype)
+    lo, hi = (torch.from_numpy(t).to(dev) for t in _ranges(plan))
+    bits = max(1, (n_levels - 1).bit_length())
+    kp, kh, _ = ops.encode_fused(x, lo, hi, n_levels=n_levels, bits=bits,
+                                 plan=plan)
+    pp, ph, _ = ops.encode_fused(x.cpu(), lo.cpu(), hi.cpu(),
+                                 n_levels=n_levels, bits=bits, plan=plan)
+    assert torch.equal(kp.cpu(), pp) and torch.equal(kh.cpu(), ph)
+
+
+@pytest.mark.parametrize("sb_cols,bits", [(8, 1), (24, 2), (48, 4),
+                                          (40, 3), (1024, 1), (2048, 2)])
+def test_encode_tiles_odd_bands(dev, sb_cols, bits):
+    """Bands of 1-3 bytes (many cells per block, the match path), 12-byte
+    bands (no half-warp alignment), and bands longer than a block."""
+    n_levels = 1 << bits
+    g = torch.Generator(device=dev).manual_seed(sb_cols)
+    x = torch.randn(37, 3 * sb_cols, device=dev, generator=g) * 3
+    lo = torch.rand(37, 3, device=dev, generator=g) * -3
+    hi = lo + torch.rand(37, 3, device=dev, generator=g) * 4 + 0.5
+    valid = (sb_cols, sb_cols // 2, 1)
+    kp, kh = fcq.encode_tiles_2d(x, lo, hi, n_levels, bits, sb_cols=sb_cols,
+                                 bs=sb_cols, band_valid=valid)
+    pp, ph = fcq.encode_tiles_plain(
+        x, lo, hi, fcq.band_valid_array(3, sb_cols, None, valid, dev),
+        n_levels, bits, sb_cols)
+    assert torch.equal(kp, pp) and torch.equal(kh, ph)
 
 
 # -- pack kernel (#9) and the split runtime -----------------------------------

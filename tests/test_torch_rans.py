@@ -8,6 +8,8 @@ are exact.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro.core import binarization as jbin
 from repro.core import cabac as jcabac
@@ -133,3 +135,152 @@ def test_cpu_tensors_take_the_plain_step_loop():
     idx = _indices(2000, 4, "dense")
     trc.encode_indices_device(torch.from_numpy(idx), 4)
     assert _build.LAUNCHES["rans_step"] == 0
+
+
+# -- the step loop's exact reciprocal divide ----------------------------------
+
+def _all_f():
+    return torch.arange(1, 1 << 14, dtype=torch.int64)
+
+
+@pytest.mark.parametrize("ks", [
+    range(1, 65),                                  # small quotients
+    range((1 << 18) - 64, (1 << 18) + 1),          # top of the step's range
+    [1 << 9, 1 << 12, 1 << 15, 3 << 14, 12345, 99991, 200001],
+])
+def test_recip_div_exact_at_multiples(ks):
+    """Every f in [1, 2^14) at x = k*f - 1 and x = k*f, where a floor
+    division steps, up to x < f * 2^18 (the state after renormalisation)."""
+    f = _all_f()[:, None]
+    k = torch.tensor(list(ks), dtype=torch.int64)[None, :]
+    for x in (k * f - 1, k * f):
+        x, ff = torch.broadcast_tensors(x, f)
+        keep = x < ff << 18
+        x, ff = x[keep], ff[keep]
+        assert torch.equal(trc.recip_div(x, ff), x // ff)
+
+
+def test_recip_div_exact_just_under_range_top():
+    """The largest states the step sees, x in [f * 2^18 - 4096, f * 2^18),
+    for every f; and the 32-bit top for every f (the formula holds for
+    every 32-bit x)."""
+    f = _all_f()[:, None]
+    x = (f << 18) - torch.arange(1, 4097, dtype=torch.int64)[None, :]
+    x, ff = torch.broadcast_tensors(x, f)
+    assert torch.equal(trc.recip_div(x, ff), x // ff)
+    top = torch.full_like(f, (1 << 32) - 1)
+    assert torch.equal(trc.recip_div(top, f), top // f)
+
+
+@given(st.integers(1, (1 << 14) - 1), st.data())
+@settings(max_examples=300, deadline=None)
+def test_recip_div_property(f, data):
+    x = data.draw(st.integers(0, (f << 18) - 1))
+    assert int(trc.recip_div(torch.tensor([x]), torch.tensor([f]))[0]) \
+        == x // f
+
+
+def test_recip_params_halves():
+    f = _all_f()
+    mh, ml = trc.recip_params(f)
+    m = [-(-(1 << 63) // int(v)) for v in f]
+    assert [int(h) << 32 | int(lo) for h, lo in zip(mh, ml)] == m
+    assert int(ml.max()) < 1 << 32 and int(mh.max()) <= 1 << 31
+
+
+def test_recip_div_quotient_of_renormalised_state():
+    """``(x >> 16) // f`` is the quotient of the state before
+    renormalisation shifted by 16, the identity that lets the step's
+    least chain (``tools/rans_chain_probe.cu``) start the divide before
+    the renormalise compare: every f, at the states where the step
+    renormalises (x >= f * 2^18) and the quotient steps, up to 2^32."""
+    f = _all_f()[:, None]
+    k = torch.tensor([4, 5, 7, 100, 1000, 65535, 1 << 18],
+                     dtype=torch.int64)[None, :]
+    for x in ((k * f << 16) - 1, k * f << 16, (f << 18) + 0 * k,
+              torch.full_like(k * f, (1 << 32) - 1)):
+        x, ff = torch.broadcast_tensors(x, f)
+        keep = (x >= ff << 18) & (x < 1 << 32)
+        x, ff = x[keep], ff[keep]
+        assert torch.equal(trc.recip_div(x, ff) >> 16, (x >> 16) // ff)
+
+
+# -- the batched dispatch -----------------------------------------------------
+
+# ragged chunk bounds: a 5-element chunk, an empty one, and chunks whose
+# bit counts give different lane counts (4 to 256 lanes)
+RAGGED = [(0, 5), (5, 5), (5, 905), (905, 12905), (12905, 70000)]
+
+
+@pytest.mark.parametrize("n_levels", LEVELS)
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_batched_dispatch_matches_reference(n_levels, kind):
+    idx = _indices(70000, n_levels, kind, seed=5)
+    got = trc.encode_index_chunks_device(torch.from_numpy(idx), n_levels,
+                                         RAGGED)
+    lanes = {jrans.lane_count(int(jbin.index_to_context_bits(
+        idx[s:e], n_levels)[0].size)) for s, e in RAGGED if e > s}
+    assert len(lanes) >= 3
+    for (s, e), payload in zip(RAGGED, got):
+        assert payload == _host_payload(idx[s:e], n_levels)
+    want = jrc.encode_index_chunks_device(idx, n_levels, RAGGED,
+                                          use_kernel=True, interpret=True)
+    assert got == want
+
+
+def test_batched_dispatch_out_of_order_bounds():
+    """Bounds that are not back to back (overlapping, out of order) are
+    gathered into one batch all the same."""
+    idx = _indices(4000, 3, "dense", seed=6)
+    bounds = [(1000, 3000), (0, 1500), (3999, 4000), (2000, 2000)]
+    got = trc.encode_index_chunks_device(torch.from_numpy(idx), 3, bounds)
+    assert got == [_host_payload(idx[s:e], 3) for s, e in bounds]
+
+
+def test_batched_dispatch_one_size_pass(monkeypatch):
+    calls = []
+    real = trc._plane_sizes_batch
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(trc, "_plane_sizes_batch", counted)
+    idx = torch.from_numpy(_indices(70000, 4, "dense"))
+    pending = trc.dispatch_index_chunks(idx, 4, RAGGED)
+    assert len(calls) == 1
+    assert len(trc.finalize_index_chunks(pending)) == len(RAGGED)
+
+
+@pytest.mark.parametrize("n_levels", [3, 16])
+def test_batched_dispatch_counts_thresholds_in_groups(monkeypatch, n_levels):
+    """A stream too long for the size pre-pass's budget takes its
+    thresholds a few at a time (here one or two) and codes the same
+    bytes."""
+    idx = _indices(70000, n_levels, "dense", seed=8)
+    monkeypatch.setattr(trc, "_COUNT_ELEMS", 100000)
+    got = trc.encode_index_chunks_device(torch.from_numpy(idx), n_levels,
+                                         RAGGED)
+    assert got == [_host_payload(idx[s:e], n_levels) for s, e in RAGGED]
+
+
+def test_batched_stream_table_matches_single_streams():
+    """The plain step loop over the batch's stream table equals each
+    stream coded alone through the one-stream wrapper."""
+    idx = torch.from_numpy(_indices(20000, 4, "dense", seed=7))
+    lengths = [5, 900, 19095]
+    batch = trc._plane_batch(idx, lengths, 4)
+    lay = batch.lay
+    x, ov, w = trc.rans_steps(batch.bits, batch.segs, batch.table,
+                              sum(lay.lanes), lay.n_cells, max(lay.lanes))
+    for s, (mat, s0, ns, st, steps, lanes) in enumerate(
+            batch.table.tolist()):
+        sg = batch.segs[s0:s0 + ns].long()
+        ends = torch.cat([sg[1:, 0], torch.tensor([steps])])
+        f1 = torch.repeat_interleave(sg[:, 1], ends - sg[:, 0])
+        cells = slice(mat, mat + steps * lanes)
+        x1, ov1, w1 = trc.rans_step(
+            batch.bits[cells].reshape(steps, lanes), f1, lanes)
+        assert torch.equal(x[st:st + lanes], x1)
+        assert torch.equal(ov[cells], ov1.reshape(-1))
+        assert torch.equal(w[cells], w1.reshape(-1))
