@@ -14,10 +14,14 @@ Phases, in order; any failure raises and exits non-zero:
    beyond (a 1-D tile plan with a short last block, a ragged 2-D plan;
    indices, packed bytes, histograms, ECSQ reconstructions and rANS blobs
    exact -- the prefill boundary's 16 rANS chunks coded in one launch
-   give the blobs of 16 single-chunk launches; uniform reconstructions
-   within 1 ulp), then each kernel timed at both sizes the serving paths
-   launch it at (for the rANS step loop: one chunk, the 16-chunk batch,
-   a decode tensor), beside the plain version's time and the bound (for
+   give the blobs of 16 single-chunk launches; the per-tensor quantizer's
+   histogram variants give the index histogram's bins; uniform
+   reconstructions within 1 ulp), then each kernel timed at both sizes
+   the serving paths launch it at (for the per-tensor quantizer also with
+   its histogram, with and without the reconstruction; for the index
+   histogram the whole wrapper call; for the rANS step loop: one chunk,
+   the 16-chunk batch, a decode tensor), beside the plain version's time
+   and the bound (for
    the step loop, the larger of its byte bound and its dependent chain:
    the cycles of the step's least dependent chain, measured in this run
    by ``tools/rans_chain_probe.cu``, per step at the top SM clock
@@ -32,7 +36,9 @@ Phases, in order; any failure raises and exits non-zero:
    ECSQ, ``codec=``; (f) per-channel ECSQ g=8, the bitstream hookup.
    Launch counts are reset before and read after each run -- also by
    size, prefill or decode -- and every kernel must have launched on its
-   run; on the prefill boundary of (b),
+   run; (a) counts its indices in the quantizer's launch and must launch
+   no index histogram, with each boundary's rate equal to the two-launch
+   path's (quantize, then histogram); on the prefill boundary of (b),
    (d) and (f) the wire's indices must equal the quantizer kernel's.
    (a) and (b) then run once more under ``torch.profiler`` for the
    device's busy time and idle share;
@@ -47,12 +53,18 @@ Phases, in order; any failure raises and exits non-zero:
    the split runtime's boundary.  (g) must equal the unsplit decode
    step's logits rounded through bfloat16, (h) and (i) must give
    identical logits, and the pack kernel must launch once per step of
-   each packed run and never in (g) or (i).  (h) then runs once more
-   under ``torch.profiler``.
+   each packed run and never in (g) or (i); (h)-(k) launch no index
+   histogram and each step's rate equals the two-launch path's.  (h)
+   then runs once more under ``torch.profiler``;
+6. launches -- each run's launch counts against the kernels it must
+   launch.  The device operations (``torch.profiler``) of one decode
+   crossing of the (a) hookup (``apply_with_rate``) and of the (h) split
+   step's crossing are counted at the end of phase 3: their quantizer,
+   histogram and pack stage must be one operation on (a), two on (h).
 
 The line before the last is the per-kernel JSON record (each kernel's
 numbers per size under ``sizes``, with its launches per run at that
-size); the last line is
+size, and its port status); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -86,6 +98,7 @@ REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 64, 8
 WARMUP_BATCHES = 2          # calibration batches of split-layer activations
 ECSQ_LAGRANGIAN = 0.05
 SPLIT_PROMPT, SPLIT_NEW, SPLIT_MAX_SEQ = 8, 8, 32
+ROADMAP = ROOT / "ROADMAP.md"    # its queue B table: each kernel's status
 # run -> (transport, split codec); the codecs are built in split_phase
 SPLIT_RUNS = {"g": ("raw", None), "h": ("packed", "tensor-4"),
               "i": ("quantized_f16", "tensor-4"), "j": ("packed", "tensor-2"),
@@ -311,6 +324,19 @@ def kernel_checks(boundary, dev):
                 kh = rate_hist.index_histogram_2d(ki, n)
                 ph = rate_hist.index_histogram_plain(ki, n)
                 check(torch.equal(kh, ph), f"index_histogram {name} N={n}")
+                # the quantizer's own counts, with and without deq
+                fi, fd, fh = fcq.clip_quant_2d(x, lo, hi, n, want_hist=True)
+                gi, gd, gh = fcq.clip_quant_2d(x, lo, hi, n, want_deq=False,
+                                               want_hist=True)
+                check(torch.equal(fi, pi) and torch.equal(fd, kd)
+                      and torch.equal(fh, ph) and gd is None
+                      and torch.equal(gi, pi) and torch.equal(gh, ph),
+                      f"clip_quant +hist {name} {dtype} N={n}")
+                wild = (ki.reshape(-1)[:4099] * 7 - 5).contiguous()
+                check(torch.equal(
+                    ops.index_histogram(wild, n_levels=n),
+                    rate_hist.index_histogram_plain(wild, n)),
+                    f"index_histogram out of range {name} N={n}")
                 check(torch.equal(ops.index_histogram(ki, n_levels=n),
                                   torch.bincount(ki.reshape(-1).long(),
                                                  minlength=n).int()),
@@ -413,7 +439,15 @@ def size_class(kernel: str, args) -> str:
     arguments (elements per call).  The step loop's arguments do not hold
     its size, so the indices of the batch it codes are recorded as the
     batch is dispatched (``STEP_INDICES``); a batch of at least one chunk
-    but below the prefill size is a "chunk"."""
+    but below the prefill size is a "chunk".  The per-tensor quantizer's
+    class also names what it wrote besides the indices: "" (the
+    reconstruction), " +hist" (and the histogram), " idx+hist" (the
+    histogram alone) or " idx" (neither)."""
+    if kernel == "clip_quant":
+        deq, hist = args[9] is not None, args[10] is not None
+        return ("prefill" if args[2] >= 600_000 else "decode") + (
+            " +hist" if deq and hist else " idx+hist" if hist
+            else "" if deq else " idx")
     if kernel == "rans_step":
         n = STEP_INDICES[0]
         return "prefill" if n >= 600_000 else "chunk" if n >= CHUNK \
@@ -541,29 +575,44 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
     def diff(a, b) -> float:
         return float((a.double() - b.double()).abs().max())
 
-    # kernel 1: per-tensor clip + quantize + dequantize, bf16 in/out
+    # kernel 1: per-tensor clip + quantize, bf16 in: indices and
+    # reconstruction (the codec= hookup's pass when the index histogram
+    # was a launch of its own), then with the histogram of the
+    # indices ("+hist"; the codec= hookup's apply_with_rate), and with
+    # it but no reconstruction ("idx+hist"; the split crossing); bins
+    # counted as 256 B as the index histogram's row counts them
     sizes = {}
-    for size, x in bnd.items():
-        n = x.numel()
-        _, kd = fcq.clip_quant_2d(x, lo, hi, N_SERVE)
-        _, pd = fcq.clip_quant_plain(x, lo, hi, N_SERVE)
-        sizes[size] = dict(
-            kernel=lambda x=x: fcq.clip_quant_2d(x, lo, hi, N_SERVE),
-            plain=lambda x=x: fcq.clip_quant_plain(x, lo, hi, N_SERVE),
-            nbytes=n * (2 + 4 + 2), nops=6 * n, err=diff(kd, pd))
+    variants = {"": dict(), " +hist": dict(want_hist=True),
+                " idx+hist": dict(want_deq=False, want_hist=True)}
+    for tag, kw in variants.items():
+        for size, x in bnd.items():
+            n = x.numel()
+            k_out = fcq.clip_quant_2d(x, lo, hi, N_SERVE, **kw)
+            p_out = fcq.clip_quant_plain(x, lo, hi, N_SERVE, **kw)
+            err = max(diff(a, b) for a, b in zip(k_out, p_out)
+                      if a is not None)
+            nbytes = n * (2 + 4 + (2 if kw.get("want_deq", True) else 0)) \
+                + (64 * 4 if kw.get("want_hist") else 0)
+            sizes[size + tag] = dict(
+                kernel=lambda x=x, kw=kw: fcq.clip_quant_2d(
+                    x, lo, hi, N_SERVE, **kw),
+                plain=lambda x=x, kw=kw: fcq.clip_quant_plain(
+                    x, lo, hi, N_SERVE, **kw),
+                nbytes=nbytes, nops=6 * n, err=err)
     row("clip_quant", "fused_clip_quant.cu",
         "src/repro/kernels/fused_clip_quant.py:26", sizes)
 
-    # kernel 4: global index histogram, int32 indices (the library call
-    # syncs on its input's maximum, so it is timed eagerly)
+    # kernel 4: global index histogram, int32 indices, the whole wrapper
+    # call (the library call syncs on its input's maximum, so it is timed
+    # eagerly)
     sizes = {}
     for size, x in bnd.items():
         idx = fcq.clip_quant_2d(x, lo, hi, N_SERVE)[0].reshape(-1)
         n = idx.numel()
-        kh = rate_hist.index_histogram_2d(idx, N_SERVE)
+        kh = ops.index_histogram(idx, n_levels=N_SERVE)
         ph = rate_hist.index_histogram_plain(idx, N_SERVE)
         sizes[size] = dict(
-            kernel=lambda i=idx: rate_hist.index_histogram_2d(i, N_SERVE),
+            kernel=lambda i=idx: ops.index_histogram(i, n_levels=N_SERVE),
             plain=lambda i=idx: rate_hist.index_histogram_plain(i, N_SERVE),
             nbytes=n * 4 + 64 * 4, nops=n, err=diff(kh, ph),
             library=lambda i=idx: torch.bincount(i, minlength=N_SERVE))
@@ -849,6 +898,7 @@ def serve(dev):
     print("serve warm-up (no codec):")
     S.run(cfg, params, **run_kw)
 
+    rated: list = []
     runs = {"a": ("tensor", "codec"), "b": ("tensor", "host"),
             "c": ("channel", "codec"), "d": ("channel", "host"),
             "e": ("ecsq_tensor", "codec"), "f": ("ecsq_channel", "host")}
@@ -856,7 +906,8 @@ def serve(dev):
     for run_id, (kind, hookup) in runs.items():
         codec = codecs[kind]
         if hookup == "codec":
-            hookups[run_id] = dict(codec=codec)
+            hookups[run_id] = dict(codec=rate_recorded(codec, rated)
+                                   if run_id == "a" else codec)
             label = "codec= hookup"
         else:
             seen[run_id] = []
@@ -872,11 +923,15 @@ def serve(dev):
         counts[run_id] = dict(_build.LAUNCHES)
         RUN_SIZES[run_id] = dict(SIZE_LAUNCHES)
         _check_retired(reqs)
+        if run_id == "a":
+            seen_a = list(rated)
         tok_s[run_id] = REQUESTS * NEW_TOKENS / dt
         rates[run_id] = float(np.mean(eng.rate_log))
     for run_id in ("a", "b"):
         profiled(f"({run_id})", lambda: S.run(cfg, params, **hookups[run_id],
                                               **run_kw))
+    # one prefill boundary, then NEW_TOKENS - 1 decode boundaries
+    same_rates("(a)", codecs["tensor"], seen_a, NEW_TOKENS)
 
     # the prefill boundary of each bitstream run: the wire's indices
     # against the quantizer kernel's on the same tensor
@@ -951,16 +1006,18 @@ def split_codecs(cfg, params, half: int, dev) -> dict:
     return codecs
 
 
-def link_counted(codec, sent: list):
+def link_counted(codec, sent: list, rated: list):
     """``codec`` with the bytes of each payload it sends appended to
-    ``sent``: the int32 indices, or the packed bytes that replace them."""
+    ``sent`` -- the int32 indices, or the packed bytes that replace them
+    -- and each boundary with its rate to ``rated``."""
     import dataclasses
 
     class Counted(type(codec)):
-        def quantize(self, x):
-            idx = super().quantize(x)
+        def quantize_with_rate(self, x, want_deq=False):
+            idx, deq, rate = super().quantize_with_rate(x, want_deq)
             sent.append(idx.numel() * idx.element_size())
-            return idx
+            rated.append((x.clone(), rate))
+            return idx, deq, rate
 
         def pack(self, idx):
             out = super().pack(idx)
@@ -1027,7 +1084,9 @@ def split_phase(cfg, params, dev) -> dict:
     counts, out = {}, {}
     for run_id, (transport, kind) in SPLIT_RUNS.items():
         sent: list = []
-        codec = None if kind is None else link_counted(codecs[kind], sent)
+        rated: list = []
+        codec = None if kind is None else link_counted(codecs[kind], sent,
+                                                       rated)
         step = SR.make_split_decode_step(cfg, codec, transport=transport,
                                          edge_device=dev, cloud_device=dev)
         caches = SR.init_split_cache(cfg, b, SPLIT_MAX_SEQ, edge_device=dev,
@@ -1059,6 +1118,8 @@ def split_phase(cfg, params, dev) -> dict:
         packs = counts[run_id]["pack_bits"]
         check(packs == (steps if transport == "packed" else 0),
               f"({run_id}) pack_bits launched {packs} times")
+        if kind is not None:
+            same_rates(f"({run_id})", codecs[kind], rated, steps)
         if run_id == "h":
             profiled("(h)", lambda: split_decode(
                 step, sp, SR.init_split_cache(cfg, b, SPLIT_MAX_SEQ,
@@ -1079,6 +1140,109 @@ def split_phase(cfg, params, dev) -> dict:
           "identical; pack_bits launched once per step of (h), (j), (k), "
           "(l) and never in (g), (i)")
     return counts
+
+
+def port_status(replaces: str) -> str:
+    """A kernel's port status from the row of ``ROADMAP.md``'s queue B
+    table that names its TPU kernel (``file.py:line``), without the
+    source file it names."""
+    key = "`" + replaces.rsplit("/", 1)[-1] + "`"
+    for ln in ROADMAP.read_text().splitlines():
+        cells = [c.strip() for c in ln.strip().strip("|").split("|")]
+        if len(cells) == 3 and cells[0].isdigit() and key in cells[1]:
+            return cells[2].split(", `csrc/")[0].replace(", ", "; ")
+    raise AssertionError(f"ROADMAP.md queue B has no row for {key}")
+
+
+def rate_recorded(codec, rated: list):
+    """``codec`` with each boundary it fake-quantizes, and the rate it
+    returns, appended to ``rated``."""
+    import dataclasses
+
+    class Recorded(type(codec)):
+        def apply_with_rate(self, x):
+            deq, rate = super().apply_with_rate(x)
+            rated.append((x.clone(), rate))
+            return deq, rate
+
+    return Recorded(**{f.name: getattr(codec, f.name)
+                       for f in dataclasses.fields(codec)})
+
+
+def same_rates(label: str, codec, rated: list, n: int) -> None:
+    """Each recorded rate equals the two-launch path's on its boundary
+    (quantize, then the index histogram, as the hookups ran before the
+    quantizer counted its own indices)."""
+    check(len(rated) == n, f"{label} recorded {len(rated)} boundaries")
+    for x, rate in rated:
+        two = codec.rate_from_indices(codec.quantize(x), tuple(x.shape))
+        check(float(rate) == float(two), f"{label} rate {float(rate)!r} "
+              f"!= the two-launch path's {float(two)!r}")
+    print(f"{label}: {n} boundaries, each rate equal to the two-launch "
+          "path's")
+
+
+def device_ops(fn) -> list[str]:
+    """Names of the device operations ``fn`` puts on the card (kernels,
+    copies, fills), from ``torch.profiler``, after one warm call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def crossing_ops(boundary, dev) -> dict:
+    """Device operations of one decode crossing of the (a) hookup
+    (``apply_with_rate``) and of the (h) split step (its crossing, from
+    the step's closure), a per-tensor N=4 codec at the boundary's range on
+    the seeded decode boundary: the quantizer, histogram and pack stage,
+    and the whole call.  Counted before the serving runs: on torch 2.11 a
+    profiler session after their long profiles recorded none of this
+    library's kernels (PERF.md)."""
+    import inspect
+    from repro_torch.compression import split_runtime as SR
+    from repro_torch.configs import get_config
+    from repro_torch.core import CodecConfig, calibrate
+
+    def short(names):
+        keys = ("clip_quant", "index_histogram", "pack_bits")
+        return [next((k for k in keys if k in nm), nm[:40]) for nm in names]
+
+    lo, hi = boundary["range"]
+    codec = calibrate(CodecConfig(n_levels=N_SERVE, clip_mode="manual",
+                                  manual_cmin=lo, manual_cmax=hi,
+                                  backend="cuda"))
+    spec, x = codec.spec(), boundary["decode"]
+    step = SR.make_split_decode_step(get_config("codeqwen1.5-7b"), codec,
+                                     transport="packed", edge_device=dev,
+                                     cloud_device=dev)
+    cross = inspect.getclosurevars(inspect.unwrap(step)).nonlocals["cross"]
+
+    def stage_h():
+        idx, _, _ = codec.backend.quantize_with_histogram(x, spec,
+                                                          want_deq=False)
+        return codec.pack(idx.reshape(-1))
+
+    with torch.inference_mode():
+        out = {"a": {"stage": short(device_ops(
+                   lambda: codec.backend.quantize_with_histogram(
+                       x, spec, want_deq=True))),
+                     "whole_apply_with_rate": len(device_ops(
+                         lambda: codec.apply_with_rate(x)))},
+               "h": {"stage": short(device_ops(stage_h)),
+                     "whole_crossing": len(device_ops(lambda: cross(x)))}}
+    check(out["a"]["stage"] == ["clip_quant"],
+          f"(a) quantizer + histogram stage: {out['a']['stage']}")
+    check(out["h"]["stage"] == ["clip_quant", "pack_bits"],
+          f"(h) quantizer + histogram + pack stage: {out['h']['stage']}")
+    print("codec device operations per decode crossing: "
+          + json.dumps(out))
+    return out
 
 
 def profiled(label: str, run) -> None:
@@ -1171,6 +1335,7 @@ def main() -> int:
     print(f"kernels: exact against their plain versions (worst "
           f"reconstruction {worst} ulp)")
     rows = kernel_timings(boundary, dev, sm_mhz, cycles)
+    crossing = crossing_ops(boundary, dev)
 
     # 4. serve
     cfg, params, counts = serve(dev)
@@ -1181,15 +1346,20 @@ def main() -> int:
     # 6. launch counts of the serving and split runs: each kernel's count
     # is read from the first run named here, and every kernel must launch
     # on each run listed for it
-    runs_of = {"clip_quant": "ahijk", "index_histogram": "aehijk",
+    runs_of = {"clip_quant": "ahijk", "index_histogram": "e",
                "encode_tiles": "bd", "rans_step": "bdf",
                "clip_quant_tiles": "cl", "index_histogram_tiles": "cl",
                "ecsq_assign": "e", "ecsq_assign_tiles": "f",
                "pack_bits": "hjkl"}
     check(sorted(r_["name"] for r_ in rows) == sorted(runs_of),
           "the kernel table must list every ported kernel")
+    for run_id in "ahijk":      # each counts its indices in the quantizer
+        check(counts[run_id]["index_histogram"] == 0, "index_histogram "
+              f"launched {counts[run_id]['index_histogram']} times on "
+              f"({run_id})")
     for r_ in rows:
         name_ = r_["name"]
+        r_["status"] = port_status(r_["replaces"])
         r_["launches"] = counts[runs_of[name_][0]][name_]
         for run_id in runs_of[name_]:
             check(counts[run_id][name_] > 0, f"{name_} never "
@@ -1197,7 +1367,7 @@ def main() -> int:
         # launches per run at each size class; a row's sizes named after
         # a route ("plan prefill") take the class of their last word
         for size, t in r_["sizes"].items():
-            cls = size.split()[-1]
+            cls = size if name_ == "clip_quant" else size.split()[-1]
             route = runs_of[name_] if name_ != "encode_tiles" else \
                 "d" if size.startswith("plan") else "b"
             t["launches"] = {run_id: RUN_SIZES[run_id].get((name_, cls), 0)
@@ -1208,6 +1378,8 @@ def main() -> int:
               + "; by size: " + ", ".join(
                   f"{k} {cls} {v}" for (k, cls), v in
                   sorted(RUN_SIZES[run_id].items())))
+    print("codec device operations per decode crossing: "
+          + json.dumps(crossing))
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

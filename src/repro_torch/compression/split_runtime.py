@@ -12,10 +12,12 @@ payload's ``.to(cloud_device)``.  With both stages on one card it moves
 no bytes, and the payload's size is what a link would carry.
 
 The codec ops route through the codec's backend: on the card the
-quantize is the clip+quant kernel (the per-tile one for a codec with a
-TilePlan, e.g. ``granularity="channel"`` over the d_model axis), the
-rate estimate the index histogram kernel (per tile for a plan), and the
-pack the pack kernel; on the CPU the torch formulas.
+quantize is the clip+quant kernel, which for a per-tensor codec also
+counts the indices for the rate estimate in the same launch and writes
+no reconstruction; a codec with a TilePlan (e.g. ``granularity=
+"channel"`` over the d_model axis) takes the per-tile clip+quant kernel
+and then the per-tile index histogram kernel; the pack is the pack
+kernel.  On the CPU the torch formulas.
 
 The reference (``repro/compression/split_runtime.py``) writes the same
 flow as SPMD over a shard_map'd ``pod`` axis, where both pods run both
@@ -142,14 +144,14 @@ def make_split_decode_step(cfg: ModelConfig, codec: FeatureCodec | None, *,
         """Boundary activations on the edge -> (cloud input, rate bits)."""
         if transport == "raw":
             return y.to(cloud), torch.tensor(RAW_RATE_BITS)
-        idx = codec.quantize(y)
+        idx, _, rate_bits = codec.quantize_with_rate(y)
         if transport == "packed":
             recv = codec.pack(idx.reshape(-1)).to(cloud)
             idx_r = codec.unpack(recv, idx.numel()).reshape(idx.shape)
         else:
             idx_r = idx.to(cloud)
         x_b = codec.dequantize(idx_r, dtype=y.dtype)
-        return x_b, codec.rate_from_indices(idx, tuple(idx.shape))
+        return x_b, rate_bits
 
     @torch.inference_mode()
     def step(params, token, caches, pos: int):

@@ -5,15 +5,26 @@ launchers) routes through a backend object, so the hot path picks the
 hand-written CUDA kernels on the card and the plain torch reference on
 the CPU, from a single code path.
 
-Backends implement seven primitives over a :class:`QuantSpec`:
+Backends implement eight primitives over a :class:`QuantSpec`:
 
     quantize(x, spec)             -> int32 indices
     dequantize(idx, spec, dtype)  -> reconstructed values
     quantize_dequantize(x, spec)  -> (indices, reconstruction)  [fused]
+    quantize_with_histogram(x, spec, want_deq)
+                                  -> (indices, reconstruction | None,
+                                      (n_levels,) counts | None)  [fused]
     histogram(idx, n_levels)      -> (n_levels,) int32 counts
     tile_histogram(idx, spec)     -> (n_cgroups, n_sblocks, N) counts
     pack_indices(idx, bits)       -> uint8 wire bytes (in-graph pack)
     encode_fused(x, spec, bits)   -> (coded-order indices, per-tile hists)
+
+``quantize_with_histogram`` is the in-graph rate path's single-pass
+contract: for a per-tensor uniform spec of at most
+:data:`~repro_torch.kernels.rate_hist.MAX_LEVELS` levels the CUDA
+backend's one clip+quant launch also counts the indices (and writes no
+reconstruction unless asked); every other spec returns ``None`` for the
+counts, decided from the spec before any launch, and its caller
+histograms the indices itself.  The torch backend makes the same choice.
 
 ``encode_fused`` is the host encode path's single-pass contract: on the
 CUDA backend one fused megakernel pass (clip -> quantize -> bit-pack ->
@@ -315,6 +326,15 @@ def _ecsq_qdq(x: torch.Tensor, spec: QuantSpec, want_deq: bool):
     return idx, lv[idx.long()].to(x.dtype)
 
 
+def _counts_in_quantizer(spec: QuantSpec) -> bool:
+    """Whether ``quantize_with_histogram`` returns counts for ``spec``
+    (normalized): per-tensor uniform, within the histogram kernel's
+    width."""
+    from ..kernels.rate_hist import MAX_LEVELS
+    return spec.plan is None and spec.ecsq is None \
+        and spec.n_levels <= MAX_LEVELS
+
+
 def _tile_histogram(idx: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """(n_cgroups, n_sblocks, N) per-tile counts by the torch formula on
     ``idx``'s device."""
@@ -358,6 +378,20 @@ class TorchBackend:
         deq = uniform.dequantize(idx, spec.cmin, spec.cmax,
                                  spec.n_levels, dtype=x.dtype)
         return idx, deq
+
+    def quantize_with_histogram(self, x, spec: QuantSpec,
+                                want_deq: bool = True):
+        """(indices, reconstruction or None, counts or None): the plain
+        formulas, with the counts for the specs the CUDA backend counts
+        in its quantizer launch."""
+        spec = _normalize(spec)
+        if want_deq:
+            idx, deq = self.quantize_dequantize(x, spec)
+        else:
+            idx, deq = self.quantize(x, spec), None
+        hist = self.histogram(idx, spec.n_levels) \
+            if _counts_in_quantizer(spec) else None
+        return idx, deq, hist
 
     def dequantize(self, idx, spec: QuantSpec, dtype=torch.float32):
         return _dequantize(_check_cpu(idx), spec, dtype)
@@ -416,8 +450,10 @@ class CudaBackend:
     kernel backend branch for branch, on CUDA tensors).
 
     Quantization runs the per-tensor or per-tile clip+quant kernel, or
-    the per-tensor or per-tile ECSQ assignment kernel; histograms the
-    global or per-tile index histogram kernel; the fused encode the
+    the per-tensor or per-tile ECSQ assignment kernel (the per-tensor
+    clip+quant kernel also counts its indices for
+    ``quantize_with_histogram``); histograms the global or per-tile index
+    histogram kernel; the fused encode the
     megakernel over the flat or banded view, plus the device rANS stage;
     the in-graph pack of 1/2/4-bit indices the pack kernel.  Level counts
     above a kernel's table width, and pack widths of one index per byte,
@@ -441,7 +477,32 @@ class CudaBackend:
         return x
 
     def quantize(self, x, spec: QuantSpec):
+        from ..kernels import ops
+        spec = _normalize(spec)
+        if spec.plan is None and spec.ecsq is None:
+            # the per-tensor kernel writes no reconstruction
+            return ops.clip_quantize(self._in(x), cmin=float(spec.cmin),
+                                     cmax=float(spec.cmax),
+                                     n_levels=spec.n_levels,
+                                     want_deq=False)[0]
         return self.quantize_dequantize(x, spec)[0]
+
+    def quantize_with_histogram(self, x, spec: QuantSpec,
+                                want_deq: bool = True):
+        """(indices, reconstruction or None, counts or None).  A
+        per-tensor uniform spec of at most 64 levels is one clip+quant
+        launch that also counts its indices; any other spec takes its
+        quantizer alone and returns no counts."""
+        from ..kernels import ops
+        spec = _normalize(spec)
+        if _counts_in_quantizer(spec):
+            return ops.clip_quantize(self._in(x), cmin=float(spec.cmin),
+                                     cmax=float(spec.cmax),
+                                     n_levels=spec.n_levels,
+                                     want_deq=want_deq, want_hist=True)
+        if want_deq:
+            return (*self.quantize_dequantize(x, spec), None)
+        return self.quantize(x, spec), None, None
 
     def quantize_dequantize(self, x, spec: QuantSpec):
         from ..kernels import ops

@@ -537,8 +537,22 @@ class FeatureCodec:
 
     def estimate_rate(self, x):
         """Bits/element the entropy stage would need (in-graph bound)."""
-        idx = self.quantize(x)
-        return self.rate_from_indices(idx, np.shape(x))
+        return self.quantize_with_rate(x)[2]
+
+    def quantize_with_rate(self, x, want_deq: bool = False):
+        """(indices, reconstruction or None, rate bits/element) from one
+        quantization pass.  Per-tensor uniform codecs count the indices
+        in the quantizer's own launch on the card
+        (``backend.quantize_with_histogram``); the others histogram them
+        after it (:meth:`rate_from_indices`).  The same counts give the
+        same rate either way."""
+        idx, deq, hist = self.backend.quantize_with_histogram(
+            x, self.spec(), want_deq)
+        if hist is None:
+            return idx, deq, self.rate_from_indices(idx, np.shape(x))
+        n = max(int(np.prod(np.shape(x))), 1)
+        return idx, deq, estimated_bits_from_hist(
+            hist, self.config.n_levels) / n
 
     def rate_from_indices(self, idx, shape):
         """Bits/element estimate from indices (in-graph).
@@ -574,11 +588,12 @@ class FeatureCodec:
         """(fake-quant x, rate bits/element) from one quantization pass.
 
         The split-layer serving hook: quantizes once (one fused kernel on
-        the CUDA path) and derives both the pass-through activations and
-        the rate estimate from it.
+        the CUDA path, which for a per-tensor codec also counts the
+        indices) and derives both the pass-through activations and the
+        rate estimate from it.
         """
-        idx, deq = self.backend.quantize_dequantize(x, self.spec())
-        return deq, self.rate_from_indices(idx, np.shape(x))
+        _, deq, rate = self.quantize_with_rate(x, want_deq=True)
+        return deq, rate
 
     # -- packed transport (inter-pod) ------------------------------------------
 

@@ -1,4 +1,4 @@
-// Fused clip + uniform quantize kernels for Hopper (sm_90a).
+// Fused clip + quantize kernels for Hopper (sm_90a).
 //
 // repro_clip_quant replaces the Pallas kernel fused_clip_quant._kernel
 // (clip_quant_2d): per-tensor clip -> quantize -> dequantize.
@@ -11,13 +11,28 @@
 //
 // All three are bound by bytes: each element is read once and its outputs
 // written once, with a handful of float operations in between.  The
-// designs keep exactly one pass over device memory: clip_quant is a
-// grid-stride elementwise loop; clip_quant_tiles is the same loop with
-// each thread looking up its element's tile (repro::tile_of) and that
-// tile's range, so the tensor is read in its own layout -- the Pallas
-// kernel's banded, lane-padded copy existed only so a (rows, 1) range
-// column could broadcast over a VMEM block.  encode_tiles keeps the int32
-// index tensor out of device memory; its note below says what bounds it.
+// designs keep exactly one pass over device memory.  clip_quant takes
+// its values four at a time -- one 8-byte load of bfloat16 (16 bytes of
+// float32), one 16-byte store of their indices, one store of their
+// reconstruction when asked -- so every warp access is contiguous
+// (eight values a thread and 16-byte loads made each index store a
+// 32-byte-strided half sector, and the kernel slower, PERF.md);
+// asked for the histogram of its
+// indices, it counts them in registers as it quantizes and stores the
+// bins as the index histogram (#4) does (repro::store_histogram,
+// common.cuh), so the serving path's rate estimate takes no second pass
+// over the indices, and a caller that needs no reconstruction gets none
+// written.  The histogram variant picks its grid as #4 does: one block
+// up to kOneBlockMax values, a cluster of eight blocks up to eight
+// blocks' worth (a decode boundary, 16,384 bfloat16 values), the ticket
+// route above.  There the launch, not the bytes, is the cost: an empty
+// grid takes ~1.9 us back to back, this kernel 3.7 us (PERF.md).
+// clip_quant_tiles is a grid-stride elementwise loop with each thread
+// looking up its element's tile (repro::tile_of) and that tile's range, so
+// the tensor is read in its own layout -- the Pallas kernel's banded,
+// lane-padded copy existed only so a (rows, 1) range column could
+// broadcast over a VMEM block.  encode_tiles keeps the int32 index tensor
+// out of device memory; its note below says what bounds it.
 
 #include <cstdint>
 
@@ -25,21 +40,116 @@
 
 namespace {
 
-constexpr int kHistWidth = 64;  // lanes per (row, band) histogram
+using repro::kHistWidth;  // lanes per (row, band) histogram
 constexpr int kThreads = 256;
 
+// -- per-tensor clip + quantize (+ dequantize) (+ histogram) -----------------
+
+// kOneBlockMax: the crossover between the one-block and the cluster route
+// of the histogram variant, from tools/hist_crossover.py on the H100
+// (PERF.md).
+constexpr long long kOneBlockMax = 4096;
+constexpr int kPerIter = 8;           // values a thread per iteration
+enum QuantMode : int { kNoHist = 0, kCount8 = 1, kCount16 = 2, kMatch = 3 };
+
+__device__ unsigned g_ticket;         // repro::store_histogram's ticket
+
 template <typename T>
-__global__ void clip_quant_kernel(const T* __restrict__ x, long long n,
-                                  float lo, float hi, float scale,
-                                  float inv_scale, int* __restrict__ idx,
-                                  T* __restrict__ deq) {
-  long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    float q = repro::quant_level(repro::to_f32(x[i]), lo, hi, scale);
-    idx[i] = (int)q;
-    deq[i] = repro::from_f32<T>(__fadd_rn(lo, __fmul_rn(q, inv_scale)));
+__device__ __forceinline__ int quantize_one(T v, float lo, float hi,
+                                            float scale, float inv_scale,
+                                            T* d) {
+  float q = repro::quant_level(repro::to_f32(v), lo, hi, scale);
+  *d = repro::from_f32<T>(__fadd_rn(lo, __fmul_rn(q, inv_scale)));
+  return (int)q;
+}
+
+// Four values of T as one load: 8 bytes of bfloat16 or half, 16 of
+// float32.  Their four indices are one 16-byte store, so a warp's index
+// stores (and loads, and reconstruction stores) are contiguous.
+template <typename T> struct Quad { using type = uint2; };
+template <> struct Quad<float> { using type = uint4; };
+
+// A thread quantizes two groups of four values an iteration, `stride`
+// groups apart.  The loops run while any lane of the warp has work, so
+// every lane takes part in each match.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+clip_quant_kernel(const T* __restrict__ x, long long n, bool vec, float lo,
+                  float hi, float scale, float inv_scale, int n_levels,
+                  bool cluster, int* __restrict__ idx, T* __restrict__ deq,
+                  int* __restrict__ hist, int* __restrict__ rows) {
+  using Q = typename Quad<T>::type;
+  __shared__ int sh[kHistWidth];                 // the match path's bins
+  repro::cluster_start(cluster);
+  if constexpr (MODE == kMatch) {
+    if (threadIdx.x < kHistWidth) sh[threadIdx.x] = 0;
+    __syncthreads();
   }
+  const unsigned nl = (unsigned)n_levels;
+  const long long lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t cnt[repro::kCountWords] = {};
+  auto count = [&](const int (&q)[kPerIter]) {
+    if constexpr (MODE == kCount8) {
+      uint32_t c8 = 0;
+#pragma unroll
+      for (int k = 0; k < kPerIter; ++k)
+        c8 += repro::bin8(q[k], (unsigned)q[k] < nl);
+      repro::widen8(c8, cnt);
+    } else if constexpr (MODE == kCount16) {
+#pragma unroll
+      for (int k = 0; k < kPerIter; ++k)
+        repro::count16(q[k], (unsigned)q[k] < nl, cnt);
+    } else if constexpr (MODE == kMatch) {
+#pragma unroll
+      for (int k = 0; k < kPerIter; ++k)
+        repro::match_count(sh, (unsigned)q[k] < nl, (unsigned)q[k]);
+    }
+  };
+  const long long n_grp = vec ? n / 4 : 0;
+  for (long long g = t; g - lane < n_grp; g += 2 * stride) {
+    int q[kPerIter];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const long long u = g + h * stride;
+      if (u < n_grp) {
+        Q raw = __ldg(reinterpret_cast<const Q*>(x) + u);
+        const T* e = reinterpret_cast<const T*>(&raw);
+        Q out;
+        T* d = reinterpret_cast<T*>(&out);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          q[4 * h + k] = quantize_one(e[k], lo, hi, scale, inv_scale, &d[k]);
+        reinterpret_cast<int4*>(idx)[u] =
+            make_int4(q[4 * h], q[4 * h + 1], q[4 * h + 2], q[4 * h + 3]);
+        if (deq != nullptr) reinterpret_cast<Q*>(deq)[u] = out;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) q[4 * h + k] = -1;   // counted nowhere
+      }
+    }
+    count(q);
+  }
+  // the scalar tail (all of it when a buffer is not aligned)
+  for (long long i = n_grp * 4 + t; i - lane < n; i += kPerIter * stride) {
+    int q[kPerIter];
+#pragma unroll
+    for (int k = 0; k < kPerIter; ++k) {
+      const long long j = i + k * stride;
+      q[k] = -1;
+      if (j < n) {
+        T d;
+        q[k] = quantize_one(x[j], lo, hi, scale, inv_scale, &d);
+        idx[j] = q[k];
+        if (deq != nullptr) deq[j] = d;
+      }
+    }
+    count(q);
+  }
+  if constexpr (MODE != kNoHist)
+    repro::store_histogram<MODE == kMatch>(cnt, sh, n_levels, cluster,
+                                           hist, rows, &g_ticket);
 }
 
 // The tiled formula of the reference: float32 span = max(hi - lo, 1e-12),
@@ -96,7 +206,7 @@ __global__ void clip_quant_tiles_kernel(const T* __restrict__ x, unsigned n,
 //     each distinct key costs one shared atomic.
 
 constexpr int kMaxCells = 32;   // cells of one block (shared bins)
-constexpr int kWords = 8;       // 16-bit counter words for N <= 16
+constexpr int kWords = repro::kCountWords;  // 16-bit counter words, N <= 16
 
 template <typename T, int PER>
 __device__ __forceinline__ void load_group(const T* p, bool vec,
@@ -194,28 +304,18 @@ encode_tiles_kernel(const T* __restrict__ x, bool vec, int n_sblocks, int bpb,
       if (act && n_levels <= 4) {            // uniform: the served case
         uint32_t c8 = 0;                     // four 8-bit bins, <= E each
 #pragma unroll
-        for (int e = 0; e < E; ++e)
-          c8 += col + e < valid ? 1u << (q[e] * 8) : 0u;
-        cnt[0] += (c8 & 0xFFu) | (c8 & 0xFF00u) << 8;
-        cnt[1] += (c8 >> 16 & 0xFFu) | (c8 >> 24) << 16;
+        for (int e = 0; e < E; ++e) c8 += repro::bin8(q[e], col + e < valid);
+        repro::widen8(c8, cnt);
       } else if (act) {
 #pragma unroll
-        for (int e = 0; e < E; ++e)
-          if (col + e < valid) {
-#pragma unroll
-            for (int w = 0; w < kWords; ++w)
-              cnt[w] += (q[e] >> 1) == w ? 1u << ((q[e] & 1) * 16) : 0u;
-          }
+        for (int e = 0; e < E; ++e) repro::count16(q[e], col + e < valid, cnt);
       }
     } else {
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         bool counted = act && col + e < valid;
-        unsigned key = counted ? (unsigned)(cl * kHistWidth + q[e])
-                               : 0xFFFFFFFFu;
-        unsigned peers = __match_any_sync(0xFFFFFFFFu, key);
-        if (counted && lane == __ffs(peers) - 1)
-          atomicAdd(&sh[key], __popc(peers));
+        repro::match_count(sh, counted,
+                           (unsigned)(cl * kHistWidth + (counted ? q[e] : 0)));
       }
     }
   }
@@ -254,18 +354,60 @@ encode_tiles_kernel(const T* __restrict__ x, bool vec, int n_sblocks, int bpb,
 
 }  // namespace
 
+namespace {
+
+template <typename T>
+int launch_clip_quant(const void* x, long long n, bool vec, float lo,
+                      float hi, float scale, float inv_scale, int n_levels,
+                      void* idx, void* deq, void* hist, void* rows,
+                      long long rows_cap, int sms, cudaStream_t s) {
+  repro::HistGrid g{0, false};
+  if (hist == nullptr) {
+    // one group of four a thread: the most blocks in flight
+    long long per_block = (long long)kThreads * 4;
+    long long want = (n + per_block - 1) / per_block;
+    g.blocks = want < 16LL * sms ? want : 16LL * sms;
+  } else {
+    g = repro::histogram_grid(n, kThreads, kPerIter, kOneBlockMax, sms);
+    if (g.blocks > rows_cap) return (int)cudaErrorInvalidValue;
+  }
+  if (g.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  auto kernel = hist == nullptr ? clip_quant_kernel<T, kNoHist>
+                : n_levels <= 4  ? clip_quant_kernel<T, kCount8>
+                : n_levels <= 16 ? clip_quant_kernel<T, kCount16>
+                                 : clip_quant_kernel<T, kMatch>;
+  cudaError_t e = repro::launch_grid(
+      kernel, g.blocks, kThreads, g.cluster, s, (const T*)x, n, vec, lo, hi,
+      scale, inv_scale, n_levels, g.cluster, (int*)idx, (T*)deq, (int*)hist,
+      (int*)rows);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace
+
+// deq may be null (no reconstruction written); hist may be null (no
+// histogram), else rows is scratch of rows_cap * kHistWidth int32.
 extern "C" int repro_clip_quant(const void* x, int dtype, long long n,
                                 float lo, float hi, float scale,
-                                float inv_scale, void* idx, void* deq,
-                                void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  long long want = (n + kThreads - 1) / kThreads;
-  int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  cudaStream_t s = (cudaStream_t)stream;
+                                float inv_scale, int n_levels, void* idx,
+                                void* deq, void* hist, void* rows,
+                                long long rows_cap, void* stream) {
+  if (n <= 0 || n_levels < 2 || (hist != nullptr && n_levels > kHistWidth))
+    return (int)cudaErrorInvalidValue;
+  int sms = repro::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  // groups of four: 16-byte indices, 4-value loads and stores of x's type
+  const unsigned quad = dtype == repro::kF32 ? 16u : 8u;
+  auto aligned = [](const void* p, unsigned a) {
+    return reinterpret_cast<uintptr_t>(p) % a == 0;
+  };
+  bool vec = aligned(x, quad) && aligned(idx, 16) &&
+             (deq == nullptr || aligned(deq, quad));
   REPRO_DISPATCH_FLOAT(dtype, T,
-      clip_quant_kernel<T><<<blocks, kThreads, 0, s>>>(
-          (const T*)x, n, lo, hi, scale, inv_scale, (int*)idx, (T*)deq));
-  return (int)cudaGetLastError();
+      return launch_clip_quant<T>(x, n, vec, lo, hi, scale, inv_scale,
+                                  n_levels, idx, deq, hist, rows, rows_cap,
+                                  sms, (cudaStream_t)stream));
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int repro_clip_quant_tiles(const void* x, int dtype, int n, int C,
@@ -304,10 +446,8 @@ extern "C" int repro_encode_tiles(const void* x, int dtype, int rows,
   // whole cells per block: up to kThreads * bytes bytes of short bands
   // while that leaves two blocks per SM, or one long band looped over by
   // kThreads threads
-  static int sms = 0;
-  if (sms == 0 && cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                         0) != cudaSuccess)
-    return (int)cudaGetLastError();
+  int sms = repro::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
   int span = kThreads * bytes;
   long long fill = (n_cells + 2LL * sms - 1) / (2LL * sms);
   int cpb = bpb >= span ? 1 : (int)min((long long)min(span / bpb, kMaxCells),

@@ -38,12 +38,13 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
-    "repro_clip_quant": (_P, _I, _L, _F, _F, _F, _F, _P, _P, _P),
+    "repro_clip_quant": (_P, _I, _L, _F, _F, _F, _F, _I, _P, _P, _P, _P, _L,
+                         _P),
     "repro_clip_quant_tiles": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                                _P, _P, _P),
     "repro_encode_tiles": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
                            _P, _P),
-    "repro_index_histogram": (_P, _L, _I, _P, _P),
+    "repro_index_histogram": (_P, _L, _I, _P, _P, _L, _P),
     "repro_index_histogram_tiles": (_P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                                     _P, _P),
     "repro_rans_step": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
@@ -154,6 +155,21 @@ def launch(kernel: str, symbol: str, *args) -> None:
 def ptr(t: torch.Tensor | None) -> int | None:
     """Device pointer of ``t``; ``None`` (a null pointer) for no tensor."""
     return None if t is None else t.data_ptr()
+
+
+# The cross-block histogram's scratch (csrc/common.cuh store_histogram):
+# at most 64 int32 per block.  The C entries' grids hold at most two
+# blocks per SM, or one per _HIST_LEVELS_PER_BLOCK values (256 threads of
+# kCountsPerThread), and refuse a smaller buffer.
+_HIST_MIN_ROWS = 1024
+_HIST_LEVELS_PER_BLOCK = 256 * 2000
+
+
+def hist_rows(n: int, device) -> torch.Tensor:
+    """Uninitialised per-block rows for a histogram of ``n`` values (the
+    kernel writes every entry it reads; allocating launches nothing)."""
+    rows = max(_HIST_MIN_ROWS, -(-n // _HIST_LEVELS_PER_BLOCK))
+    return torch.empty((rows, 64), dtype=torch.int32, device=device)
 
 
 def check_numel(name: str, t: torch.Tensor) -> None:

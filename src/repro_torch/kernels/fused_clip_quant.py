@@ -5,7 +5,11 @@ Three kernels, each beside its plain torch version:
 * :func:`clip_quant_2d` replaces the Pallas kernel
   ``repro/kernels/fused_clip_quant.py`` ``_kernel`` (``clip_quant_2d``):
   per-tensor clip -> quantize -> dequantize, the ``codec=`` serving
-  hookup's fake-quant pass.  Source: ``csrc/fused_clip_quant.cu``
+  hookup's fake-quant pass.  On request the same launch skips the
+  reconstruction (``want_deq=False``) and counts the histogram of its
+  indices (``want_hist=True``), the rate estimate the ``codec=`` hookup
+  and the split runtime's crossing take, so they launch no index
+  histogram after it.  Source: ``csrc/fused_clip_quant.cu``
   ``repro_clip_quant``.
 * :func:`clip_quant_tiles` replaces ``_kernel_tiles``
   (``clip_quant_tiles_2d``, ``clip_quant_rows_2d``): the same with one
@@ -83,34 +87,56 @@ def range_scalars(cmin: float, cmax: float, n_levels: int):
 # -- kernel 1: per-tensor clip + quantize + dequantize -------------------------
 
 def clip_quant_plain(x: torch.Tensor, cmin: float, cmax: float,
-                     n_levels: int):
-    """Plain torch version of :func:`clip_quant_2d` (same arithmetic)."""
+                     n_levels: int, *, want_deq: bool = True,
+                     want_hist: bool = False):
+    """Plain torch version of :func:`clip_quant_2d` (same arithmetic; the
+    histogram is :func:`~repro_torch.kernels.rate_hist.
+    index_histogram_plain` of the indices)."""
+    from .rate_hist import index_histogram_plain
     lo, hi, scale, inv = (torch.full((), float(v), dtype=torch.float32,
                                      device=x.device)
                           for v in range_scalars(cmin, cmax, n_levels))
     xc = torch.clamp(x.to(torch.float32), lo, hi)
     q = torch.floor((xc - lo) * scale + 0.5)
-    return q.to(torch.int32), (lo + q * inv).to(x.dtype)
+    idx = q.to(torch.int32)
+    deq = (lo + q * inv).to(x.dtype) if want_deq else None
+    if not want_hist:
+        return idx, deq
+    return idx, deq, index_histogram_plain(idx, n_levels)
 
 
 def clip_quant_2d(x: torch.Tensor, cmin: float, cmax: float,
-                  n_levels: int):
-    """Fused clip+quantize+dequantize of ``x`` (any shape).
+                  n_levels: int, *, want_deq: bool = True,
+                  want_hist: bool = False):
+    """Fused clip+quantize(+dequantize)(+histogram) of ``x`` (any shape),
+    one launch on the card.
 
-    Returns (idx int32, deq in ``x.dtype``), both shaped like ``x``."""
+    Returns (idx int32, deq in ``x.dtype`` or None when ``want_deq`` is
+    false), both shaped like ``x``; with ``want_hist`` also the
+    (n_levels,) int32 histogram of idx (N <= 64)."""
+    if want_hist and n_levels > HIST_WIDTH:
+        raise ValueError(f"n_levels {n_levels} > {HIST_WIDTH}")
     if _on_cpu(x):
-        return clip_quant_plain(x, cmin, cmax, n_levels)
+        return clip_quant_plain(x, cmin, cmax, n_levels, want_deq=want_deq,
+                                want_hist=want_hist)
     _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
     idx = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    deq = torch.empty_like(x)
+    deq = torch.empty_like(x) if want_deq else None
+    out = (idx, deq)
     if x.numel() == 0:
-        return idx, deq
+        return out + ((torch.zeros(n_levels, dtype=torch.int32,
+                                   device=x.device),) if want_hist else ())
+    hist = rows = None
+    if want_hist:
+        hist = torch.empty(n_levels, dtype=torch.int32, device=x.device)
+        rows = _build.hist_rows(x.numel(), x.device)
     lo, hi, scale, inv = range_scalars(cmin, cmax, n_levels)
     _build.launch("clip_quant", "repro_clip_quant", x.data_ptr(),
                   _build.DTYPE_CODES[x.dtype], x.numel(), float(lo),
-                  float(hi), float(scale), float(inv), idx.data_ptr(),
-                  deq.data_ptr())
-    return idx, deq
+                  float(hi), float(scale), float(inv), n_levels,
+                  idx.data_ptr(), _build.ptr(deq), _build.ptr(hist),
+                  _build.ptr(rows), 0 if rows is None else rows.shape[0])
+    return out + ((hist,) if want_hist else ())
 
 
 # -- kernel 2: per-tile clip + quantize + dequantize ---------------------------

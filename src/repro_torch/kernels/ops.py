@@ -1,11 +1,13 @@
 """Public wrappers around the kernels: shape handling and padding.
 
 Named and shaped like the reference's ``repro/kernels/ops.py`` wrappers.
-The per-tensor kernels and the encode megakernel take the same padded
-2-D views the reference builds (the flat view of :func:`flat_layout`,
-the banded view of :func:`banded_layout`), so the layouts -- and the
-host's unpacking of the megakernel's output -- stay one definition
-shared with the reference, field for field.  The tiled quantize,
+The encode megakernel takes the same padded 2-D views the reference
+builds (the flat view of :func:`flat_layout`, the banded view of
+:func:`banded_layout`), so the layouts -- and the host's unpacking of
+its output -- stay one definition shared with the reference, field for
+field.  The per-tensor quantizer and the index histogram take the flat
+tensor as it is: no padding, so no pad copy and no padding count to
+correct.  The tiled quantize,
 histogram and ECSQ kernels need no banded view: they look up each
 element's tile in the tensor's own layout (see
 :func:`~repro_torch.kernels.fused_clip_quant.tile_maps`), so their
@@ -162,13 +164,14 @@ def _unband(a: torch.Tensor, lay: PaddedLayout, moved_shape, axis: int,
 
 
 def clip_quantize(x: torch.Tensor, *, cmin: float, cmax: float,
-                  n_levels: int):
-    """Fused clip+quantize+dequantize. Returns (idx int32, dequantized)."""
-    x2d, n = _to_2d(x, cmin)
-    idx, deq = clip_quant_2d(x2d, cmin, cmax, n_levels)
-    shape = x.shape
-    return (idx.reshape(-1)[:n].reshape(shape),
-            deq.reshape(-1)[:n].reshape(shape))
+                  n_levels: int, want_deq: bool = True,
+                  want_hist: bool = False):
+    """Fused clip+quantize+dequantize.  Returns (idx int32, dequantized,
+    or None without ``want_deq``), and with ``want_hist`` the (n_levels,)
+    histogram of idx from the same launch.  The kernel takes the tensor
+    as it is: no padded view."""
+    return clip_quant_2d(x.contiguous(), cmin, cmax, n_levels,
+                         want_deq=want_deq, want_hist=want_hist)
 
 
 def clip_quantize_tiled(x: torch.Tensor, lo, hi, *, n_levels: int,
@@ -293,11 +296,8 @@ def index_histogram_tiled(idx: torch.Tensor, *, n_levels: int,
 
 
 def index_histogram(idx: torch.Tensor, *, n_levels: int) -> torch.Tensor:
-    """Histogram of quantizer indices (padding assigned to bin 0, corrected)."""
-    idx2d, n = _to_2d(idx.to(torch.int32), 0)
-    hist = index_histogram_2d(idx2d, n_levels).clone()
-    pad = idx2d.numel() - n
-    if pad:
-        hist[0] -= pad
-    return hist
+    """Histogram of quantizer indices: the kernel takes the flat indices
+    as they are (no padded view, no copy, nothing launched around it)."""
+    return index_histogram_2d(idx.reshape(-1).to(torch.int32).contiguous(),
+                              n_levels)
 

@@ -11,10 +11,13 @@ groups): one N-bin histogram per ``TilePlan`` tile, the tiled codecs'
 rate estimate.  Source:
 ``csrc/rate_hist.cu`` ``repro_index_histogram_tiles``.
 
-Both are bound by bytes on the card (one int32 read per index).  The
-kernels count into per-warp shared-memory bins; the global one adds each
-block's non-zero bins to a zeroed (64,) output with one atomic each, the
-tiled one gives each tile its own block (see the source notes).
+Both are bound by bytes on the card (one int32 read per index); at the
+serving sizes the global one is bound by its launch.  A call of it is
+one device operation: no fill, no copy around it.  Its threads count in
+registers; a small input is one block, a decode boundary a cluster of
+eight blocks meeting in shared memory, a larger one many blocks whose
+last to finish sums their rows (see the source note).  The tiled one
+gives each tile its own block.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -48,12 +51,14 @@ def index_histogram_2d(idx: torch.Tensor, n_levels: int) -> torch.Tensor:
     if idx.device.type != "cuda":
         raise ValueError(f"unsupported device {idx.device}")
     _build.check_cuda("idx", idx, (torch.int32,))
-    hist = torch.zeros(MAX_LEVELS, dtype=torch.int32, device=idx.device)
-    if idx.numel():
-        _build.launch("index_histogram", "repro_index_histogram",
-                      idx.data_ptr(), idx.numel(), n_levels,
-                      hist.data_ptr())
-    return hist[:n_levels]
+    if not idx.numel():
+        return torch.zeros(n_levels, dtype=torch.int32, device=idx.device)
+    hist = torch.empty(n_levels, dtype=torch.int32, device=idx.device)
+    rows = _build.hist_rows(idx.numel(), idx.device)
+    _build.launch("index_histogram", "repro_index_histogram",
+                  idx.data_ptr(), idx.numel(), n_levels, hist.data_ptr(),
+                  rows.data_ptr(), rows.shape[0])
+    return hist
 
 
 def index_histogram_tiles_plain(idx: torch.Tensor, n_levels: int,

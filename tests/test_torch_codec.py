@@ -144,8 +144,9 @@ def _random_x(seed, shape=(4, 16, 32)):
     return (rng.standard_normal(shape) * 1.5 + 0.4).astype(np.float32)
 
 
-def _codec_pair(kind, x):
-    kw = dict(n_levels=4, clip_mode="minmax", constrain_cmin_zero=False)
+def _codec_pair(kind, x, n_levels=4):
+    kw = dict(n_levels=n_levels, clip_mode="minmax",
+              constrain_cmin_zero=False)
     if kind == "channel":
         kw.update(granularity="channel", channel_axis=-1,
                   channel_group_size=4)
@@ -193,6 +194,38 @@ def test_apply_with_rate_matches_reference():
     td, tr = tc.apply_with_rate(torch.from_numpy(x))
     np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
     assert float(tr) == pytest.approx(float(jr), rel=1e-5)
+
+
+@pytest.mark.parametrize("n_levels", [2, 4, 16, 64, 65])
+@pytest.mark.parametrize("kind", ["tensor", "channel", "ecsq"])
+def test_quantize_with_histogram_matches_reference(kind, n_levels):
+    """The torch backend's one-pass quantize + counts against the
+    reference's quantize and histogram (interpreted Pallas kernels for
+    the per-tensor codec, float32): the same indices and bins; the codecs
+    whose quantizer does not count (per channel, ECSQ, N > 64) give no
+    counts.  The rate of ``quantize_with_rate`` equals the port's own
+    two-pass rate exactly and the reference's within 1e-5 (torch and jnp
+    take log2 and the sum in their own ways)."""
+    from repro.core.backend import get_backend as jget_backend
+    x = _random_x(11, (4, 8, 64))
+    jc, tc = _codec_pair(kind, x, n_levels)
+    jb = jget_backend("kernel_interpret" if kind == "tensor" else "jnp")
+    jidx = jb.quantize(jnp.asarray(x), jc.spec())
+    tx = torch.from_numpy(x)
+    idx, deq, hist = tc.backend.quantize_with_histogram(tx, tc.spec(),
+                                                        want_deq=False)
+    assert deq is None and np.array_equal(idx.numpy(), np.asarray(jidx))
+    counts = kind == "tensor" and n_levels <= 64
+    assert (hist is not None) == counts
+    if counts:
+        assert np.array_equal(hist.numpy(), np.asarray(
+            jb.histogram(jidx, n_levels)))
+    idx2, none, rate = tc.quantize_with_rate(tx)
+    assert none is None and torch.equal(idx2, idx)
+    assert float(rate) == float(tc.rate_from_indices(tc.quantize(tx),
+                                                     x.shape))
+    jrate = jc.rate_from_indices(jidx, x.shape)
+    assert float(rate) == pytest.approx(float(jrate), rel=1e-5)
 
 
 def test_header_parse_matches_reference():

@@ -218,10 +218,10 @@ class RecordingCodec(FeatureCodec):
 
     sent: list = dataclasses.field(default_factory=list)
 
-    def quantize(self, x):
-        idx = super().quantize(x)
+    def quantize_with_rate(self, x, want_deq=False):
+        idx, deq, rate = super().quantize_with_rate(x, want_deq)
         self.sent.append({"y": x.numpy().copy(), "payload": idx.numpy()})
-        return idx
+        return idx, deq, rate
 
     def pack(self, idx):
         out = super().pack(idx)
@@ -306,6 +306,11 @@ def test_split_runtime_matches_reference(reference, monkeypatch, layers,
                                     ref["y"][pos], codec):
                 return      # an index crossed a bin edge: the runs part
         assert abs(float(rate) - float(ref["rate"][pos])) <= RATE_ATOL
+        if transport != "raw":
+            # the rate counted in the quantizer's pass is the two-pass one
+            y = torch.from_numpy(codec.sent[pos]["y"])
+            assert float(rate) == float(codec.rate_from_indices(
+                codec.quantize(y), y.shape))
         got, want = logits.numpy(), ref["logits"][pos]
         assert np.all(_bf16_rounding_apart(
             got, want, unrounded[-1][:, 0].numpy())), \

@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.compression import split_runtime
 from repro_torch.configs import get_config, reduced
@@ -44,8 +45,28 @@ def _x(dev, n, seed=0, dtype=torch.float32):
     return (torch.randn(n, device=dev, generator=g) * 2 + 0.3).to(dtype)
 
 
+LEVELS = [2, 3, 4, 8, 16, 64]
+# the three routes of #4 and of #1's histogram variant: one block (up to
+# 4,096 values), a cluster of eight blocks (the decode boundary, 16,384),
+# many blocks and the ticket (70,001 and the prefill boundary's 2^20)
+HIST_SIZES = [1, 16384, 70001, 1 << 20]
+
+
+def _device_ops(fn) -> list[str]:
+    """Names of the device operations (kernels, copies, fills) ``fn``
+    puts on the card, from ``torch.profiler``."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_levels", [2, 3, 4, 8, 16, 64])
+@pytest.mark.parametrize("n_levels", LEVELS)
 def test_clip_quant_and_histogram(dev, n_levels, dtype):
     x = _x(dev, 70001, dtype=dtype)
     before = dict(_build.LAUNCHES)
@@ -55,9 +76,136 @@ def test_clip_quant_and_histogram(dev, n_levels, dtype):
     assert torch.equal(kd, pd)      # same rounding steps: bit-identical
     assert torch.equal(ops.index_histogram(ki, n_levels=n_levels),
                        rate_hist.index_histogram_plain(ki, n_levels))
-    assert _build.LAUNCHES["clip_quant"] == before["clip_quant"] + 1
-    assert _build.LAUNCHES["index_histogram"] == \
-        before["index_histogram"] + 1
+    assert _advanced(before, clip_quant=1, index_histogram=1)
+    # the same counts from the quantizer's own launch, no histogram launch
+    before = dict(_build.LAUNCHES)
+    fi, fd, fh = fcq.clip_quant_2d(x, -1.5, 2.75, n_levels, want_hist=True)
+    assert torch.equal(fi, pi) and torch.equal(fd, pd)
+    assert torch.equal(fh, rate_hist.index_histogram_plain(pi, n_levels))
+    assert _advanced(before, clip_quant=1, index_histogram=0)
+
+
+@pytest.mark.parametrize("n_levels", LEVELS)
+@pytest.mark.parametrize("n", HIST_SIZES)
+def test_index_histogram_routes(dev, n, n_levels):
+    """#4 against its plain version on uniform indices, on indices with
+    values outside [0, N), on an all-one-level input and on a view that
+    is not 16-byte aligned (scalar loads).  The calls follow each other
+    with no sync, so each finds the ticket its predecessor reset."""
+    g = torch.Generator(device=dev).manual_seed(n * 64 + n_levels)
+    cases = [
+        torch.randint(0, n_levels, (n,), device=dev, generator=g,
+                      dtype=torch.int32),
+        torch.randint(-3, n_levels + 3, (n,), device=dev, generator=g,
+                      dtype=torch.int32),
+        torch.full((n,), n_levels - 1, device=dev, dtype=torch.int32),
+        torch.randint(0, n_levels, (n + 1,), device=dev, generator=g,
+                      dtype=torch.int32)[1:],
+    ]
+    before = dict(_build.LAUNCHES)
+    got = [ops.index_histogram(c, n_levels=n_levels) for c in cases]
+    assert _advanced(before, index_histogram=len(cases))
+    for c, h in zip(cases, got):
+        assert torch.equal(h, rate_hist.index_histogram_plain(c, n_levels))
+    assert int(got[2][-1]) == n
+
+
+@pytest.mark.parametrize("n", [16384, 70001, 1 << 20])
+def test_index_histogram_is_one_device_operation(dev, n):
+    """No fill, pad copy or clone around the kernel."""
+    idx = torch.randint(0, 4, (4, n // 4), device=dev, dtype=torch.int32)
+    before = dict(_build.LAUNCHES)
+    names = _device_ops(lambda: ops.index_histogram(idx, n_levels=4))
+    assert len(names) == 1 and "index_histogram" in names[0], names
+    assert _advanced(before, index_histogram=2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_levels", LEVELS)
+@pytest.mark.parametrize("n", HIST_SIZES)
+def test_clip_quant_with_histogram(dev, n, n_levels, dtype):
+    """#1 with its histogram and/or without its reconstruction, on both
+    routes and on a view that is not 16-byte aligned: indices,
+    reconstructions and bins bit-identical to the plain version."""
+    x = _x(dev, n + 1, seed=n_levels, dtype=dtype)
+    lo, hi = -1.5, 2.75
+    before = dict(_build.LAUNCHES)
+    both = fcq.clip_quant_2d(x[:n], lo, hi, n_levels, want_hist=True)
+    idx_hist = fcq.clip_quant_2d(x[:n], lo, hi, n_levels, want_deq=False,
+                                 want_hist=True)
+    idx_only = fcq.clip_quant_2d(x[:n], lo, hi, n_levels, want_deq=False)
+    shifted = fcq.clip_quant_2d(x[1:], lo, hi, n_levels, want_hist=True)
+    top = fcq.clip_quant_2d(torch.full_like(x[:n], 10.0), lo, hi, n_levels,
+                            want_deq=False, want_hist=True)
+    assert _advanced(before, clip_quant=5, index_histogram=0)
+    pi, pd, ph = fcq.clip_quant_plain(x[:n], lo, hi, n_levels,
+                                      want_hist=True)
+    assert all(torch.equal(a, b) for a, b in zip(both, (pi, pd, ph)))
+    assert torch.equal(idx_hist[0], pi) and idx_hist[1] is None
+    assert torch.equal(idx_hist[2], ph)
+    assert torch.equal(idx_only[0], pi) and idx_only[1] is None
+    assert len(idx_only) == 2
+    want = fcq.clip_quant_plain(x[1:], lo, hi, n_levels, want_hist=True)
+    assert all(torch.equal(a, b) for a, b in zip(shifted, want))
+    assert int(top[2][-1]) == n and int(top[2].sum()) == n
+
+
+def test_rate_paths_count_in_the_quantizer(dev):
+    """``apply_with_rate`` and the split runtime's crossing launch the
+    clip+quant kernel once and the index histogram never, and give the
+    rate of the two-launch path (quantize, then histogram) exactly; the
+    quantizer-and-histogram stage is one device operation."""
+    codec = calibrate(CodecConfig(n_levels=4, clip_mode="manual",
+                                  manual_cmin=-2.0, manual_cmax=2.5,
+                                  backend="cuda"))
+    for shape in [(4, 1, 4096), (4, 64, 4096)]:
+        x = _x(dev, int(np.prod(shape)), dtype=torch.bfloat16).reshape(shape)
+        two_launch = codec.rate_from_indices(codec.quantize(x), x.shape)
+        before = dict(_build.LAUNCHES)
+        deq, rate = codec.apply_with_rate(x)
+        assert _advanced(before, clip_quant=1, index_histogram=0)
+        assert torch.equal(deq, codec.backend.quantize_dequantize(
+            x, codec.spec())[1])
+        assert float(rate) == float(two_launch)
+        before = dict(_build.LAUNCHES)
+        idx, none, rate = codec.quantize_with_rate(x)
+        assert _advanced(before, clip_quant=1, index_histogram=0)
+        assert none is None and torch.equal(idx, codec.quantize(x))
+        assert float(rate) == float(two_launch)
+        names = _device_ops(lambda: codec.backend.quantize_with_histogram(
+            x, codec.spec(), want_deq=True))
+        assert len(names) == 1 and "clip_quant" in names[0], names
+
+
+def test_quantize_with_histogram_backends_agree(dev):
+    """CudaBackend on the card and TorchBackend on the CPU copy (float32,
+    where their formulas agree): same indices, reconstructions and
+    counts; specs whose quantizer does not count give no counts."""
+    cb, tb = get_backend("cuda"), get_backend("torch")
+    x_cpu = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (8, 33, 256)).astype(np.float32) * 2)
+    x = x_cpu.to(dev)
+    shape, plan = _plan("channel-g8")
+    lo, hi = _ranges(plan)
+    q = design_ecsq(x_cpu.numpy().reshape(-1)[::7], 4, 0.05, -2.5, 3.0)
+    specs = {"tensor-4": QuantSpec(-2.5, 3.0, 4),
+             "tensor-64": QuantSpec(-2.5, 3.0, 64),
+             "tensor-65": QuantSpec(-2.5, 3.0, 65),
+             "ecsq": QuantSpec(-2.5, 3.0, 4, ecsq=q),
+             "channel-g8": QuantSpec(lo, hi, 4, plan.channel_axis,
+                                     plan=plan)}
+    for name, spec in specs.items():
+        counts = name in ("tensor-4", "tensor-64")
+        for want_deq in (True, False):
+            ki, kd, kh = cb.quantize_with_histogram(x, spec, want_deq)
+            ti, td, th = tb.quantize_with_histogram(x_cpu, spec, want_deq)
+            assert torch.equal(ki.cpu(), ti), name
+            assert (kd is None) == (td is None) == (not want_deq)
+            if want_deq:
+                assert torch.equal(kd.cpu(), td), name
+            assert (kh is None) == (th is None) == (not counts), name
+            if counts:
+                assert torch.equal(kh.cpu(), th), name
 
 
 @pytest.mark.parametrize("n_levels", [2, 4, 16, 64])
@@ -444,7 +592,8 @@ def test_split_runtime_on_card(dev):
 
     before = dict(_build.LAUNCHES)
     packed = run("packed")
-    assert _advanced(before, pack_bits=3, clip_quant=3, index_histogram=3)
+    # the crossing counts its indices in the quantizer's launch
+    assert _advanced(before, pack_bits=3, clip_quant=3, index_histogram=0)
     assert torch.equal(packed, run("quantized_f16"))
     cache, tok, unsplit = init_cache(cfg, 4, 16, device=dev), tok0, []
     for pos in range(3):

@@ -67,6 +67,35 @@ def test_clip_quantize_matches_interpret(n, n_levels, dtype):
                        npdt, cmin, cmax) <= 1
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n_levels", LEVELS)
+@pytest.mark.parametrize("n", [513, 4096])
+def test_clip_quant_with_histogram_matches_interpret(n, n_levels, dtype):
+    """#1's plain version asked for the histogram of its indices (with and
+    without the reconstruction): the reference's interpreted clip_quant_2d
+    indices exactly and its reconstruction within 1 unit, and the bins of
+    its interpreted index_histogram_2d exactly."""
+    npdt, tdt = DTYPES[dtype]
+    x = _x(n, seed=2).astype(npdt)
+    cmin, cmax = -0.83, 2.61
+    jidx, jdeq = jops.clip_quantize(jnp.asarray(x), cmin=cmin, cmax=cmax,
+                                    n_levels=n_levels, interpret=True)
+    jhist = np.asarray(jops.index_histogram(jidx, n_levels=n_levels,
+                                            interpret=True))
+    tx = _to_torch(x, tdt)
+    ti, td, th = tfcq.clip_quant_plain(tx, cmin, cmax, n_levels,
+                                       want_hist=True)
+    assert np.array_equal(ti.numpy(), np.asarray(jidx))
+    assert _range_ulps(td.float().numpy(), np.asarray(jdeq, np.float32),
+                       npdt, cmin, cmax) <= 1
+    assert th.dtype == torch.int32 and np.array_equal(th.numpy(), jhist)
+    oi, od, oh = tops.clip_quantize(tx, cmin=cmin, cmax=cmax,
+                                    n_levels=n_levels, want_deq=False,
+                                    want_hist=True)
+    assert od is None and torch.equal(oi, ti) and torch.equal(oh, th)
+    assert len(tfcq.clip_quant_plain(tx, cmin, cmax, n_levels)) == 2
+
+
 @pytest.mark.parametrize("bits_levels", [(1, 2), (2, 3), (2, 4), (3, 8),
                                          (4, 16), (6, 64)])
 @pytest.mark.parametrize("n", [513, 3000])
