@@ -14,9 +14,12 @@ no bytes, and the payload's size is what a link would carry.
 The codec ops route through the codec's backend: on the card the
 quantize is the clip+quant kernel, which for a per-tensor codec also
 counts the indices for the rate estimate in the same launch and writes
-no reconstruction; a codec with a TilePlan (e.g. ``granularity=
-"channel"`` over the d_model axis) takes the per-tile clip+quant kernel
-and then the per-tile index histogram kernel; the pack is the pack
+no reconstruction; on the packed transport, for a per-tensor codec of a
+1/2/4-bit wire width, the same launch writes the packed bytes in place
+of the indices (``quantize_packed_with_rate``), so the edge's stage is
+one launch.  A codec with a TilePlan (e.g. ``granularity="channel"``
+over the d_model axis) takes the per-tile clip+quant kernel and then the
+per-tile index histogram kernel, and on the packed transport the pack
 kernel.  On the CPU the torch formulas.
 
 The reference (``repro/compression/split_runtime.py``) writes the same
@@ -139,19 +142,23 @@ def make_split_decode_step(cfg: ModelConfig, codec: FeatureCodec | None, *,
     spec = cfg.pattern[0]
     edge_layers = [(spec, i) for i in range(half)]
     cloud_layers = [(spec, i) for i in range(half + tail)]
+    # the quantizer packs its own indices: one launch, no int32 indices
+    fused_pack = transport == "packed" and codec.packs_in_quantizer()
 
     def cross(y):
         """Boundary activations on the edge -> (cloud input, rate bits)."""
         if transport == "raw":
             return y.to(cloud), torch.tensor(RAW_RATE_BITS)
-        idx, _, rate_bits = codec.quantize_with_rate(y)
-        if transport == "packed":
-            recv = codec.pack(idx.reshape(-1)).to(cloud)
-            idx_r = codec.unpack(recv, idx.numel()).reshape(idx.shape)
+        if fused_pack:
+            packed, rate_bits = codec.quantize_packed_with_rate(y)
         else:
-            idx_r = idx.to(cloud)
-        x_b = codec.dequantize(idx_r, dtype=y.dtype)
-        return x_b, rate_bits
+            idx, _, rate_bits = codec.quantize_with_rate(y)
+            if transport != "packed":
+                return codec.dequantize(idx.to(cloud), dtype=y.dtype), \
+                    rate_bits
+            packed = codec.pack(idx.reshape(-1))
+        idx_r = codec.unpack(packed.to(cloud), y.numel()).reshape(y.shape)
+        return codec.dequantize(idx_r, dtype=y.dtype), rate_bits
 
     @torch.inference_mode()
     def step(params, token, caches, pos: int):

@@ -5,7 +5,7 @@ launchers) routes through a backend object, so the hot path picks the
 hand-written CUDA kernels on the card and the plain torch reference on
 the CPU, from a single code path.
 
-Backends implement eight primitives over a :class:`QuantSpec`:
+Backends implement nine primitives over a :class:`QuantSpec`:
 
     quantize(x, spec)             -> int32 indices
     dequantize(idx, spec, dtype)  -> reconstructed values
@@ -13,6 +13,8 @@ Backends implement eight primitives over a :class:`QuantSpec`:
     quantize_with_histogram(x, spec, want_deq)
                                   -> (indices, reconstruction | None,
                                       (n_levels,) counts | None)  [fused]
+    quantize_packed_with_histogram(x, spec, bits)
+                                  -> (uint8 wire bytes, counts)  [fused]
     histogram(idx, n_levels)      -> (n_levels,) int32 counts
     tile_histogram(idx, spec)     -> (n_cgroups, n_sblocks, N) counts
     pack_indices(idx, bits)       -> uint8 wire bytes (in-graph pack)
@@ -25,6 +27,10 @@ backend's one clip+quant launch also counts the indices (and writes no
 reconstruction unless asked); every other spec returns ``None`` for the
 counts, decided from the spec before any launch, and its caller
 histograms the indices itself.  The torch backend makes the same choice.
+``quantize_packed_with_histogram`` goes one step further for the packed
+transport: for those specs at a wire width of 1, 2 or 4 bits
+(:func:`packs_in_quantizer`) the same launch writes the indices as wire
+bytes instead of int32, so no pack runs after it; other specs raise.
 
 ``encode_fused`` is the host encode path's single-pass contract: on the
 CUDA backend one fused megakernel pass (clip -> quantize -> bit-pack ->
@@ -335,6 +341,27 @@ def _counts_in_quantizer(spec: QuantSpec) -> bool:
         and spec.n_levels <= MAX_LEVELS
 
 
+def packs_in_quantizer(spec: QuantSpec, bits: int) -> bool:
+    """Whether ``quantize_packed_with_histogram`` takes ``spec`` (any form)
+    at wire width ``bits``: a spec whose quantizer counts its indices
+    (:func:`_counts_in_quantizer`) and a width whose bytes hold several
+    indices, each fitting its lane."""
+    from ..kernels.pack_bits import PACK_BITS
+    spec = _normalize(spec)
+    return _counts_in_quantizer(spec) and bits in PACK_BITS \
+        and spec.n_levels <= 1 << bits
+
+
+def _check_packs(spec: QuantSpec, bits: int) -> None:
+    if not packs_in_quantizer(spec, bits):
+        kind = "tile plan" if spec.plan is not None else \
+            "ECSQ" if spec.ecsq is not None else "per-tensor uniform"
+        raise ValueError(
+            "the quantizer packs per-tensor uniform specs of at most 64 "
+            f"levels at 1/2/4 bits; got a {kind} spec of {spec.n_levels} "
+            f"levels at {bits} bits")
+
+
 def _tile_histogram(idx: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """(n_cgroups, n_sblocks, N) per-tile counts by the torch formula on
     ``idx``'s device."""
@@ -392,6 +419,18 @@ class TorchBackend:
         hist = self.histogram(idx, spec.n_levels) \
             if _counts_in_quantizer(spec) else None
         return idx, deq, hist
+
+    def quantize_packed_with_histogram(self, x, spec: QuantSpec,
+                                       bits: int):
+        """(packed uint8 wire bytes of the flat indices, counts): the plain
+        quantizer, pack and histogram, for the specs the CUDA backend
+        packs in its quantizer launch (:func:`packs_in_quantizer`); any
+        other spec raises."""
+        spec = _normalize(spec)
+        _check_packs(spec, bits)
+        idx = self.quantize(x, spec)
+        return (self.pack_indices(idx.reshape(-1), bits),
+                self.histogram(idx, spec.n_levels))
 
     def dequantize(self, idx, spec: QuantSpec, dtype=torch.float32):
         return _dequantize(_check_cpu(idx), spec, dtype)
@@ -503,6 +542,18 @@ class CudaBackend:
         if want_deq:
             return (*self.quantize_dequantize(x, spec), None)
         return self.quantize(x, spec), None, None
+
+    def quantize_packed_with_histogram(self, x, spec: QuantSpec,
+                                       bits: int):
+        """(packed uint8 wire bytes of the flat indices, counts) from one
+        clip+quant launch that packs and counts its indices, for the
+        specs :func:`packs_in_quantizer` takes; any other spec raises."""
+        from ..kernels import ops
+        spec = _normalize(spec)
+        _check_packs(spec, bits)
+        return ops.clip_quantize_pack(self._in(x), cmin=float(spec.cmin),
+                                      cmax=float(spec.cmax),
+                                      n_levels=spec.n_levels, bits=bits)
 
     def quantize_dequantize(self, x, spec: QuantSpec):
         from ..kernels import ops

@@ -52,7 +52,8 @@ import torch
 
 from ..obs.tracing import span
 from . import aciq, cabac, clipping
-from .backend import QuantSpec, get_backend, host_tensor, spec_from_numpy
+from .backend import (QuantSpec, get_backend, host_tensor, packs_in_quantizer,
+                      spec_from_numpy)
 from .distributions import FeatureModel
 from .ecsq import ECSQQuantizer, design_ecsq
 from .rate_model import estimated_bits_from_hist, estimated_bits_from_tile_hists
@@ -553,6 +554,24 @@ class FeatureCodec:
         n = max(int(np.prod(np.shape(x))), 1)
         return idx, deq, estimated_bits_from_hist(
             hist, self.config.n_levels) / n
+
+    def packs_in_quantizer(self) -> bool:
+        """Whether :meth:`quantize_packed_with_rate` takes this codec: per
+        tensor, uniform, at most 64 levels, 1/2/4-bit wire width."""
+        return packs_in_quantizer(self.spec(), self.bits_per_index())
+
+    def quantize_packed_with_rate(self, x):
+        """(packed uint8 wire bytes of the flat indices -- the bytes of
+        ``pack(quantize(x))`` -- and the rate bits/element) from one
+        quantization pass that packs and counts its indices: one launch
+        on the card.  The rate comes from the same counts by the same
+        formula as :meth:`quantize_with_rate`'s, so the two are equal.
+        Raises unless :meth:`packs_in_quantizer`."""
+        packed, hist = self.backend.quantize_packed_with_histogram(
+            x, self.spec(), self.bits_per_index())
+        n = max(int(np.prod(np.shape(x))), 1)
+        return packed, estimated_bits_from_hist(hist,
+                                                self.config.n_levels) / n
 
     def rate_from_indices(self, idx, shape):
         """Bits/element estimate from indices (in-graph).

@@ -57,6 +57,25 @@ __device__ __forceinline__ int tile_of(unsigned i, unsigned C, unsigned inner,
   return t;
 }
 
+// Division of n < 2^31 by an invariant d >= 1 as a high multiply, an add
+// and a shift (Granlund and Montgomery, "Division by invariant integers
+// using multiplication", 1994): with l = ceil(log2 d) and m = floor(2^32
+// (2^l - d) / d) + 1, n / d == (umulhi(n, m) + n) >> l, and the sum fits
+// 32 bits because umulhi(n, m) <= n < 2^31.
+struct FastDiv {
+  unsigned d, mul, shift;
+};
+
+inline FastDiv make_fast_div(unsigned d) {
+  unsigned l = 0;
+  while ((1ull << l) < d) ++l;
+  return {d, (unsigned)(((1ull << 32) * ((1ull << l) - d)) / d + 1), l};
+}
+
+__device__ __forceinline__ unsigned fast_div(unsigned n, FastDiv f) {
+  return (__umulhi(n, f.mul) + n) >> f.shift;
+}
+
 // -- counting quantizer levels in registers -----------------------------------
 //
 // The encode megakernel (#3), the per-tensor quantizer (#1) and the index
@@ -101,14 +120,15 @@ __device__ __forceinline__ void match_count(int* sh, bool on, unsigned key) {
 // The block's warps sum their threads' 16-bit counter words with one
 // __reduce_add_sync each; warp 0 sums the warps' words the same way (or,
 // for the match path, reads the block's shared bins), so lane b holds bin
-// b.  Then one of three routes, chosen by the host (histogram_grid):
+// b (block_bins).  Then one of three routes, chosen by the host
+// (histogram_grid):
 //   * one block: warp 0 stores the bins;
 //   * a cluster of kClusterBlocks blocks (grids that small): each block's
 //     warp 0 stores its bins into block 0's shared memory, and after one
-//     cluster barrier block 0 sums them and stores the bins.  Every thread
-//     arrives at the cluster barrier's first phase as the kernel starts
-//     (cluster_start), so waiting on it here (all blocks running, their
-//     shared memory live) costs little;
+//     cluster barrier block 0 sums them and stores the bins
+//     (cluster_store).  Every thread arrives at the cluster barrier's
+//     first phase as the kernel starts (cluster_start), so waiting on it
+//     here (all blocks running, their shared memory live) costs little;
 //   * more blocks: warp 0 stores the block's row into `rows` (n_levels
 //     int32 a block, rows packed: scratch the caller takes uninitialised)
 //     and lane 0 takes a ticket with one acquire-release atomic (a full
@@ -117,9 +137,9 @@ __device__ __forceinline__ void match_count(int* sh, bool on, unsigned key) {
 //     rows -- each thread the entries of one bin, a warp's lanes of one
 //     bin then together, one shared atomic per (warp, bin) -- and stores
 //     the bins, then resets the ticket to 0 for the next launch.  The
-//     ticket is a __device__ counter of the caller's translation unit, so
-//     two launches that share it must not run at once: the port launches
-//     on one stream.
+//     ticket is a zeroed word the caller passes: one per (device, stream)
+//     (kernels/_build.py), so launches on one stream take it in turn and
+//     launches on two streams never share it.
 // Every route stores the output bins with plain stores.
 //
 // A warp's sum of one 16-bit field must stay below 2^16, so a thread
@@ -133,16 +153,14 @@ __device__ __forceinline__ void cluster_start(bool cluster) {
   if (cluster) asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
 }
 
+// The block's bins in warp 0: lane b holds bin b in a0 and bin b + 32 in
+// a1 (other warps: 0).  Ends past a block barrier.
 template <bool kMatch>
-__device__ __forceinline__ void store_histogram(
-    const uint32_t (&cnt)[kCountWords], const int* sh_match, int n_levels,
-    bool cluster, int* __restrict__ hist, int* __restrict__ rows,
-    unsigned* ticket) {
+__device__ __forceinline__ void block_bins(const uint32_t (&cnt)[kCountWords],
+                                           const int* sh_match, int n_levels,
+                                           int& a0, int& a1) {
   constexpr unsigned kFull = 0xFFFFFFFFu;
   __shared__ uint32_t s_cnt[32][kCountWords];
-  __shared__ int s_bins[kHistWidth];
-  __shared__ int s_rows[kClusterBlocks][kHistWidth];
-  __shared__ bool s_last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
   const int n_words = (n_levels + 1) / 2;
@@ -154,47 +172,68 @@ __device__ __forceinline__ void store_histogram(
       if (lane == 0) s_cnt[warp][w] = r;
     }
   }
-  if (threadIdx.x < kHistWidth) s_bins[threadIdx.x] = 0;
   __syncthreads();
-  int a0 = 0, a1 = 0;                        // warp 0: bins lane, lane + 32
-  if (warp == 0) {
-    if constexpr (kMatch) {
-      a0 = sh_match[lane];
-      a1 = sh_match[lane + 32];
-    } else {
+  a0 = a1 = 0;
+  if (warp != 0) return;
+  if constexpr (kMatch) {
+    a0 = sh_match[lane];
+    a1 = sh_match[lane + 32];
+  } else {
 #pragma unroll
-      for (int w = 0; w < kCountWords; ++w) {
-        if (w >= n_words) break;
-        uint32_t x = lane < n_warps ? s_cnt[lane][w] : 0u;
-        int lo = (int)__reduce_add_sync(kFull, x & 0xFFFFu);
-        int hi = (int)__reduce_add_sync(kFull, x >> 16);
-        if (lane == 2 * w) a0 = lo;
-        if (lane == 2 * w + 1) a0 = hi;
-      }
+    for (int w = 0; w < kCountWords; ++w) {
+      if (w >= n_words) break;
+      uint32_t x = lane < n_warps ? s_cnt[lane][w] : 0u;
+      int lo = (int)__reduce_add_sync(kFull, x & 0xFFFFu);
+      int hi = (int)__reduce_add_sync(kFull, x >> 16);
+      if (lane == 2 * w) a0 = lo;
+      if (lane == 2 * w + 1) a0 = hi;
     }
   }
-  if (cluster) {
-    namespace cg = cooperative_groups;
-    cg::cluster_group cl = cg::this_cluster();
-    const unsigned rank = cl.block_rank();
-    asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
-    if (warp == 0) {
-      int* dst = cl.map_shared_rank(&s_rows[rank][0], 0);
-      if (lane < n_levels) dst[lane] = a0;
-      if (lane + 32 < n_levels) dst[lane + 32] = a1;
-    }
-    asm volatile("barrier.cluster.arrive.release.aligned;\n"
-                 "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-    if (rank == 0 && warp == 0) {
-      int s0 = 0, s1 = 0;
+}
+
+// Every thread of the cluster calls this after block_bins: block 0 sums
+// the kClusterBlocks blocks' bins and stores them to hist.
+__device__ __forceinline__ void cluster_store(int a0, int a1, int n_levels,
+                                              int* __restrict__ hist) {
+  namespace cg = cooperative_groups;
+  __shared__ int s_rows[kClusterBlocks][kHistWidth];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  cg::cluster_group cl = cg::this_cluster();
+  const unsigned rank = cl.block_rank();
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  if (warp == 0) {
+    int* dst = cl.map_shared_rank(&s_rows[rank][0], 0);
+    if (lane < n_levels) dst[lane] = a0;
+    if (lane + 32 < n_levels) dst[lane + 32] = a1;
+  }
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  if (rank == 0 && warp == 0) {
+    int s0 = 0, s1 = 0;
 #pragma unroll
-      for (int r = 0; r < kClusterBlocks; ++r) {
-        s0 += lane < n_levels ? s_rows[r][lane] : 0;
-        s1 += lane + 32 < n_levels ? s_rows[r][lane + 32] : 0;
-      }
-      if (lane < n_levels) hist[lane] = s0;
-      if (lane + 32 < n_levels) hist[lane + 32] = s1;
+    for (int r = 0; r < kClusterBlocks; ++r) {
+      s0 += lane < n_levels ? s_rows[r][lane] : 0;
+      s1 += lane + 32 < n_levels ? s_rows[r][lane + 32] : 0;
     }
+    if (lane < n_levels) hist[lane] = s0;
+    if (lane + 32 < n_levels) hist[lane + 32] = s1;
+  }
+}
+
+template <bool kMatch>
+__device__ __forceinline__ void store_histogram(
+    const uint32_t (&cnt)[kCountWords], const int* sh_match, int n_levels,
+    bool cluster, int* __restrict__ hist, int* __restrict__ rows,
+    unsigned* __restrict__ ticket) {
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  __shared__ int s_bins[kHistWidth];
+  __shared__ bool s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (threadIdx.x < kHistWidth) s_bins[threadIdx.x] = 0;
+  int a0, a1;
+  block_bins<kMatch>(cnt, sh_match, n_levels, a0, a1);
+  if (cluster) {
+    cluster_store(a0, a1, n_levels, hist);
     return;
   }
   if (warp == 0) {

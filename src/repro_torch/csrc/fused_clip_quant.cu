@@ -25,8 +25,16 @@
 // written.  The histogram variant picks its grid as #4 does: one block
 // up to kOneBlockMax values, a cluster of eight blocks up to eight
 // blocks' worth (a decode boundary, 16,384 bfloat16 values), the ticket
-// route above.  There the launch, not the bytes, is the cost: an empty
-// grid takes ~1.9 us back to back, this kernel 3.7 us (PERF.md).
+// route above, on the caller's ticket word for its stream.  There the
+// launch, not the bytes, is the cost: an empty grid takes ~1.9 us back
+// to back, this kernel 3.7 us (PERF.md).
+// repro_clip_quant_pack is the same pass writing the indices bit-packed to
+// the wire width (1, 2 or 4 bits; pack_bits._kernel's byte layout) in
+// place of the int32 indices, with the histogram: the packed split
+// runtime's quantize-and-pack stage as one launch, where the reference
+// packs in a second pass (its pack_bits module notes that the pack
+// belongs in this one).  It keeps no int32 index tensor and no
+// reconstruction: 2 B read and 1 / per B written a value at bfloat16.
 // clip_quant_tiles is a grid-stride elementwise loop with each thread
 // looking up its element's tile (repro::tile_of) and that tile's range, so
 // the tensor is read in its own layout -- the Pallas kernel's banded,
@@ -52,8 +60,6 @@ constexpr long long kOneBlockMax = 4096;
 constexpr int kPerIter = 8;           // values a thread per iteration
 enum QuantMode : int { kNoHist = 0, kCount8 = 1, kCount16 = 2, kMatch = 3 };
 
-__device__ unsigned g_ticket;         // repro::store_histogram's ticket
-
 template <typename T>
 __device__ __forceinline__ int quantize_one(T v, float lo, float hi,
                                             float scale, float inv_scale,
@@ -69,6 +75,29 @@ __device__ __forceinline__ int quantize_one(T v, float lo, float hi,
 template <typename T> struct Quad { using type = uint2; };
 template <> struct Quad<float> { using type = uint4; };
 
+// The histogram variants' counting, kPerIter levels at a time (kNoHist
+// counts nothing).
+template <int MODE>
+__device__ __forceinline__ void count_levels(const int (&q)[kPerIter],
+                                             unsigned nl, int* sh,
+                                             uint32_t (&cnt)[repro::kCountWords]) {
+  if constexpr (MODE == kCount8) {
+    uint32_t c8 = 0;
+#pragma unroll
+    for (int k = 0; k < kPerIter; ++k)
+      c8 += repro::bin8(q[k], (unsigned)q[k] < nl);
+    repro::widen8(c8, cnt);
+  } else if constexpr (MODE == kCount16) {
+#pragma unroll
+    for (int k = 0; k < kPerIter; ++k)
+      repro::count16(q[k], (unsigned)q[k] < nl, cnt);
+  } else if constexpr (MODE == kMatch) {
+#pragma unroll
+    for (int k = 0; k < kPerIter; ++k)
+      repro::match_count(sh, (unsigned)q[k] < nl, (unsigned)q[k]);
+  }
+}
+
 // A thread quantizes two groups of four values an iteration, `stride`
 // groups apart.  The loops run while any lane of the warp has work, so
 // every lane takes part in each match.
@@ -77,7 +106,8 @@ __global__ void __launch_bounds__(kThreads)
 clip_quant_kernel(const T* __restrict__ x, long long n, bool vec, float lo,
                   float hi, float scale, float inv_scale, int n_levels,
                   bool cluster, int* __restrict__ idx, T* __restrict__ deq,
-                  int* __restrict__ hist, int* __restrict__ rows) {
+                  int* __restrict__ hist, int* __restrict__ rows,
+                  unsigned* __restrict__ ticket) {
   using Q = typename Quad<T>::type;
   __shared__ int sh[kHistWidth];                 // the match path's bins
   repro::cluster_start(cluster);
@@ -90,23 +120,6 @@ clip_quant_kernel(const T* __restrict__ x, long long n, bool vec, float lo,
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   uint32_t cnt[repro::kCountWords] = {};
-  auto count = [&](const int (&q)[kPerIter]) {
-    if constexpr (MODE == kCount8) {
-      uint32_t c8 = 0;
-#pragma unroll
-      for (int k = 0; k < kPerIter; ++k)
-        c8 += repro::bin8(q[k], (unsigned)q[k] < nl);
-      repro::widen8(c8, cnt);
-    } else if constexpr (MODE == kCount16) {
-#pragma unroll
-      for (int k = 0; k < kPerIter; ++k)
-        repro::count16(q[k], (unsigned)q[k] < nl, cnt);
-    } else if constexpr (MODE == kMatch) {
-#pragma unroll
-      for (int k = 0; k < kPerIter; ++k)
-        repro::match_count(sh, (unsigned)q[k] < nl, (unsigned)q[k]);
-    }
-  };
   const long long n_grp = vec ? n / 4 : 0;
   for (long long g = t; g - lane < n_grp; g += 2 * stride) {
     int q[kPerIter];
@@ -129,7 +142,7 @@ clip_quant_kernel(const T* __restrict__ x, long long n, bool vec, float lo,
         for (int k = 0; k < 4; ++k) q[4 * h + k] = -1;   // counted nowhere
       }
     }
-    count(q);
+    count_levels<MODE>(q, nl, sh, cnt);
   }
   // the scalar tail (all of it when a buffer is not aligned)
   for (long long i = n_grp * 4 + t; i - lane < n; i += kPerIter * stride) {
@@ -145,11 +158,106 @@ clip_quant_kernel(const T* __restrict__ x, long long n, bool vec, float lo,
         if (deq != nullptr) deq[j] = d;
       }
     }
-    count(q);
+    count_levels<MODE>(q, nl, sh, cnt);
   }
   if constexpr (MODE != kNoHist)
     repro::store_histogram<MODE == kMatch>(cnt, sh, n_levels, cluster,
-                                           hist, rows, &g_ticket);
+                                           hist, rows, ticket);
+}
+
+// clip_quant_kernel's histogram variant writing packed bytes.  A thread
+// quantizes units of whole bytes from the values it loads: a group of
+// four (BITS 2: one byte; BITS 4: two, one 16-bit store) two units an
+// iteration `stride` units apart, or two adjacent groups (BITS 1: one
+// byte) one unit an iteration; so a warp's byte stores are contiguous.
+// The tail (all of it when a buffer is not aligned) packs whole bytes
+// from consecutive values: kPerIter / PER bytes a thread an iteration,
+// `stride` bytes apart.  Lanes are summed and each byte's low 8 bits
+// kept, as pack_bits.cu does (the indices lie in [0, 2^BITS) here).
+template <typename T, int MODE, int BITS>
+__global__ void __launch_bounds__(kThreads)
+clip_quant_pack_kernel(const T* __restrict__ x, long long n, bool vec,
+                       float lo, float hi, float scale, int n_levels,
+                       bool cluster, unsigned char* __restrict__ packed,
+                       int* __restrict__ hist, int* __restrict__ rows,
+                       unsigned* __restrict__ ticket) {
+  using Q = typename Quad<T>::type;
+  constexpr int PER = 8 / BITS;                  // values a byte
+  constexpr int UV = BITS == 1 ? 8 : 4;          // values a unit
+  constexpr int UB = UV / PER;                   // bytes a unit: 1 or 2
+  constexpr int UNITS = kPerIter / UV;           // units an iteration
+  __shared__ int sh[kHistWidth];                 // the match path's bins
+  repro::cluster_start(cluster);
+  if constexpr (MODE == kMatch) {
+    if (threadIdx.x < kHistWidth) sh[threadIdx.x] = 0;
+    __syncthreads();
+  }
+  const unsigned nl = (unsigned)n_levels;
+  const long long lane = threadIdx.x & 31;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  uint32_t cnt[repro::kCountWords] = {};
+  const long long n_unit = vec ? n / UV : 0;
+  for (long long u0 = t; u0 - lane < n_unit; u0 += UNITS * stride) {
+    int q[kPerIter];
+#pragma unroll
+    for (int h = 0; h < UNITS; ++h) {
+      const long long u = u0 + h * stride;
+      if (u < n_unit) {
+        Q raw[UV / 4];
+#pragma unroll
+        for (int i = 0; i < UV / 4; ++i)
+          raw[i] = __ldg(reinterpret_cast<const Q*>(x) + u * (UV / 4) + i);
+        const T* e = reinterpret_cast<const T*>(raw);
+        unsigned word = 0;
+#pragma unroll
+        for (int b = 0; b < UB; ++b) {
+          unsigned acc = 0;
+#pragma unroll
+          for (int j = 0; j < PER; ++j) {
+            const int k = b * PER + j;
+            q[h * UV + k] = (int)repro::quant_level(repro::to_f32(e[k]), lo,
+                                                    hi, scale);
+            acc += (unsigned)q[h * UV + k] << (j * BITS);
+          }
+          word |= (acc & 0xFFu) << (8 * b);
+        }
+        if constexpr (UB == 2)
+          reinterpret_cast<uint16_t*>(packed)[u] = (uint16_t)word;
+        else
+          packed[u] = (unsigned char)word;
+      } else {
+#pragma unroll
+        for (int k = 0; k < UV; ++k) q[h * UV + k] = -1;   // counted nowhere
+      }
+    }
+    count_levels<MODE>(q, nl, sh, cnt);
+  }
+  constexpr int BPI = kPerIter / PER;            // tail bytes an iteration
+  const long long n_bytes = (n + PER - 1) / PER;
+  for (long long b0 = n_unit * UB + t; b0 - lane < n_bytes;
+       b0 += BPI * stride) {
+    int q[kPerIter];
+#pragma unroll
+    for (int h = 0; h < BPI; ++h) {
+      const long long b = b0 + h * stride;
+      unsigned acc = 0;
+#pragma unroll
+      for (int j = 0; j < PER; ++j) {
+        const long long i = b * PER + j;
+        q[h * PER + j] = -1;
+        if (b < n_bytes && i < n) {
+          q[h * PER + j] = (int)repro::quant_level(repro::to_f32(x[i]), lo,
+                                                   hi, scale);
+          acc += (unsigned)q[h * PER + j] << (j * BITS);
+        }
+      }
+      if (b < n_bytes) packed[b] = (unsigned char)(acc & 0xFFu);
+    }
+    count_levels<MODE>(q, nl, sh, cnt);
+  }
+  repro::store_histogram<MODE == kMatch>(cnt, sh, n_levels, cluster, hist,
+                                         rows, ticket);
 }
 
 // The tiled formula of the reference: float32 span = max(hi - lo, 1e-12),
@@ -360,7 +468,8 @@ template <typename T>
 int launch_clip_quant(const void* x, long long n, bool vec, float lo,
                       float hi, float scale, float inv_scale, int n_levels,
                       void* idx, void* deq, void* hist, void* rows,
-                      long long rows_cap, int sms, cudaStream_t s) {
+                      long long rows_cap, void* ticket, int sms,
+                      cudaStream_t s) {
   repro::HistGrid g{0, false};
   if (hist == nullptr) {
     // one group of four a thread: the most blocks in flight
@@ -379,20 +488,43 @@ int launch_clip_quant(const void* x, long long n, bool vec, float lo,
   cudaError_t e = repro::launch_grid(
       kernel, g.blocks, kThreads, g.cluster, s, (const T*)x, n, vec, lo, hi,
       scale, inv_scale, n_levels, g.cluster, (int*)idx, (T*)deq, (int*)hist,
-      (int*)rows);
+      (int*)rows, (unsigned*)ticket);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <typename T, int BITS>
+int launch_clip_quant_pack(const void* x, long long n, bool vec, float lo,
+                           float hi, float scale, int n_levels,
+                           void* packed, void* hist, void* rows,
+                           long long rows_cap, void* ticket, int sms,
+                           cudaStream_t s) {
+  repro::HistGrid g =
+      repro::histogram_grid(n, kThreads, kPerIter, kOneBlockMax, sms);
+  if (g.blocks > rows_cap || g.blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  auto kernel = n_levels <= 4    ? clip_quant_pack_kernel<T, kCount8, BITS>
+                : n_levels <= 16 ? clip_quant_pack_kernel<T, kCount16, BITS>
+                                 : clip_quant_pack_kernel<T, kMatch, BITS>;
+  cudaError_t e = repro::launch_grid(
+      kernel, g.blocks, kThreads, g.cluster, s, (const T*)x, n, vec, lo, hi,
+      scale, n_levels, g.cluster, (unsigned char*)packed, (int*)hist,
+      (int*)rows, (unsigned*)ticket);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 }  // namespace
 
 // deq may be null (no reconstruction written); hist may be null (no
-// histogram), else rows is scratch of rows_cap * kHistWidth int32.
+// histogram), else rows is scratch of rows_cap * kHistWidth int32 and
+// ticket the stream's zeroed word (repro::store_histogram).
 extern "C" int repro_clip_quant(const void* x, int dtype, long long n,
                                 float lo, float hi, float scale,
                                 float inv_scale, int n_levels, void* idx,
                                 void* deq, void* hist, void* rows,
-                                long long rows_cap, void* stream) {
-  if (n <= 0 || n_levels < 2 || (hist != nullptr && n_levels > kHistWidth))
+                                long long rows_cap, void* ticket,
+                                void* stream) {
+  if (n <= 0 || n_levels < 2 || (hist != nullptr && n_levels > kHistWidth) ||
+      (hist != nullptr && ticket == nullptr))
     return (int)cudaErrorInvalidValue;
   int sms = repro::sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
@@ -406,7 +538,39 @@ extern "C" int repro_clip_quant(const void* x, int dtype, long long n,
   REPRO_DISPATCH_FLOAT(dtype, T,
       return launch_clip_quant<T>(x, n, vec, lo, hi, scale, inv_scale,
                                   n_levels, idx, deq, hist, rows, rows_cap,
-                                  sms, (cudaStream_t)stream));
+                                  ticket, sms, (cudaStream_t)stream));
+  return (int)cudaErrorInvalidValue;
+}
+
+// packed: ceil(n / (8 / bits)) bytes; hist, rows and ticket as above.
+// Indices must fit the width: n_levels <= 2^bits.
+extern "C" int repro_clip_quant_pack(const void* x, int dtype, long long n,
+                                     float lo, float hi, float scale,
+                                     int n_levels, int bits, void* packed,
+                                     void* hist, void* rows,
+                                     long long rows_cap, void* ticket,
+                                     void* stream) {
+  if (n <= 0 || n_levels < 2 || n_levels > kHistWidth ||
+      (bits != 1 && bits != 2 && bits != 4) || n_levels > (1 << bits) ||
+      hist == nullptr || ticket == nullptr)
+    return (int)cudaErrorInvalidValue;
+  int sms = repro::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  const unsigned quad = dtype == repro::kF32 ? 16u : 8u;
+  bool vec = reinterpret_cast<uintptr_t>(x) % quad == 0 &&
+             reinterpret_cast<uintptr_t>(packed) % 2 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+#define REPRO_PACK(BITS)                                                    \
+  REPRO_DISPATCH_FLOAT(dtype, T,                                            \
+      return launch_clip_quant_pack<T, BITS>(x, n, vec, lo, hi, scale,      \
+                                             n_levels, packed, hist, rows,  \
+                                             rows_cap, ticket, sms, s))
+  switch (bits) {
+    case 1: REPRO_PACK(1); break;
+    case 2: REPRO_PACK(2); break;
+    default: REPRO_PACK(4); break;
+  }
+#undef REPRO_PACK
   return (int)cudaErrorInvalidValue;
 }
 

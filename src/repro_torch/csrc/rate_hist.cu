@@ -16,23 +16,43 @@
 // sums its rows in block 0's shared memory after one cluster barrier;
 // above that up to two blocks per SM store partial rows into scratch,
 // and the last block to finish (an acquire-release ticket) sums them.
-// That last route's ticket is this file's __device__ counter, reset by
-// that last block: two launches running at once on two streams of one
-// device are not supported.  Values outside [0, n_levels) are not
-// counted.  What binds it on the H100 (PERF.md): the launch (an
-// empty grid takes ~1.9 us back to back), one read round trip, then the
-// cluster barrier pair (~0.6 us) or the ticket's chain (~1.2 us).
-
+// The ticket is the caller's word for the launch's stream (one per
+// device and stream, kernels/_build.py), reset by that last block, so
+// launches on several streams of one device may run at once.  Values
+// outside [0, n_levels) are not counted.  What binds it on the H100
+// (PERF.md): the launch (an empty grid takes ~1.9 us back to back), one
+// read round trip, then the cluster barrier pair (~0.6 us) or the
+// ticket's chain (~1.2 us).
+//
 // repro_index_histogram_tiles replaces rate_hist._kernel_tiles
 // (index_histogram_tiles_2d), the per-(row, band) histogram over the
-// banded view that the wrapper then folded into channel groups.  Here a
-// block owns one TilePlan tile (or one kChunk-element part of a large
-// one) and walks that tile's elements in the tensor's own layout -- the
-// group's channels times the band's coded positions, channel-fastest when
-// channels are innermost in memory -- so no banded copy, no band-valid
-// mask and no fold are needed.  Counts go to per-warp shared bins; a tile
-// counted by one block stores its N bins, a larger one adds each non-zero
-// bin with one atomic per part to an output the entry point zeroes first.
+// banded view that the wrapper then folded into channel groups.  Here
+// the tensor is read in its own layout -- a tile is the group's channels
+// times the band's coded positions (through perm for 2-D plans) -- so no
+// banded copy, no band-valid mask and no fold are needed.  Bound by bytes
+// and, at the serving sizes (512 tiles of 32 or 2,048 indices), by the
+// launch and one read round trip, so one call is one device operation
+// whatever the tile size: no fill, no atomics on the output, every bin
+// stored once.  G threads own a tile, by its size:
+//   * tiles of up to 32 * kTileElemsPerThread indices: a warp, so a block
+//     holds four tiles and each warp sums its counter words with
+//     __reduce_add_sync -- no barrier (the decode boundary: 32 indices a
+//     tile, one a lane; 8 lanes a tile with four a lane took 0.0035 ms,
+//     a warp 0.0032, PERF.md);
+//   * up to 256 * kTileElemsPerThread: one block of G (64-256) threads,
+//     ~kTileElemsPerThread indices each, reduced as block_bins does (the
+//     prefill boundary: 256 threads a tile);
+//   * above: a cluster of eight blocks a tile, summed in distributed
+//     shared memory as store_histogram's cluster route does.
+// A tile's base, channel count and band bounds are computed once a
+// thread.  With channels innermost (inner == 1, the serving boundaries)
+// a thread's lanes walk channels, so a warp's loads are contiguous runs
+// of a row; with inner > 1 they walk positions.  A position's address
+// takes one invariant division (repro::fast_div), each element one add.
+// Threads count in registers as #4 does; where one thread would count
+// more than kCountsPerThread (tiles above a cluster's worth) or N > 16,
+// the warp's equal bins take one shared atomic each (match_count), whose
+// 32-bit bins have no such limit, so no tile needs a ticket.
 
 #include <cstdint>
 
@@ -41,9 +61,7 @@
 namespace {
 
 using repro::kHistWidth;
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = kThreads * 16;  // elements one block counts
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 // kOneBlockMax: the crossover between the one-block and the cluster route,
 // from tools/hist_crossover.py on the H100 (PERF.md).
@@ -52,13 +70,11 @@ constexpr int kHistThreads = 256;
 constexpr int kPerIter = 16;     // indices a thread reads per iteration
 enum CountMode : int { kCount8 = 0, kCount16 = 1, kMatch = 2 };
 
-__device__ unsigned g_ticket;    // see the note at the top
-
 template <int MODE>
 __global__ void __launch_bounds__(kHistThreads)
 index_histogram_kernel(const int* __restrict__ idx, long long n, bool vec,
                        int n_levels, bool cluster, int* __restrict__ hist,
-                       int* __restrict__ rows) {
+                       int* __restrict__ rows, unsigned* __restrict__ ticket) {
   __shared__ int sh[kHistWidth];                 // the match path's bins
   repro::cluster_start(cluster);
   if constexpr (MODE == kMatch) {
@@ -115,52 +131,184 @@ index_histogram_kernel(const int* __restrict__ idx, long long n, bool vec,
     count(q);
   }
   repro::store_histogram<MODE == kMatch>(cnt, sh, n_levels, cluster, hist,
-                                         rows, &g_ticket);
+                                         rows, ticket);
 }
 
-// Block b counts part b % chunks of tile b / chunks: channels
-// [g * group_size, +nch) of channel group g = tile / n_sblocks, coded
-// positions [bounds[s], bounds[s + 1]) of band s = tile % n_sblocks
-// (through perm for 2-D plans, whose bands are not contiguous runs).
-__global__ void index_histogram_tiles_kernel(
-    const int* __restrict__ idx, int C, int inner, int group_size,
-    int n_sblocks, const int* __restrict__ bounds,
-    const int* __restrict__ perm, int n_levels, int chunks,
-    int* __restrict__ out) {
-  __shared__ int sh[kWarps][kHistWidth];
-  for (int i = threadIdx.x; i < kWarps * kHistWidth; i += blockDim.x)
-    (&sh[0][0])[i] = 0;
-  __syncthreads();
-  int tile = blockIdx.x / chunks, part = blockIdx.x % chunks;
-  int c0 = (tile / n_sblocks) * group_size;
-  int nch = min(group_size, C - c0);
-  int k0 = bounds[tile % n_sblocks];
-  int len = bounds[tile % n_sblocks + 1] - k0;
-  int end = min(nch * len, (part + 1) * kChunk);
-  int* mine = sh[threadIdx.x >> 5];
-  for (int e = part * kChunk + threadIdx.x; e < end; e += blockDim.x) {
-    int c, k;
-    if (inner == 1) {
-      c = c0 + e % nch;
-      k = k0 + e / nch;
-    } else {
-      k = k0 + e % len;
-      c = c0 + e / len;
+// -- per-tile histograms --------------------------------------------------------
+
+constexpr int kTileElemsPerThread = 8;   // the indices G is sized for
+constexpr int kWarpBlock = 128;          // block of the warp route
+constexpr int kBatch = 8;                // positions a thread loads at once
+enum TileRoute : int { kWarp = 0, kBlock = 1, kCluster = 2 };
+
+// How G threads walk a tile: W lanes across its channels times R = G / W
+// across its positions (channels fastest when inner == 1, positions
+// fastest otherwise); lc = ceil(full group's channels / W) channels a
+// lane.  G, W and R are powers of two: lw and lr the logs of W and R.
+struct TileWalk {
+  int G, W, R, lc, lw, lr;
+  bool chan_fast;
+};
+
+// G threads own each tile, and block b's thread x is thread j of tile
+// `tile` (ROUTE as above).  A thread loads its tile's geometry once, then
+// counts the elements (position k, channel w + W * l) of the positions
+// k0 + r, k0 + r + R, ... of its band, for l < lc.  FLAT: channels
+// innermost and no perm (the serving boundaries), so position k's row
+// starts at k * C and a batch's loads are plain predicated loads.
+template <int MODE, int ROUTE, bool FLAT>
+__global__ void __launch_bounds__(kHistThreads)
+index_histogram_tiles_kernel(const int* __restrict__ idx, int C, int inner,
+                             repro::FastDiv inner_div, int group_size,
+                             int n_tiles, int n_sblocks,
+                             const int* __restrict__ bounds,
+                             const int* __restrict__ perm, int positions,
+                             int n_levels, TileWalk walk,
+                             int* __restrict__ out) {
+  // the match path's bins: one row of kHistWidth per tile of the block
+  __shared__ int sh[MODE != kMatch  ? 1
+                    : ROUTE == kWarp ? kWarpBlock / 32 * kHistWidth
+                                     : kHistWidth];
+  const int lane = threadIdx.x & 31;
+  int tile, j;
+  if constexpr (ROUTE == kWarp) {
+    tile = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+    j = lane;
+  } else if constexpr (ROUTE == kBlock) {
+    tile = blockIdx.x;
+    j = threadIdx.x;
+  } else {
+    repro::cluster_start(true);
+    tile = blockIdx.x / repro::kClusterBlocks;
+    j = (blockIdx.x % repro::kClusterBlocks) * blockDim.x + threadIdx.x;
+  }
+  const int slot = ROUTE == kWarp ? threadIdx.x >> 5 : 0;
+  int* bins = sh + slot * kHistWidth;
+  if constexpr (MODE == kMatch && ROUTE == kWarp) {
+    bins[lane] = bins[lane + 32] = 0;          // the warp's own row
+    __syncwarp();
+  } else if constexpr (MODE == kMatch) {
+    if (threadIdx.x < kHistWidth) sh[threadIdx.x] = 0;
+    __syncthreads();
+  }
+  int w, r;
+  if (walk.chan_fast) {
+    w = j & (walk.W - 1);
+    r = j >> walk.lw;
+  } else {
+    r = j & (walk.R - 1);
+    w = j >> walk.lr;
+  }
+  // the tile's geometry, once: channels [c0, c0 + nch), coded positions
+  // [k0, k1) (an empty range for the warps past the last tile); one
+  // band spans all positions, so only plans of several read their bounds
+  int c0 = 0, nch = 0, k0 = 0, k1 = 0;
+  if (tile < n_tiles) {
+    const int g = n_sblocks == 1 ? tile : tile / n_sblocks;
+    const int s = tile - g * n_sblocks;
+    c0 = g * group_size;
+    nch = min(group_size, C - c0);
+    k0 = n_sblocks == 1 ? 0 : __ldg(&bounds[s]);
+    k1 = n_sblocks == 1 ? positions : __ldg(&bounds[s + 1]);
+  }
+  const unsigned nl = (unsigned)n_levels;
+  const unsigned cstride = FLAT ? 1u : (unsigned)inner;   // a channel on
+  const unsigned row = (unsigned)C * (unsigned)inner;
+  // offset of coded position k's first channel of the tile
+  auto position = [&](int k) -> unsigned {
+    if constexpr (FLAT) return (unsigned)k * (unsigned)C + (unsigned)c0;
+    unsigned m = perm != nullptr ? (unsigned)__ldg(&perm[k]) : (unsigned)k;
+    if (inner == 1) return m * (unsigned)C + (unsigned)c0;
+    unsigned b = repro::fast_div(m, inner_div);
+    return b * row + (m - b * (unsigned)inner) + (unsigned)c0 * cstride;
+  };
+  // a thread's positions in batches of kBatch, each batch's loads issued
+  // before any is counted (one read round trip a batch, not a position);
+  // a lane's channels w, w + W, ... one after another (lc is mostly 1)
+  uint32_t cnt[repro::kCountWords] = {};
+  const unsigned key0 = (unsigned)(slot * kHistWidth);
+  for (int l = 0; l < walk.lc; ++l) {
+    const int c = w + walk.W * l;
+    const unsigned coff = (unsigned)c * cstride;
+    const bool on_c = c < nch;
+    for (int k = k0 + r;; k += kBatch * walk.R) {
+      // the match path runs while any lane of the warp has a position, so
+      // every lane takes part in each match; the others while this one does
+      const bool more = on_c && k < k1;
+      if constexpr (MODE == kMatch) {
+        if (!__any_sync(kFull, more)) break;
+      } else if (!more) {
+        break;
+      }
+      int v[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i) {
+        const int kk = k + i * walk.R;
+        v[i] = more && kk < k1 ? __ldg(idx + position(kk) + coff) : -1;
+      }
+      if constexpr (MODE == kCount8) {
+        uint32_t c8 = 0;
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+          c8 += repro::bin8(v[i], (unsigned)v[i] < nl);
+        repro::widen8(c8, cnt);
+      } else if constexpr (MODE == kCount16) {
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i)
+          repro::count16(v[i], (unsigned)v[i] < nl, cnt);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kBatch; ++i) {
+          const bool ok = (unsigned)v[i] < nl;
+          repro::match_count(sh, ok, key0 + (ok ? (unsigned)v[i] : 0u));
+        }
+      }
     }
-    int m = perm != nullptr ? __ldg(&perm[k]) : k;
-    int v = idx[((m / inner) * C + c) * inner + m % inner];
-    if ((unsigned)v < (unsigned)n_levels) atomicAdd(&mine[v], 1);
   }
-  __syncthreads();
-  int* o = out + tile * n_levels;
-  for (int b = threadIdx.x; b < n_levels; b += blockDim.x) {
-    int s = 0;
-    for (int w = 0; w < kWarps; ++w) s += sh[w][b];
-    if (chunks == 1)
-      o[b] = s;
-    else if (s)
-      atomicAdd(&o[b], s);
+  if constexpr (ROUTE == kWarp) {
+    // the warp sums its words (or reads its tile's shared row) and lane b
+    // stores bins b and b + 32
+    uint32_t sum[repro::kCountWords] = {};
+    if constexpr (MODE == kMatch) {
+      __syncwarp();
+    } else {
+      const int n_words = (n_levels + 1) / 2;
+#pragma unroll
+      for (int i = 0; i < repro::kCountWords; ++i) {
+        if (i >= n_words) break;              // uniform across the grid
+        sum[i] = __reduce_add_sync(kFull, cnt[i]);
+      }
+    }
+    if (tile >= n_tiles) return;
+    int* o = out + (long long)tile * n_levels;
+    for (int b = lane; b < n_levels; b += 32) {
+      if constexpr (MODE == kMatch) {
+        o[b] = bins[b];
+      } else {
+        uint32_t word = 0;
+#pragma unroll
+        for (int i = 0; i < repro::kCountWords; ++i)
+          if (i == (b >> 1)) word = sum[i];
+        o[b] = (int)(word >> ((b & 1) * 16) & 0xFFFFu);
+      }
+    }
+    return;
   }
+  int a0, a1;
+  repro::block_bins<MODE == kMatch>(cnt, sh, n_levels, a0, a1);
+  int* o = out + (long long)tile * n_levels;
+  if constexpr (ROUTE == kCluster) {
+    repro::cluster_store(a0, a1, n_levels, o);
+  } else if (threadIdx.x < 32) {
+    if (lane < n_levels) o[lane] = a0;
+    if (lane + 32 < n_levels) o[lane + 32] = a1;
+  }
+}
+
+int pow2_at_least(long long v) {
+  int p = 1;
+  while (p < v && p < (1 << 30)) p *= 2;
+  return p;
 }
 
 }  // namespace
@@ -175,27 +323,81 @@ extern "C" int repro_index_histogram_tiles(const void* idx, int C, int inner,
       n_sblocks <= 0 || n_tiles % n_sblocks || max_tile <= 0 ||
       n_levels < 1 || n_levels > kHistWidth)
     return (int)cudaErrorInvalidValue;
-  int chunks = (max_tile + kChunk - 1) / kChunk;
-  long long blocks = (long long)n_tiles * chunks;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (chunks > 1) {
-    cudaError_t e = cudaMemsetAsync(
-        out, 0, (size_t)n_tiles * n_levels * sizeof(int), s);
-    if (e != cudaSuccess) return (int)e;
+  // G threads a tile, ~kTileElemsPerThread indices each
+  // a full group's channels and the longest band's positions (with one
+  // band: every position, the kernel's k1)
+  const int gsc = group_size < C ? group_size : C;
+  const long long max_len = (max_tile + gsc - 1) / gsc;
+  long long want = (max_tile + kTileElemsPerThread - 1) / kTileElemsPerThread;
+  TileWalk walk{};
+  int route, threads;
+  long long blocks;
+  if (want <= 32) {
+    route = kWarp;
+    walk.G = 32;
+    threads = kWarpBlock;
+    blocks = (n_tiles + kWarpBlock / 32 - 1) / (kWarpBlock / 32);
+  } else if (want <= kHistThreads) {
+    route = kBlock;
+    walk.G = pow2_at_least(want < 64 ? 64 : want);
+    threads = walk.G;
+    blocks = n_tiles;
+  } else {
+    route = kCluster;
+    threads = kHistThreads;
+    walk.G = repro::kClusterBlocks * kHistThreads;
+    blocks = (long long)n_tiles * repro::kClusterBlocks;
   }
-  index_histogram_tiles_kernel<<<(unsigned)blocks, kThreads, 0, s>>>(
-      (const int*)idx, C, inner, group_size, n_sblocks, (const int*)bounds,
-      (const int*)perm, n_levels, chunks, (int*)out);
-  return (int)cudaGetLastError();
+  walk.chan_fast = inner == 1;
+  if (walk.chan_fast) {
+    int wc = pow2_at_least(gsc);
+    walk.W = wc < walk.G ? wc : walk.G;
+    if (walk.W > 32) walk.W = 32;
+    walk.R = walk.G / walk.W;
+  } else {
+    int rc = (int)pow2_at_least(max_len);
+    walk.R = rc < walk.G ? rc : walk.G;
+    walk.W = walk.G / walk.R;
+  }
+  walk.lc = (gsc + walk.W - 1) / walk.W;
+  auto log2i = [](int v) { int l = 0; while ((1 << l) < v) ++l; return l; };
+  walk.lw = log2i(walk.W);
+  walk.lr = log2i(walk.R);
+  const bool flat = inner == 1 && perm == nullptr;
+  // the most a thread counts: its 16-bit fields hold kCountsPerThread
+  const long long per_thread = (max_len + walk.R - 1) / walk.R * walk.lc;
+  int mode = n_levels <= 4 ? kCount8 : n_levels <= 16 ? kCount16 : kMatch;
+  if (per_thread > repro::kCountsPerThread) mode = kMatch;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  repro::FastDiv fd = repro::make_fast_div((unsigned)inner);
+#define REPRO_TILES(MODE, ROUTE)                                              \
+  e = repro::launch_grid(                                                    \
+      flat ? &index_histogram_tiles_kernel<MODE, ROUTE, true>                 \
+           : &index_histogram_tiles_kernel<MODE, ROUTE, false>,               \
+      blocks, threads, ROUTE == kCluster, (cudaStream_t)stream,               \
+      (const int*)idx, C, inner, fd, group_size, n_tiles, n_sblocks,          \
+      (const int*)bounds, (const int*)perm, (int)max_len, n_levels, walk,     \
+      (int*)out)
+#define REPRO_TILES_ROUTE(MODE)                                               \
+  if (route == kWarp) { REPRO_TILES(MODE, kWarp); }                           \
+  else if (route == kBlock) { REPRO_TILES(MODE, kBlock); }                    \
+  else { REPRO_TILES(MODE, kCluster); }
+  cudaError_t e;
+  if (mode == kCount8) { REPRO_TILES_ROUTE(kCount8); }
+  else if (mode == kCount16) { REPRO_TILES_ROUTE(kCount16); }
+  else { REPRO_TILES_ROUTE(kMatch); }
+#undef REPRO_TILES_ROUTE
+#undef REPRO_TILES
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }
 
 // rows: scratch of rows_cap * kHistWidth int32 (one row per block of the
-// many-block route).
+// many-block route); ticket: the stream's zeroed word (store_histogram).
 extern "C" int repro_index_histogram(const void* idx, long long n,
                                      int n_levels, void* hist, void* rows,
-                                     long long rows_cap, void* stream) {
-  if (n <= 0 || n_levels < 1 || n_levels > kHistWidth)
+                                     long long rows_cap, void* ticket,
+                                     void* stream) {
+  if (n <= 0 || n_levels < 1 || n_levels > kHistWidth || ticket == nullptr)
     return (int)cudaErrorInvalidValue;
   int sms = repro::sm_count();
   if (sms <= 0) return (int)cudaErrorInvalidDevice;
@@ -209,6 +411,7 @@ extern "C" int repro_index_histogram(const void* idx, long long n,
                                  : index_histogram_kernel<kMatch>;
   cudaError_t e = repro::launch_grid(
       kernel, g.blocks, kHistThreads, g.cluster, (cudaStream_t)stream,
-      (const int*)idx, n, vec, n_levels, g.cluster, (int*)hist, (int*)rows);
+      (const int*)idx, n, vec, n_levels, g.cluster, (int*)hist, (int*)rows,
+      (unsigned*)ticket);
   return (int)(e != cudaSuccess ? e : cudaGetLastError());
 }

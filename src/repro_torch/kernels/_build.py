@@ -39,12 +39,14 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
     "repro_clip_quant": (_P, _I, _L, _F, _F, _F, _F, _I, _P, _P, _P, _P, _L,
-                         _P),
+                         _P, _P),
+    "repro_clip_quant_pack": (_P, _I, _L, _F, _F, _F, _I, _I, _P, _P, _P,
+                              _L, _P, _P),
     "repro_clip_quant_tiles": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                                _P, _P, _P),
     "repro_encode_tiles": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
                            _P, _P),
-    "repro_index_histogram": (_P, _L, _I, _P, _P, _L, _P),
+    "repro_index_histogram": (_P, _L, _I, _P, _P, _L, _P, _P),
     "repro_index_histogram_tiles": (_P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                                     _P, _P),
     "repro_rans_step": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
@@ -170,6 +172,29 @@ def hist_rows(n: int, device) -> torch.Tensor:
     kernel writes every entry it reads; allocating launches nothing)."""
     rows = max(_HIST_MIN_ROWS, -(-n // _HIST_LEVELS_PER_BLOCK))
     return torch.empty((rows, 64), dtype=torch.int32, device=device)
+
+
+# (device index, stream handle) -> the stream's ticket word
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def hist_ticket(device) -> torch.Tensor:
+    """The zeroed ticket word of the cross-block histogram
+    (csrc/common.cuh store_histogram) for the current stream of
+    ``device``.  Made and zeroed on that stream the first time it asks,
+    then kept: the kernel's last block resets it, so each launch finds
+    it at 0, launches on one stream take it in turn and launches on two
+    streams never share it.  Later calls launch nothing."""
+    device = torch.device(device)
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(),
+           torch.cuda.current_stream(device).cuda_stream)
+    with _lock:
+        word = _TICKETS.get(key)
+        if word is None:
+            word = _TICKETS[key] = torch.zeros(1, dtype=torch.int32,
+                                               device=device)
+    return word
 
 
 def check_numel(name: str, t: torch.Tensor) -> None:

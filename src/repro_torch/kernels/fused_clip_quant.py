@@ -10,7 +10,11 @@ Three kernels, each beside its plain torch version:
   indices (``want_hist=True``), the rate estimate the ``codec=`` hookup
   and the split runtime's crossing take, so they launch no index
   histogram after it.  Source: ``csrc/fused_clip_quant.cu``
-  ``repro_clip_quant``.
+  ``repro_clip_quant``.  :func:`clip_quant_pack` is the same launch
+  writing the indices bit-packed to the wire width in place of the int32
+  indices, with the histogram: the packed split runtime's crossing,
+  which so launches no pack kernel (#9) after it.  Source:
+  ``repro_clip_quant_pack``.
 * :func:`clip_quant_tiles` replaces ``_kernel_tiles``
   (``clip_quant_tiles_2d``, ``clip_quant_rows_2d``): the same with one
   range per :class:`~repro_torch.core.tiling.TilePlan` tile, the
@@ -135,8 +139,60 @@ def clip_quant_2d(x: torch.Tensor, cmin: float, cmax: float,
                   _build.DTYPE_CODES[x.dtype], x.numel(), float(lo),
                   float(hi), float(scale), float(inv), n_levels,
                   idx.data_ptr(), _build.ptr(deq), _build.ptr(hist),
-                  _build.ptr(rows), 0 if rows is None else rows.shape[0])
+                  _build.ptr(rows), 0 if rows is None else rows.shape[0],
+                  _build.hist_ticket(x.device).data_ptr() if want_hist
+                  else None)
     return out + ((hist,) if want_hist else ())
+
+
+# -- kernel 1 packing: per-tensor clip + quantize + bit-pack + histogram -------
+
+def clip_quant_pack_plain(x: torch.Tensor, cmin: float, cmax: float,
+                          n_levels: int, bits: int):
+    """Plain torch version of :func:`clip_quant_pack`: the plain quantizer,
+    then :func:`~repro_torch.kernels.pack_bits.pack_bits_plain` and the
+    plain index histogram."""
+    from .pack_bits import pack_bits_plain
+    from .rate_hist import index_histogram_plain
+    idx, _ = clip_quant_plain(x, cmin, cmax, n_levels, want_deq=False)
+    return (pack_bits_plain(idx.reshape(-1), bits),
+            index_histogram_plain(idx, n_levels))
+
+
+def clip_quant_pack(x: torch.Tensor, cmin: float, cmax: float,
+                    n_levels: int, bits: int):
+    """Fused clip+quantize+bit-pack+histogram of ``x`` (any shape), one
+    launch on the card: the indices leave the launch only as wire bytes.
+
+    Returns (packed uint8 of ``ceil(n / (8 // bits))`` bytes, the flat
+    indices' layout of :func:`~repro_torch.kernels.pack_bits.pack_bits`;
+    (n_levels,) int32 histogram of the indices).  ``bits`` is 1, 2 or 4,
+    with ``n_levels <= 2 ** bits`` (every index fits its lane) and
+    ``n_levels <= 64``."""
+    from .pack_bits import PACK_BITS
+    if bits not in PACK_BITS:
+        raise ValueError(f"packable bit widths are 1/2/4, got {bits}")
+    if not 2 <= n_levels <= min(HIST_WIDTH, 1 << bits):
+        raise ValueError(f"n_levels {n_levels} does not fit {bits}-bit "
+                         f"lanes and a {HIST_WIDTH}-bin histogram")
+    if _on_cpu(x):
+        return clip_quant_pack_plain(x, cmin, cmax, n_levels, bits)
+    _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
+    n = x.numel()
+    per = 8 // bits
+    packed = torch.empty(-(-n // per), dtype=torch.uint8, device=x.device)
+    if n == 0:
+        return packed, torch.zeros(n_levels, dtype=torch.int32,
+                                   device=x.device)
+    hist = torch.empty(n_levels, dtype=torch.int32, device=x.device)
+    rows = _build.hist_rows(n, x.device)
+    lo, hi, scale, _ = range_scalars(cmin, cmax, n_levels)
+    _build.launch("clip_quant", "repro_clip_quant_pack", x.data_ptr(),
+                  _build.DTYPE_CODES[x.dtype], n, float(lo), float(hi),
+                  float(scale), n_levels, bits, packed.data_ptr(),
+                  hist.data_ptr(), rows.data_ptr(), rows.shape[0],
+                  _build.hist_ticket(x.device).data_ptr())
+    return packed, hist
 
 
 # -- kernel 2: per-tile clip + quantize + dequantize ---------------------------

@@ -24,8 +24,8 @@ import torch
 
 from ..core.tiling import PaddedLayout, TilePlan
 from .ecsq_assign import ecsq_assign, ecsq_assign_tiles
-from .fused_clip_quant import (clip_quant_2d, clip_quant_tiles,
-                               encode_tiles_2d, pack_width)
+from .fused_clip_quant import (clip_quant_2d, clip_quant_pack,
+                               clip_quant_tiles, encode_tiles_2d, pack_width)
 from .pack_bits import PACK_BITS, pack_bits
 from .rate_hist import index_histogram_2d, index_histogram_tiles
 
@@ -172,6 +172,13 @@ def clip_quantize(x: torch.Tensor, *, cmin: float, cmax: float,
     as it is: no padded view."""
     return clip_quant_2d(x.contiguous(), cmin, cmax, n_levels,
                          want_deq=want_deq, want_hist=want_hist)
+
+
+def clip_quantize_pack(x: torch.Tensor, *, cmin: float, cmax: float,
+                       n_levels: int, bits: int):
+    """Fused clip+quantize+bit-pack+histogram: (packed uint8 wire bytes of
+    the flat indices, (n_levels,) histogram), one launch on the card."""
+    return clip_quant_pack(x.contiguous(), cmin, cmax, n_levels, bits)
 
 
 def clip_quantize_tiled(x: torch.Tensor, lo, hi, *, n_levels: int,

@@ -14,8 +14,11 @@ kept, as the reference's kernel does.
 
 Bound by bytes on the card (a 4-byte read per index, a ``1 / per`` byte
 write).  The reference's kernel took an (8, n_bytes) lane view padded to
-the TPU's sublane tile; here one thread packs one byte straight from the
-flat tensor (see the source notes).
+the TPU's sublane tile; here a thread packs four bytes straight from the
+flat tensor, from 16-byte loads, into one 32-bit store (see the source
+notes).  Where the per-tensor quantizer makes the indices, it packs them
+in its own launch instead
+(:func:`~repro_torch.kernels.fused_clip_quant.clip_quant_pack`).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.

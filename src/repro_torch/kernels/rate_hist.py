@@ -12,12 +12,15 @@ rate estimate.  Source:
 ``csrc/rate_hist.cu`` ``repro_index_histogram_tiles``.
 
 Both are bound by bytes on the card (one int32 read per index); at the
-serving sizes the global one is bound by its launch.  A call of it is
-one device operation: no fill, no copy around it.  Its threads count in
-registers; a small input is one block, a decode boundary a cluster of
-eight blocks meeting in shared memory, a larger one many blocks whose
-last to finish sums their rows (see the source note).  The tiled one
-gives each tile its own block.
+serving sizes by their launch.  A call of either is one device
+operation: no fill, no copy around it.  Threads count in registers.
+The global one takes one block for a small input, a cluster of eight
+blocks meeting in shared memory for a decode boundary, and for a larger
+one many blocks whose last to finish sums their rows, through the
+current stream's ticket word (:func:`~repro_torch.kernels._build.
+hist_ticket`), so calls on several streams may run at once.  The tiled
+one gives each tile a warp, a block or a cluster of eight blocks, by
+tile size, and stores every bin once (see the source note).
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -57,7 +60,8 @@ def index_histogram_2d(idx: torch.Tensor, n_levels: int) -> torch.Tensor:
     rows = _build.hist_rows(idx.numel(), idx.device)
     _build.launch("index_histogram", "repro_index_histogram",
                   idx.data_ptr(), idx.numel(), n_levels, hist.data_ptr(),
-                  rows.data_ptr(), rows.shape[0])
+                  rows.data_ptr(), rows.shape[0],
+                  _build.hist_ticket(idx.device).data_ptr())
     return hist
 
 

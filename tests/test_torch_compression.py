@@ -213,15 +213,22 @@ def _tree(ref: dict, layers: int) -> dict:
 @dataclasses.dataclass
 class RecordingCodec(FeatureCodec):
     """The port's codec, keeping what its split step sends: the boundary
-    activations it quantizes and the payload (packed bytes, or the
-    indices at full width)."""
+    activations it quantizes, the payload (packed bytes, or the indices
+    at full width), and whether the quantizer packed them itself."""
 
     sent: list = dataclasses.field(default_factory=list)
 
     def quantize_with_rate(self, x, want_deq=False):
         idx, deq, rate = super().quantize_with_rate(x, want_deq)
-        self.sent.append({"y": x.numpy().copy(), "payload": idx.numpy()})
+        self.sent.append({"y": x.numpy().copy(), "payload": idx.numpy(),
+                          "fused": False})
         return idx, deq, rate
+
+    def quantize_packed_with_rate(self, x):
+        packed, rate = super().quantize_packed_with_rate(x)
+        self.sent.append({"y": x.numpy().copy(), "payload": packed.numpy(),
+                          "fused": True})
+        return packed, rate
 
     def pack(self, idx):
         out = super().pack(idx)
@@ -300,6 +307,10 @@ def test_split_runtime_matches_reference(reference, monkeypatch, layers,
             ref["tokens"][pos]), caches, pos)
         if transport != "raw":
             sent = codec.sent[pos]
+            # per-tensor codecs of a 1/2/4-bit width pack in the
+            # quantizer's pass; the others pack after it, or not at all
+            assert sent["fused"] == (case in ("packed-2", "packed-4",
+                                              "packed-16"))
             np.testing.assert_allclose(sent["y"], ref["y"][pos], rtol=0,
                                        atol=1e-5)
             if not _same_or_at_edge(sent["payload"], ref["payload"][pos],

@@ -12,6 +12,7 @@ bit-identical).
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -54,15 +55,24 @@ HIST_SIZES = [1, 16384, 70001, 1 << 20]
 
 def _device_ops(fn) -> list[str]:
     """Names of the device operations (kernels, copies, fills) ``fn``
-    puts on the card, from ``torch.profiler``."""
+    puts on the card, from ``torch.profiler``: the session padded by 20 ms
+    of host time on each side of the call, and taken again (three in all)
+    where it recorded no device event at all, as a short session on torch
+    2.11 at times did."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            return names
+    return []
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -148,6 +158,94 @@ def test_clip_quant_with_histogram(dev, n, n_levels, dtype):
     want = fcq.clip_quant_plain(x[1:], lo, hi, n_levels, want_hist=True)
     assert all(torch.equal(a, b) for a, b in zip(shifted, want))
     assert int(top[2][-1]) == n and int(top[2].sum()) == n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_levels,bits", [(2, 1), (3, 2), (4, 2), (16, 4),
+                                           (2, 2), (4, 4)])
+@pytest.mark.parametrize("n", [1, 7, 16384, 70001, 1 << 20])
+def test_clip_quant_pack(dev, n, n_levels, bits, dtype):
+    """#1's packing variant on every route of its histogram, on views that
+    are not aligned (all scalar) and values outside the clip range: the
+    plain version's bytes and bins, one launch of #1, no pack kernel, one
+    device operation."""
+    x = _x(dev, n + 1, seed=n_levels, dtype=dtype) * 1.5
+    lo, hi = -1.5, 2.75
+    before = dict(_build.LAUNCHES)
+    got = fcq.clip_quant_pack(x[:n], lo, hi, n_levels, bits)
+    shifted = fcq.clip_quant_pack(x[1:], lo, hi, n_levels, bits)
+    assert _advanced(before, clip_quant=2, pack_bits=0, index_histogram=0)
+    for out, xs in ((got, x[:n]), (shifted, x[1:])):
+        want = fcq.clip_quant_pack_plain(xs, lo, hi, n_levels, bits)
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+        idx = fcq.clip_quant_plain(xs, lo, hi, n_levels)[0]
+        assert torch.equal(out[0], pack_bits.pack_bits(idx, bits))
+    names = _device_ops(lambda: fcq.clip_quant_pack(x[:n], lo, hi, n_levels,
+                                                    bits))
+    assert len(names) == 1 and "clip_quant_pack" in names[0], names
+
+
+def test_clip_quant_pack_refuses_what_does_not_fit(dev):
+    x = _x(dev, 64)
+    with pytest.raises(ValueError, match="does not fit"):
+        fcq.clip_quant_pack(x, -1.0, 1.0, 64, 4)        # 6-bit indices
+    with pytest.raises(ValueError, match="1/2/4"):
+        fcq.clip_quant_pack(x, -1.0, 1.0, 64, 8)
+    codec = calibrate(CodecConfig(n_levels=64, clip_mode="manual",
+                                  manual_cmin=-1.0, manual_cmax=1.0,
+                                  backend="cuda"))
+    assert not codec.packs_in_quantizer()
+    with pytest.raises(ValueError, match="packs per-tensor uniform"):
+        codec.quantize_packed_with_rate(x)
+
+
+def test_quantize_packed_with_rate_on_card(dev):
+    """The codec's packing pass against the two-launch path on the same
+    boundary tensors: the bytes of ``pack(quantize(x))`` and its rate,
+    exactly."""
+    for n_levels in (2, 3, 4, 16):
+        codec = calibrate(CodecConfig(n_levels=n_levels, clip_mode="manual",
+                                      manual_cmin=-2.0, manual_cmax=2.5,
+                                      backend="cuda"))
+        for shape in [(4, 1, 4096), (4, 64, 4096), (3, 5, 7)]:
+            x = _x(dev, int(np.prod(shape)),
+                   dtype=torch.bfloat16).reshape(shape)
+            idx, _, rate2 = codec.quantize_with_rate(x)
+            packed, rate = codec.quantize_packed_with_rate(x)
+            assert torch.equal(packed, codec.pack(idx.reshape(-1)))
+            assert float(rate) == float(rate2)
+
+
+def test_histograms_on_two_streams(dev):
+    """Interleaved launches of #4 (2^20 and 2^22 indices) and #1 with its
+    histogram (2^20 values), 50 each on each of two side streams with no
+    sync between them: every bin exact, so the streams' ticket words do
+    not meet."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    idx = [torch.randint(0, 16, (n,), device=dev, generator=g,
+                         dtype=torch.int32) for n in (1 << 20, 1 << 22)]
+    x = _x(dev, 1 << 20, seed=16, dtype=torch.bfloat16)
+    want = [rate_hist.index_histogram_plain(i, 16) for i in idx]
+    want_q = fcq.clip_quant_plain(x, -1.5, 2.75, 4, want_deq=False,
+                                  want_hist=True)[2]
+    streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    out = {s: [] for s in range(2)}
+    for _ in range(50):
+        for s, stream in enumerate(streams):
+            with torch.cuda.stream(stream):
+                out[s].append((
+                    ops.index_histogram(idx[0], n_levels=16),
+                    ops.index_histogram(idx[1], n_levels=16),
+                    fcq.clip_quant_2d(x, -1.5, 2.75, 4, want_deq=False,
+                                      want_hist=True)[2]))
+    torch.cuda.synchronize()
+    tickets = {(dev.index or 0, st.cuda_stream) for st in streams}
+    assert tickets <= set(_build._TICKETS)
+    for s in range(2):
+        for h0, h1, hq in out[s]:
+            assert torch.equal(h0, want[0]) and torch.equal(h1, want[1])
+            assert torch.equal(hq, want_q)
 
 
 def test_rate_paths_count_in_the_quantizer(dev):
@@ -313,8 +411,63 @@ def test_clip_quant_tiles_and_tile_histogram(dev, name, n_levels, dtype):
     assert _advanced(before, clip_quant_tiles=1, index_histogram_tiles=1)
 
 
+# (shape, channel_axis, channel_group, spatial_block, block_hw): plans whose
+# tiles take each route of #5 -- a warp (the decode boundary), a
+# block (the prefill boundary), a cluster (the large tiles below) -- with
+# channels innermost or not, 2-D plans through perm, ragged edge tiles
+TILE_ROUTES = {
+    "decode-g8": ((4, 1, 4096), -1, 8, 0, None),
+    "prefill-g8": ((4, 64, 4096), -1, 8, 0, None),
+    "g8-short-group": ((2, 9, 1001), -1, 8, 0, None),
+    "g64-block": ((32, 128), -1, 64, 0, None),
+    "conv-inner": ((2, 32, 28, 28), 1, 3, 0, None),
+    "conv-inner-block": ((2, 16, 20, 20), 1, 2, 0, None),
+    "conv-2d-perm": ((2, 32, 28, 28), 1, 3, 0, (5, 6)),
+    "conv-2d-big": ((4, 8, 64, 64), 1, 8, 0, (40, 24)),
+    "tile-1d": ((1000, 64), -1, 4, 300, None),
+    "cluster": ((700, 128), -1, 64, 0, None),
+}
+
+
+def _route_plan(name):
+    shape, axis, gc, bs, bhw = TILE_ROUTES[name]
+    c = shape[axis]
+    m = int(np.prod(shape)) // c
+    kw = dict(channel_axis=axis, channel_group_size=gc, n_channels=c)
+    if bhw is not None:
+        kw.update(spatial_block_size=0, spatial_extent=m,
+                  spatial_hw=spatial_grid(shape, axis),
+                  spatial_block_hw=bhw)
+    else:
+        kw.update(spatial_block_size=bs, spatial_extent=m if bs else None)
+    return shape, TilePlan(**kw)
+
+
+@pytest.mark.parametrize("n_levels", [2, 3, 4, 16, 17, 64])
+@pytest.mark.parametrize("name", list(TILE_ROUTES))
+def test_tile_histogram_routes(dev, name, n_levels):
+    """#5 against its plain version on every route, with values outside
+    [0, N) and on a view that is not 16-byte aligned: one launch and one
+    device operation a call, every tile's bins stored."""
+    shape, plan = _route_plan(name)
+    g = torch.Generator(device=dev).manual_seed(n_levels)
+    n = int(np.prod(shape))
+    flat = torch.randint(-2, n_levels + 2, (n + 1,), device=dev, generator=g,
+                         dtype=torch.int32)
+    maps = fcq.tile_maps(plan, shape, dev)
+    for idx in (flat[:n].view(shape), flat[1:].view(shape)):
+        before = dict(_build.LAUNCHES)
+        got = rate_hist.index_histogram_tiles(idx, n_levels, plan)
+        assert _advanced(before, index_histogram_tiles=1)
+        assert torch.equal(got, rate_hist.index_histogram_tiles_plain(
+            idx, n_levels, maps))
+    names = _device_ops(lambda: rate_hist.index_histogram_tiles(
+        flat[:n].view(shape), n_levels, plan))
+    assert len(names) == 1 and "index_histogram_tiles" in names[0], names
+
+
 def test_tile_histogram_of_large_tiles(dev):
-    """Tiles larger than one block's part add their parts atomically."""
+    """Tiles larger than one block's part: a cluster a tile."""
     plan = TilePlan(channel_axis=-1, channel_group_size=64,
                     spatial_block_size=0, n_channels=128)
     g = torch.Generator(device=dev).manual_seed(5)
@@ -532,20 +685,30 @@ def test_encode_tiles_odd_bands(dev, sb_cols, bits):
 
 # -- pack kernel (#9) and the split runtime -----------------------------------
 
-@pytest.mark.parametrize("n", [1, 13, 16384, 1 << 20, (1 << 20) + 7])
+@pytest.mark.parametrize("n", [1, 13, 16384, 16384 + 5, 70001, 1 << 20,
+                               (1 << 20) + 7])
 @pytest.mark.parametrize("bits", [1, 2, 4])
 def test_pack_bits(dev, bits, n):
+    """#9 on whole 32-bit words of 16-byte loads, the scalar tail past
+    them (sizes not a multiple of 4 * 8 / bits) and views that are not
+    16-byte aligned (all scalar): the plain version's bytes, one launch
+    and one device operation a call."""
     g = torch.Generator(device=dev).manual_seed(n)
-    idx = torch.randint(0, 1 << bits, (n,), device=dev, generator=g,
+    idx = torch.randint(0, 1 << bits, (n + 3,), device=dev, generator=g,
                         dtype=torch.int32)
     before = dict(_build.LAUNCHES)
-    got = pack_bits.pack_bits(idx, bits)
-    assert torch.equal(got, pack_bits.pack_bits_plain(idx, bits))
+    got = pack_bits.pack_bits(idx[:n], bits)
+    assert torch.equal(got, pack_bits.pack_bits_plain(idx[:n], bits))
     assert _advanced(before, pack_bits=1)
+    for k in (1, 2, 3):                            # 4, 8, 12 bytes off
+        assert torch.equal(pack_bits.pack_bits(idx[k:k + n], bits),
+                           pack_bits.pack_bits_plain(idx[k:k + n], bits))
     wide = torch.randint(-40, 300, (n,), device=dev, generator=g,
                          dtype=torch.int32)
     assert torch.equal(pack_bits.pack_bits(wide, bits),
                        pack_bits.pack_bits_plain(wide, bits))
+    names = _device_ops(lambda: pack_bits.pack_bits(idx[:n], bits))
+    assert len(names) == 1 and "pack_bits" in names[0], names
 
 
 def test_cuda_backend_pack_indices(dev):
@@ -592,8 +755,8 @@ def test_split_runtime_on_card(dev):
 
     before = dict(_build.LAUNCHES)
     packed = run("packed")
-    # the crossing counts its indices in the quantizer's launch
-    assert _advanced(before, pack_bits=3, clip_quant=3, index_histogram=0)
+    # the crossing packs and counts its indices in the quantizer's launch
+    assert _advanced(before, pack_bits=0, clip_quant=3, index_histogram=0)
     assert torch.equal(packed, run("quantized_f16"))
     cache, tok, unsplit = init_cache(cfg, 4, 16, device=dev), tok0, []
     for pos in range(3):

@@ -170,6 +170,7 @@ def main() -> int:
                     r for r in regs if "histogram_kernel" in r
                     or "clip_quant_kernel" in r))
     s = torch.cuda.current_stream().cuda_stream
+    ticket = _build.hist_ticket(dev).data_ptr()    # this stream's word
     gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for n in SIZES:
@@ -185,7 +186,7 @@ def main() -> int:
 
                 def run(fn=fn, hist=hist, idx=idx, nl=n_levels):
                     assert fn(idx.data_ptr(), n, nl, hist.data_ptr(),
-                              rows.data_ptr(), cap, s) == 0
+                              rows.data_ptr(), cap, ticket, s) == 0
                 run()
                 torch.cuda.synchronize()
                 if k not in DIAG and not torch.equal(hist, want):
@@ -206,7 +207,7 @@ def main() -> int:
                 assert fn(x.data_ptr(), 1, n, float(lo), float(hi),
                           float(sc), float(inv), 4, idx.data_ptr(),
                           deq.data_ptr(), hist.data_ptr(), rows.data_ptr(),
-                          cap, s) == 0
+                          cap, ticket, s) == 0
             run()
             torch.cuda.synchronize()
             if k not in DIAG and not (torch.equal(idx, pi)
