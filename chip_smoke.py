@@ -16,14 +16,19 @@ Phases, in order; any failure raises and exits non-zero:
    exact -- the prefill boundary's 16 rANS chunks coded in one launch
    give the blobs of 16 single-chunk launches; the per-tensor quantizer's
    histogram variants give the index histogram's bins, and its packing
-   variant the pack kernel's bytes; the tile histogram on each of its
-   routes, one device operation a call; the histograms exact on two
-   streams at once; uniform reconstructions within 1 ulp), then each
-   kernel timed at both sizes the serving paths launch it at (for the
-   per-tensor quantizer also with its histogram, with and without the
-   reconstruction, and packing; for the index histogram the whole
-   wrapper call; for the rANS step loop: one chunk, the 16-chunk batch,
-   a decode tensor), beside the plain version's time and the bound (for
+   variant the pack kernel's bytes; the per-tile quantizer (#2) on its
+   fast route (the g=8 boundaries) with and without its reconstruction,
+   counting and packing, and on its element route (the other plans)
+   without it, and the per-tile ECSQ quantizer (#8) likewise and in
+   coded order; the tile histogram on each of its routes, one device
+   operation a call; the histograms exact on two streams at once;
+   uniform reconstructions within 1 ulp, #2's at 0), then each kernel
+   timed at both sizes the serving paths launch it at (for the
+   per-tensor and per-tile quantizers also with their histogram, with
+   and without the reconstruction, and packing; for #8 also indices
+   alone and in coded order; for the index histogram the whole wrapper
+   call; for the rANS step loop: one chunk, the 16-chunk batch, a
+   decode tensor), beside the plain version's time and the bound (for
    the step loop, the larger of its byte bound and its dependent chain:
    the cycles of the step's least dependent chain, measured in this run
    by ``tools/rans_chain_probe.cu``, per step at the top SM clock
@@ -38,12 +43,14 @@ Phases, in order; any failure raises and exits non-zero:
    ECSQ, ``codec=``; (f) per-channel ECSQ g=8, the bitstream hookup.
    Launch counts are reset before and read after each run -- also by
    size, prefill or decode -- and every kernel must have launched on its
-   run; (a) counts its indices in the quantizer's launch and must launch
-   no index histogram, with each boundary's rate equal to the two-launch
-   path's (quantize, then histogram); on the prefill boundary of (b),
-   (d) and (f) the wire's indices must equal the quantizer kernel's.
-   (a) and (b) then run once more under ``torch.profiler`` for the
-   device's busy time and idle share;
+   run; (a) and (c) count their indices in the quantizer's launch and
+   must launch no histogram, with each boundary's rate equal to the
+   two-launch path's (quantize, then histogram); every boundary's
+   payloads of (f), whose ECSQ quantizer writes coded order, equal the
+   parent's route's (quantize, then permute); on the prefill boundary of
+   (b), (d) and (f) the wire's indices must equal the quantizer
+   kernel's.  (a) and (b) then run once more under ``torch.profiler``
+   for the device's busy time and idle share;
 5. split   -- the packed split runtime (``repro_torch.compression.
    split_runtime``) on the same model and weights, split 16 + 16 layers
    with both stages on this card: 4 sequences fed 8 prompt tokens one
@@ -54,17 +61,21 @@ Phases, in order; any failure raises and exits non-zero:
    calibrated in "model" mode from the serve phase's warm-up batches at
    the split runtime's boundary.  (g) must equal the unsplit decode
    step's logits rounded through bfloat16, (h) and (i) must give
-   identical logits; (h), (j) and (k) pack in the quantizer's launch, so
-   the pack kernel must launch once per step of (l) and never in (g)-(k),
-   and their payloads must be the bytes of the pack kernel's path
-   (quantize, then pack); (h)-(k) launch no index histogram and each
-   step's rate equals the two-launch path's.  (h) then runs once more
-   under ``torch.profiler``;
+   identical logits; (h), (j), (k) and (l) pack in the quantizer's
+   launch, so the pack kernel must never launch in (g)-(l), and their
+   payloads must be the bytes of the pack kernel's path (quantize, then
+   pack); (h)-(l) launch no histogram and each step's rate equals the
+   two-launch path's.  (h) then runs once more under ``torch.profiler``.
+   Then (m): the codec calls that still launch the standalone tile
+   histogram and pack -- ``tile_rate_bits`` of a 2-D tile codec,
+   ``pack`` of the per-channel ECSQ codec's indices -- against their
+   plain versions;
 6. launches -- each run's launch counts against the kernels it must
    launch.  The device operations (``torch.profiler``) of one decode
-   crossing of the (a) hookup (``apply_with_rate``) and of the (h) split
-   step's crossing are counted at the end of phase 3: their quantizer,
-   histogram and pack stage must be one operation on each.
+   crossing of the (a) and (c) hookups (``apply_with_rate``) and of the
+   (h) and (l) split steps' crossings are counted at the end of phase 3:
+   their quantizer, histogram and pack stage must be one operation on
+   each.
 
 The line before the last is the per-kernel JSON record (each kernel's
 numbers per size under ``sizes``, with its launches per run at that
@@ -252,7 +263,12 @@ def ecsq_tables(lo: torch.Tensor, hi: torch.Tensor, n_levels: int, dev,
 def tiled_checks(boundary, dev):
     """Exactness sweep of kernels #2, #5, #7 and #8 against their plain
     versions, and of the megakernel's plan route against its CPU plain
-    version; returns #2's worst reconstruction distance in ulps."""
+    version: #2 on its fast route (the g=8 boundaries) with and without
+    the reconstruction, with the per-tile counts and packing them at
+    every width that holds N, and on its element route (the other plans)
+    with and without the reconstruction; #8 likewise, and on its fast
+    route in coded order.  Returns #2's worst reconstruction distance in
+    ulps (each is checked to be 0)."""
     from repro_torch.kernels import ecsq_assign as ea
     from repro_torch.kernels import fused_clip_quant as fcq
     from repro_torch.kernels import ops, rate_hist
@@ -261,20 +277,43 @@ def tiled_checks(boundary, dev):
     worst = 0
     for name, x0, plan in tiled_cases(boundary, dev):
         maps = fcq.tile_maps(plan, x0.shape, dev)
+        fast = fcq.fast_route(maps)
+        check(fast == (name in ("prefill", "decode")),
+              f"{name}: fast route {fast}")
         t_lo, t_hi = tile_ranges(plan, lo, hi, dev, seed=3)
         for dtype in (torch.bfloat16, torch.float32):
             x = x0.to(dtype)
             for n in LEVELS:
                 what = f"{name} {dtype} N={n}"
                 ki, kd = fcq.clip_quant_tiles(x, t_lo, t_hi, n, plan)
-                pi, pd = fcq.clip_quant_tiles_plain(x, t_lo, t_hi, n, maps)
+                pi, pd, ph = fcq.clip_quant_tiles_plain(
+                    x, t_lo, t_hi, n, maps, want_hist=True)
                 check(torch.equal(ki, pi), f"clip_quant_tiles idx {what}")
                 u = ulps(kd, pd)
-                check(u <= 1, f"clip_quant_tiles deq {what}: {u} ulp")
+                check(u == 0, f"clip_quant_tiles deq {what}: {u} ulp")
                 worst = max(worst, u)
+                gi, gd = fcq.clip_quant_tiles(x, t_lo, t_hi, n, plan,
+                                              want_deq=False)
+                check(gd is None and torch.equal(gi, pi),
+                      f"clip_quant_tiles idx only {what}")
+                if fast:
+                    for kw in (dict(), dict(want_deq=False)):
+                        out = fcq.clip_quant_tiles(x, t_lo, t_hi, n, plan,
+                                                   want_hist=True, **kw)
+                        check(torch.equal(out[0], pi)
+                              and (out[1] is None or torch.equal(out[1], pd))
+                              and torch.equal(out[2], ph),
+                              f"clip_quant_tiles +hist {kw} {what}")
+                    for bits in (1, 2, 4):
+                        if n <= 1 << bits:
+                            kp, kh = fcq.clip_quant_tiles_pack(
+                                x, t_lo, t_hi, n, plan, bits)
+                            pp, pph = fcq.clip_quant_tiles_pack_plain(
+                                x, t_lo, t_hi, n, maps, bits)
+                            check(torch.equal(kp, pp) and torch.equal(kh, pph),
+                                  f"clip_quant_tiles +pack {bits} {what}")
                 check(torch.equal(
-                    rate_hist.index_histogram_tiles(ki, n, plan),
-                    rate_hist.index_histogram_tiles_plain(ki, n, maps)),
+                    rate_hist.index_histogram_tiles(ki, n, plan), ph),
                     f"index_histogram_tiles {what}")
                 thr, lvl = ecsq_tables(t_lo, t_hi, n, dev, seed=n)
                 ki, kd = ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl, plan)
@@ -282,6 +321,17 @@ def tiled_checks(boundary, dev):
                                                     maps)
                 check(torch.equal(ki, pi) and torch.equal(kd, pd),
                       f"ecsq_assign_tiles {what}")
+                gi, gd = ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl, plan,
+                                              want_deq=False)
+                check(gd is None and torch.equal(gi, pi),
+                      f"ecsq_assign_tiles idx only {what}")
+                if fast:
+                    check(torch.equal(
+                        ea.ecsq_assign_tiles_coded(x, t_lo, t_hi, thr, lvl,
+                                                   plan),
+                        ea.ecsq_assign_tiles_coded_plain(x, t_lo, t_hi, thr,
+                                                         lvl, maps)),
+                        f"ecsq_assign_tiles coded {what}")
                 thr, lvl = ecsq_tables(torch.tensor(lo, device=dev),
                                        torch.tensor(hi, device=dev), n, dev,
                                        seed=n)
@@ -567,7 +617,10 @@ def size_class(kernel: str, symbol: str, args) -> str:
     class also names what it wrote besides the indices: "" (the
     reconstruction), " +hist" (and the histogram), " idx+hist" (the
     histogram alone) or " idx" (neither); its packing variant " +pack"
-    (packed bytes and the histogram, no indices)."""
+    (packed bytes and the histogram, no indices).  The tiled quantizers
+    name theirs the same way on their fast route (#8: "", " idx", or
+    " coded" for coded order), and " element" (" element idx") on the
+    element route."""
     if symbol == "repro_clip_quant_pack":
         return ("prefill" if args[2] >= 600_000 else "decode") + " +pack"
     if kernel == "clip_quant":
@@ -575,6 +628,18 @@ def size_class(kernel: str, symbol: str, args) -> str:
         return ("prefill" if args[2] >= 600_000 else "decode") + (
             " +hist" if deq and hist else " idx+hist" if hist
             else "" if deq else " idx")
+    if symbol == "repro_clip_quant_tiles_fast":
+        deq, hist = args[10] is not None, args[12] is not None
+        return ("prefill" if args[2] * args[3] >= 600_000 else "decode") + (
+            " +pack" if args[8] else " +hist" if deq and hist
+            else " idx+hist" if hist else "" if deq else " idx")
+    if symbol == "repro_ecsq_assign_tiles_fast":
+        return ("prefill" if args[2] * args[3] >= 600_000 else "decode") + (
+            " coded" if args[12] else "" if args[11] is not None else " idx")
+    if symbol in ("repro_clip_quant_tiles", "repro_ecsq_assign_tiles"):
+        deq = args[12 if kernel == "clip_quant_tiles" else 14] is not None
+        return ("prefill" if args[2] >= 600_000 else "decode") + (
+            " element" if deq else " element idx")
     if kernel == "rans_step":
         n = STEP_INDICES[0]
         return "prefill" if n >= 600_000 else "chunk" if n >= CHUNK \
@@ -866,9 +931,18 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
           "plane build, step loop, words and fetch), eager: "
           + ", ".join(f"{k} {v:.4f} ms" for k, v in dispatch.items()))
 
-    # kernels 2, 5, 7, 8 under the g=8 per-channel plan of runs (c)-(f),
-    # 512 tiles, bf16 in/out
+    # kernels 2, 5, 7, 8 under the g=8 per-channel plan of runs (c)-(f)
+    # and (l), 512 tiles, bf16 in/out.  #2 on its fast route: indices and
+    # reconstruction; with the per-tile counts (" +hist", (c)'s stage);
+    # indices alone (" idx", CudaBackend.quantize); with counts
+    # (" idx+hist"); packed 2-bit with counts (" +pack", (l)'s stage).
+    # #8 on its fast route: indices and reconstruction, indices alone,
+    # indices in coded order (" coded", (f)'s device entropy input); its
+    # library yardstick torch.searchsorted over the channel-major float32
+    # view with the batched (n_tiles, N-1) table.  Bins count 4 B each,
+    # range tables 8 B a tile.
     tiles = plan.n_tiles
+    hist_b = tiles * N_SERVE * 4
     thr1, lvl1 = ecsq_tables(torch.tensor(lo, device=dev),
                              torch.tensor(hi, device=dev), N_SERVE, dev, 7)
     thr, lvl = ecsq_tables(t_lo, t_hi, N_SERVE, dev, 8)
@@ -876,15 +950,36 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
     for size, x in bnd.items():
         n = x.numel()
         maps = fcq.tile_maps(plan, x.shape, dev)
-        ki, kd = fcq.clip_quant_tiles(x, t_lo, t_hi, N_SERVE, plan)
-        pi, pd = fcq.clip_quant_tiles_plain(x, t_lo, t_hi, N_SERVE, maps)
-        s2[size] = dict(
-            kernel=lambda x=x: fcq.clip_quant_tiles(x, t_lo, t_hi, N_SERVE,
-                                                    plan),
-            plain=lambda x=x, m=maps: fcq.clip_quant_tiles_plain(
-                x, t_lo, t_hi, N_SERVE, m),
-            nbytes=n * (2 + 4 + 2) + x.shape[-1] * 4 + tiles * 8,
-            nops=10 * n, err=max(diff(ki, pi), diff(kd, pd)))
+        variants = {"": dict(), " +hist": dict(want_hist=True),
+                    " idx": dict(want_deq=False),
+                    " idx+hist": dict(want_deq=False, want_hist=True)}
+        for tag, kw in variants.items():
+            k_out = fcq.clip_quant_tiles(x, t_lo, t_hi, N_SERVE, plan, **kw)
+            p_out = fcq.clip_quant_tiles_plain(x, t_lo, t_hi, N_SERVE, maps,
+                                               **kw)
+            deq = kw.get("want_deq", True)
+            s2[size + tag] = dict(
+                kernel=lambda x=x, kw=kw: fcq.clip_quant_tiles(
+                    x, t_lo, t_hi, N_SERVE, plan, **kw),
+                plain=lambda x=x, m=maps, kw=kw: fcq.clip_quant_tiles_plain(
+                    x, t_lo, t_hi, N_SERVE, m, **kw),
+                nbytes=n * (2 + 4 + (2 if deq else 0)) + tiles * 8
+                + (hist_b if kw.get("want_hist") else 0),
+                nops=(10 if deq else 6) * n,
+                err=max(diff(a, b) for a, b in zip(k_out, p_out)
+                        if a is not None))
+        kp, kh = fcq.clip_quant_tiles_pack(x, t_lo, t_hi, N_SERVE, plan,
+                                           bits)
+        pp, ph = fcq.clip_quant_tiles_pack_plain(x, t_lo, t_hi, N_SERVE,
+                                                 maps, bits)
+        s2[size + " +pack"] = dict(
+            kernel=lambda x=x: fcq.clip_quant_tiles_pack(
+                x, t_lo, t_hi, N_SERVE, plan, bits),
+            plain=lambda x=x, m=maps: fcq.clip_quant_tiles_pack_plain(
+                x, t_lo, t_hi, N_SERVE, m, bits),
+            nbytes=n * 2 + n // per + tiles * 8 + hist_b, nops=6 * n,
+            err=max(diff(kp, pp), diff(kh, ph)))
+        ki = fcq.clip_quant_tiles(x, t_lo, t_hi, N_SERVE, plan)[0]
         kh = rate_hist.index_histogram_tiles(ki, N_SERVE, plan)
         ph = rate_hist.index_histogram_tiles_plain(ki, N_SERVE, maps)
         s5[size] = dict(
@@ -892,7 +987,7 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
                 i, N_SERVE, plan),
             plain=lambda i=ki, m=maps: rate_hist.index_histogram_tiles_plain(
                 i, N_SERVE, m),
-            nbytes=n * 4 + tiles * N_SERVE * 4, nops=n, err=diff(kh, ph))
+            nbytes=n * 4 + hist_b, nops=n, err=diff(kh, ph))
         # the library yardstick of #7 is torch.bucketize on a float32
         # copy (matching dtypes), indices only
         ki, kd = ea.ecsq_assign(x, thr1, lvl1, lo, hi)
@@ -904,16 +999,35 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
             nbytes=n * (2 + 4 + 2) + (2 * N_SERVE - 1) * 4,
             nops=(N_SERVE + 1) * n, err=max(diff(ki, pi), diff(kd, pd)),
             library=lambda xf=xf32: torch.bucketize(xf, thr1, right=True))
-        ki, kd = ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl, plan)
-        pi, pd = ea.ecsq_assign_tiles_plain(x, t_lo, t_hi, thr, lvl, maps)
-        s8[size] = dict(
-            kernel=lambda x=x: ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl,
-                                                    plan),
-            plain=lambda x=x, m=maps: ea.ecsq_assign_tiles_plain(
+        xcm = fcq.channel_major(x, maps).float().reshape(tiles, -1) \
+            .contiguous()
+        thr2 = thr.reshape(tiles, N_SERVE - 1).contiguous()
+        tab_b = tiles * (2 + 2 * N_SERVE - 1) * 4
+        for tag, kw in {"": dict(), " idx": dict(want_deq=False)}.items():
+            k_out = ea.ecsq_assign_tiles(x, t_lo, t_hi, thr, lvl, plan, **kw)
+            p_out = ea.ecsq_assign_tiles_plain(x, t_lo, t_hi, thr, lvl, maps,
+                                               **kw)
+            s8[size + tag] = dict(
+                kernel=lambda x=x, kw=kw: ea.ecsq_assign_tiles(
+                    x, t_lo, t_hi, thr, lvl, plan, **kw),
+                plain=lambda x=x, m=maps, kw=kw: ea.ecsq_assign_tiles_plain(
+                    x, t_lo, t_hi, thr, lvl, m, **kw),
+                nbytes=n * (2 + 4 + (2 if kw == {} else 0)) + tab_b,
+                nops=(N_SERVE + 1) * n,
+                err=max(diff(a, b) for a, b in zip(k_out, p_out)
+                        if a is not None),
+                library=lambda xc=xcm: torch.searchsorted(thr2, xc,
+                                                          right=True))
+        kc = ea.ecsq_assign_tiles_coded(x, t_lo, t_hi, thr, lvl, plan)
+        pc = ea.ecsq_assign_tiles_coded_plain(x, t_lo, t_hi, thr, lvl, maps)
+        s8[size + " coded"] = dict(
+            kernel=lambda x=x: ea.ecsq_assign_tiles_coded(
+                x, t_lo, t_hi, thr, lvl, plan),
+            plain=lambda x=x, m=maps: ea.ecsq_assign_tiles_coded_plain(
                 x, t_lo, t_hi, thr, lvl, m),
-            nbytes=n * (2 + 4 + 2) + x.shape[-1] * 4
-            + tiles * (2 + 2 * N_SERVE - 1) * 4,
-            nops=(N_SERVE + 1) * n, err=max(diff(ki, pi), diff(kd, pd)))
+            nbytes=n * (2 + 4) + tab_b, nops=(N_SERVE + 1) * n,
+            err=diff(kc, pc),
+            library=lambda xc=xcm: torch.searchsorted(thr2, xc, right=True))
     row("clip_quant_tiles", "fused_clip_quant.cu",
         "src/repro/kernels/fused_clip_quant.py:55", s2)
     row("index_histogram_tiles", "rate_hist.cu",
@@ -1037,7 +1151,7 @@ def serve(dev):
     print("serve warm-up (no codec):")
     S.run(cfg, params, **run_kw)
 
-    rated: list = []
+    rated = {"a": [], "c": []}
     runs = {"a": ("tensor", "codec"), "b": ("tensor", "host"),
             "c": ("channel", "codec"), "d": ("channel", "host"),
             "e": ("ecsq_tensor", "codec"), "f": ("ecsq_channel", "host")}
@@ -1045,8 +1159,8 @@ def serve(dev):
     for run_id, (kind, hookup) in runs.items():
         codec = codecs[kind]
         if hookup == "codec":
-            hookups[run_id] = dict(codec=rate_recorded(codec, rated)
-                                   if run_id == "a" else codec)
+            hookups[run_id] = dict(codec=rate_recorded(codec, rated[run_id])
+                                   if run_id in rated else codec)
             label = "codec= hookup"
         else:
             seen[run_id] = []
@@ -1062,15 +1176,21 @@ def serve(dev):
         counts[run_id] = dict(_build.LAUNCHES)
         RUN_SIZES[run_id] = dict(SIZE_LAUNCHES)
         _check_retired(reqs)
-        if run_id == "a":
-            seen_a = list(rated)
+        if run_id in rated:
+            seen[run_id] = list(rated[run_id])
         tok_s[run_id] = REQUESTS * NEW_TOKENS / dt
         rates[run_id] = float(np.mean(eng.rate_log))
     for run_id in ("a", "b"):
         profiled(f"({run_id})", lambda: S.run(cfg, params, **hookups[run_id],
                                               **run_kw))
-    # one prefill boundary, then NEW_TOKENS - 1 decode boundaries
-    same_rates("(a)", codecs["tensor"], seen_a, NEW_TOKENS)
+    # one prefill boundary, then NEW_TOKENS - 1 decode boundaries; (a) and
+    # (c) count their indices in the quantizer's launch
+    same_rates("(a)", codecs["tensor"], seen["a"], NEW_TOKENS)
+    same_rates("(c)", codecs["channel"], seen["c"], NEW_TOKENS)
+    # (f): every boundary's payloads against the parent's route to the
+    # device entropy stage (the element route's indices, reconstruction
+    # written, permuted to coded order by a copy)
+    same_payloads("(f)", codecs["ecsq_channel"], seen["f"])
 
     # the prefill boundary of each bitstream run: the wire's indices
     # against the quantizer kernel's on the same tensor
@@ -1116,7 +1236,75 @@ def serve(dev):
         f"({r}) {runs[r][0]} {'estimated' if runs[r][1] == 'codec' else 'wire'}"
         f" {rates[r]:.4f} bits/element {tok_s[r]:.1f} tok/s" for r in runs)
         + f"; init {init_s:.1f} s")
-    return cfg, params, counts
+    return cfg, params, counts, codecs
+
+
+def same_payloads(label: str, codec, seen: list) -> None:
+    """Each recorded boundary's payloads equal those the parent's route
+    gives (``coded_indices_device`` as the quantize-dequantize kernel's
+    indices permuted to coded order), byte for byte."""
+    from repro_torch.core import backend as B
+
+    def parent_route(self, x, spec, bits):
+        spec = B._normalize(spec)
+        return B._coded_order_device(self.quantize_dequantize(x, spec)[0],
+                                     spec)
+
+    for x, payloads in seen:
+        real = B.CudaBackend.coded_indices_device
+        B.CudaBackend.coded_indices_device = parent_route
+        try:
+            before = list(codec.encode_stream(x, chunk_elems=CHUNK,
+                                              device_entropy=True))
+        finally:
+            B.CudaBackend.coded_indices_device = real
+        check(before == payloads, f"{label} payloads differ from the "
+              "parent's route")
+    print(f"{label}: {len(seen)} boundaries, each boundary's payloads equal "
+          "the parent's route's")
+
+
+def codec_calls(boundary, codecs, dev) -> dict:
+    """Run (m): the codec calls that still launch the standalone tile
+    histogram (#5) and pack (#9) -- ``FeatureCodec.tile_rate_bits`` of a
+    2-D tile codec on the seeded prefill boundary (its quantizer takes the
+    element route), and ``FeatureCodec.pack`` of the per-channel ECSQ
+    codec's indices of the decode boundary -- each against its two-step
+    definition.  Returns the run's launch counts."""
+    from repro_torch.core import CodecConfig, calibrate
+    from repro_torch.core.rate_model import estimated_bits_from_tile_hists
+    from repro_torch.kernels import _build, pack_bits, rate_hist
+    from repro_torch.kernels import fused_clip_quant as fcq
+    pre, dec = boundary["prefill"], boundary["decode"]
+    tile2d = calibrate(CodecConfig(
+        n_levels=N_SERVE, clip_mode="minmax", constrain_cmin_zero=False,
+        granularity="tile", channel_axis=-1, channel_group_size=GROUP,
+        spatial_block_hw=(2, 16), backend="cuda"),
+        pre.float().cpu().numpy())
+    check(tile2d.plan.is_2d, "(m) tile codec plan")
+    ecsq = codecs["ecsq_channel"]
+    _build.reset_launches()
+    SIZE_LAUNCHES.clear()
+    bits_2d = tile2d.tile_rate_bits(pre)
+    idx = ecsq.quantize(dec)
+    packed = ecsq.pack(idx)
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    RUN_SIZES["m"] = dict(SIZE_LAUNCHES)
+    q2 = tile2d.quantize(pre)
+    want = estimated_bits_from_tile_hists(
+        rate_hist.index_histogram_tiles_plain(
+            q2, N_SERVE, fcq.tile_maps(tile2d.plan, pre.shape, dev)),
+        N_SERVE, per_tile=True)
+    check(torch.equal(bits_2d, want), "(m) tile_rate_bits")
+    check(torch.equal(packed, pack_bits.pack_bits_plain(
+        idx.reshape(-1), ecsq.bits_per_index())), "(m) pack")
+    print(f"codec calls (m): tile_rate_bits of a 2-D tile codec "
+          f"({tile2d.plan.n_tiles} tiles) on the prefill boundary, pack of "
+          "the per-channel ECSQ codec's decode indices: launches "
+          + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    return counts
+
 
 
 # -- phase 5: the packed split runtime -------------------------------------------
@@ -1265,6 +1453,7 @@ def split_phase(cfg, params, dev) -> dict:
         check(set(sent) == {want}, f"({run_id}) link bytes {set(sent)} != "
               f"{want}")
         fused = transport == "packed" and codec.packs_in_quantizer()
+        check(fused == (run_id in "hjkl"), f"({run_id}) fused {fused}")
         packs = counts[run_id]["pack_bits"]
         check(packs == (steps if transport == "packed" and not fused
                         else 0),
@@ -1294,9 +1483,9 @@ def split_phase(cfg, params, dev) -> dict:
           "(h) and (i) must give identical logits and tokens: the pack is "
           "lossless")
     print("split checks: (g) equals the unsplit decode; (h) and (i) "
-          "identical; (h), (j), (k) pack in the quantizer's launch, each "
-          "payload the bytes of quantize, then pack; pack_bits launched "
-          "once per step of (l) and never in (g)-(k)")
+          "identical; (h), (j), (k) and (l) pack in the quantizer's launch, "
+          "each payload the bytes of quantize, then pack; pack_bits never "
+          "launched in (g)-(l)")
     return counts
 
 
@@ -1370,49 +1559,62 @@ def device_ops(fn) -> list[str]:
 
 
 def crossing_ops(boundary, dev) -> dict:
-    """Device operations of one decode crossing of the (a) hookup
-    (``apply_with_rate``) and of the (h) split step (its crossing, from
-    the step's closure), a per-tensor N=4 codec at the boundary's range on
-    the seeded decode boundary: the quantizer, histogram and pack stage,
-    and the whole call.  Counted before the serving runs: on torch 2.11 a
-    profiler session after their long profiles recorded none of this
-    library's kernels (PERF.md)."""
+    """Device operations of one decode crossing of the (a) and (c) hookups
+    (``apply_with_rate``) and of the (h) and (l) split steps (their
+    crossing, from the step's closure) -- a per-tensor and a per-channel
+    g=8 N=4 codec at the boundary's range on the seeded decode boundary:
+    the quantizer, histogram and pack stage, and the whole call.  Counted
+    before the serving runs: on torch 2.11 a profiler session after their
+    long profiles recorded none of this library's kernels (PERF.md)."""
     import inspect
     from repro_torch.compression import split_runtime as SR
     from repro_torch.configs import get_config
     from repro_torch.core import CodecConfig, calibrate
 
     def short(names):
-        keys = ("clip_quant_pack", "clip_quant", "index_histogram",
-                "pack_bits")
+        keys = ("clip_quant_tiles", "clip_quant_pack", "clip_quant",
+                "index_histogram_tiles", "index_histogram", "pack_bits")
         return [next((k for k in keys if k in nm), nm[:40]) for nm in names]
 
     lo, hi = boundary["range"]
-    codec = calibrate(CodecConfig(n_levels=N_SERVE, clip_mode="manual",
-                                  manual_cmin=lo, manual_cmax=hi,
-                                  backend="cuda"))
-    spec, x = codec.spec(), boundary["decode"]
-    step = SR.make_split_decode_step(get_config("codeqwen1.5-7b"), codec,
-                                     transport="packed", edge_device=dev,
-                                     cloud_device=dev)
-    cross = inspect.getclosurevars(inspect.unwrap(step)).nonlocals["cross"]
-
-    def stage_h():
-        return codec.backend.quantize_packed_with_histogram(
-            x, spec, codec.bits_per_index())
-
+    x = boundary["decode"]
+    tensor = calibrate(CodecConfig(n_levels=N_SERVE, clip_mode="manual",
+                                   manual_cmin=lo, manual_cmax=hi,
+                                   backend="cuda"))
+    # per-channel g=8: ranges of the seeded boundary's channel groups
+    channel = calibrate(CodecConfig(
+        n_levels=N_SERVE, clip_mode="minmax", constrain_cmin_zero=False,
+        granularity="channel", channel_axis=-1, channel_group_size=GROUP,
+        backend="cuda"), boundary["prefill"].float().reshape(
+            -1, x.shape[-1]).cpu().numpy())
+    out = {}
     with torch.inference_mode():
-        out = {"a": {"stage": short(device_ops(
-                   lambda: codec.backend.quantize_with_histogram(
-                       x, spec, want_deq=True))),
-                     "whole_apply_with_rate": len(device_ops(
-                         lambda: codec.apply_with_rate(x)))},
-               "h": {"stage": short(device_ops(stage_h)),
-                     "whole_crossing": len(device_ops(lambda: cross(x)))}}
-    check(out["a"]["stage"] == ["clip_quant"],
-          f"(a) quantizer + histogram stage: {out['a']['stage']}")
-    check(out["h"]["stage"] == ["clip_quant_pack"],
-          f"(h) quantizer + histogram + pack stage: {out['h']['stage']}")
+        for (hookup, split), codec in (("ah", tensor), ("cl", channel)):
+            spec = codec.spec()
+            step = SR.make_split_decode_step(
+                get_config("codeqwen1.5-7b"), codec, transport="packed",
+                edge_device=dev, cloud_device=dev)
+            cross = inspect.getclosurevars(
+                inspect.unwrap(step)).nonlocals["cross"]
+            out[hookup] = {
+                "stage": short(device_ops(
+                    lambda c=codec, sp=spec:
+                        c.backend.quantize_with_histogram(x, sp,
+                                                          want_deq=True))),
+                "whole_apply_with_rate": len(device_ops(
+                    lambda c=codec: c.apply_with_rate(x)))}
+            out[split] = {
+                "stage": short(device_ops(
+                    lambda c=codec, sp=spec:
+                        c.backend.quantize_packed_with_histogram(
+                            x, sp, c.bits_per_index()))),
+                "whole_crossing": len(device_ops(lambda f=cross: f(x)))}
+    want = {"a": "clip_quant", "h": "clip_quant_pack",
+            "c": "clip_quant_tiles", "l": "clip_quant_tiles"}
+    for run_id, kernel in want.items():
+        check(out[run_id]["stage"] == [kernel],
+              f"({run_id}) quantizer + histogram (+ pack) stage: "
+              f"{out[run_id]['stage']}")
     print("codec device operations per decode crossing: "
           + json.dumps(out))
     return out
@@ -1518,25 +1720,29 @@ def main() -> int:
     rows = kernel_timings(boundary, dev, sm_mhz, cycles)
 
     # 4. serve
-    cfg, params, counts = serve(dev)
+    cfg, params, counts, codecs = serve(dev)
 
-    # 5. the packed split runtime on the same weights
+    # 5. the packed split runtime on the same weights, then the codec
+    # calls that still launch the standalone tile histogram and pack
     counts.update(split_phase(cfg, params, dev))
+    counts["m"] = codec_calls(boundary, codecs, dev)
 
-    # 6. launch counts of the serving and split runs: each kernel's count
-    # is read from the first run named here, and every kernel must launch
-    # on each run listed for it
+    # 6. launch counts of the serving and split runs and of (m): each
+    # kernel's count is read from the first run named here, and every
+    # kernel must launch on each run listed for it
     runs_of = {"clip_quant": "ahijk", "index_histogram": "e",
                "encode_tiles": "bd", "rans_step": "bdf",
-               "clip_quant_tiles": "cl", "index_histogram_tiles": "cl",
-               "ecsq_assign": "e", "ecsq_assign_tiles": "f",
-               "pack_bits": "l"}
+               "clip_quant_tiles": "clm", "index_histogram_tiles": "m",
+               "ecsq_assign": "e", "ecsq_assign_tiles": "fm",
+               "pack_bits": "m"}
     check(sorted(r_["name"] for r_ in rows) == sorted(runs_of),
           "the kernel table must list every ported kernel")
-    for run_id in "ahijk":      # each counts its indices in the quantizer
-        check(counts[run_id]["index_histogram"] == 0, "index_histogram "
-              f"launched {counts[run_id]['index_histogram']} times on "
-              f"({run_id})")
+    # each counts its indices in the quantizer (and (h)-(l) pack them)
+    for run_id in "ahijkcl":
+        for kernel in ("index_histogram", "index_histogram_tiles",
+                       "pack_bits"):
+            check(counts[run_id][kernel] == 0, f"{kernel} launched "
+                  f"{counts[run_id][kernel]} times on ({run_id})")
     for r_ in rows:
         name_ = r_["name"]
         r_["status"] = port_status(r_["replaces"])
@@ -1547,7 +1753,9 @@ def main() -> int:
         # launches per run at each size class; a row's sizes named after
         # a route ("plan prefill") take the class of their last word
         for size, t in r_["sizes"].items():
-            cls = size if name_ == "clip_quant" else size.split()[-1]
+            cls = size if name_ in ("clip_quant", "clip_quant_tiles",
+                                    "ecsq_assign_tiles") \
+                else size.split()[-1]
             route = runs_of[name_] if name_ != "encode_tiles" else \
                 "d" if size.startswith("plan") else "b"
             t["launches"] = {run_id: RUN_SIZES[run_id].get((name_, cls), 0)

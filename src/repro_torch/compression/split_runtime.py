@@ -12,13 +12,14 @@ payload's ``.to(cloud_device)``.  With both stages on one card it moves
 no bytes, and the payload's size is what a link would carry.
 
 The codec ops route through the codec's backend: on the card the
-quantize is the clip+quant kernel, which for a per-tensor codec also
-counts the indices for the rate estimate in the same launch and writes
-no reconstruction; on the packed transport, for a per-tensor codec of a
-1/2/4-bit wire width, the same launch writes the packed bytes in place
-of the indices (``quantize_packed_with_rate``), so the edge's stage is
-one launch.  A codec with a TilePlan (e.g. ``granularity="channel"``
-over the d_model axis) takes the per-tile clip+quant kernel and then the
+quantize is the clip+quant kernel, which for a per-tensor codec, and for
+a per-channel one with channels last and groups of 8-256 channels (e.g.
+``granularity="channel"`` over the d_model axis at g=8), also counts the
+indices for the rate estimate in the same launch and writes no
+reconstruction; on the packed transport, at a 1/2/4-bit wire width, the
+same launch writes the packed bytes in place of the indices
+(``quantize_packed_with_rate``), so the edge's stage is one launch.
+Other tiled codecs take the per-tile clip+quant kernel, then the
 per-tile index histogram kernel, and on the packed transport the pack
 kernel.  On the CPU the torch formulas.
 

@@ -21,16 +21,20 @@ Backends implement nine primitives over a :class:`QuantSpec`:
     encode_fused(x, spec, bits)   -> (coded-order indices, per-tile hists)
 
 ``quantize_with_histogram`` is the in-graph rate path's single-pass
-contract: for a per-tensor uniform spec of at most
-:data:`~repro_torch.kernels.rate_hist.MAX_LEVELS` levels the CUDA
-backend's one clip+quant launch also counts the indices (and writes no
-reconstruction unless asked); every other spec returns ``None`` for the
-counts, decided from the spec before any launch, and its caller
-histograms the indices itself.  The torch backend makes the same choice.
-``quantize_packed_with_histogram`` goes one step further for the packed
-transport: for those specs at a wire width of 1, 2 or 4 bits
-(:func:`packs_in_quantizer`) the same launch writes the indices as wire
-bytes instead of int32, so no pack runs after it; other specs raise.
+contract: for a uniform spec of at most
+:data:`~repro_torch.kernels.rate_hist.MAX_LEVELS` levels, per tensor or
+under a plan the per-tile quantizer's fast route takes (channels last,
+one spatial block, channel groups of 8-256), the CUDA backend's one
+clip+quant launch also counts the indices -- (N,), or (n_cgroups, 1, N)
+per tile -- and writes no reconstruction unless asked; every other spec
+returns ``None`` for the counts, decided from the spec before any
+launch, and its caller histograms the indices itself.  The torch
+backend makes the same choice.  ``quantize_packed_with_histogram`` goes
+one step further for the packed transport: for those specs at a wire
+width of 1, 2 or 4 bits (:func:`packs_in_quantizer`) the same launch
+writes the indices as wire bytes instead of int32, so no pack runs
+after it; other specs raise.  ``quantize`` writes no reconstruction on
+any spec.
 
 ``encode_fused`` is the host encode path's single-pass contract: on the
 CUDA backend one fused megakernel pass (clip -> quantize -> bit-pack ->
@@ -334,11 +338,15 @@ def _ecsq_qdq(x: torch.Tensor, spec: QuantSpec, want_deq: bool):
 
 def _counts_in_quantizer(spec: QuantSpec) -> bool:
     """Whether ``quantize_with_histogram`` returns counts for ``spec``
-    (normalized): per-tensor uniform, within the histogram kernel's
-    width."""
+    (normalized): uniform, within the histogram kernels' width, per
+    tensor or under a plan the per-tile quantizer's fast route takes
+    (:func:`~repro_torch.kernels.fused_clip_quant.plan_fast_route`:
+    channels last, one spatial block, channel groups of 8-256)."""
+    from ..kernels.fused_clip_quant import plan_fast_route
     from ..kernels.rate_hist import MAX_LEVELS
-    return spec.plan is None and spec.ecsq is None \
-        and spec.n_levels <= MAX_LEVELS
+    if spec.ecsq is not None or spec.n_levels > MAX_LEVELS:
+        return False
+    return spec.plan is None or plan_fast_route(spec.plan)
 
 
 def packs_in_quantizer(spec: QuantSpec, bits: int) -> bool:
@@ -354,12 +362,21 @@ def packs_in_quantizer(spec: QuantSpec, bits: int) -> bool:
 
 def _check_packs(spec: QuantSpec, bits: int) -> None:
     if not packs_in_quantizer(spec, bits):
-        kind = "tile plan" if spec.plan is not None else \
-            "ECSQ" if spec.ecsq is not None else "per-tensor uniform"
+        kind = "ECSQ" if spec.ecsq is not None else \
+            "tile plan" if spec.plan is not None else "per-tensor uniform"
         raise ValueError(
-            "the quantizer packs per-tensor uniform specs of at most 64 "
-            f"levels at 1/2/4 bits; got a {kind} spec of {spec.n_levels} "
-            f"levels at {bits} bits")
+            "the quantizer packs per-tensor uniform specs, and plans "
+            "with channels last, one spatial block and groups of 8-256 "
+            "channels, of at most 64 levels at 1/2/4 bits; got a "
+            f"{kind} spec of {spec.n_levels} levels at {bits} bits")
+
+
+def _counts(backend, idx: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """The counts the quantizer's launch gives, by the backend's own
+    histograms: per tile (n_cgroups, 1, N) for a plan, else (N,)."""
+    if spec.plan is not None:
+        return backend.tile_histogram(idx, spec)
+    return backend.histogram(idx, spec.n_levels)
 
 
 def _tile_histogram(idx: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
@@ -416,7 +433,7 @@ class TorchBackend:
             idx, deq = self.quantize_dequantize(x, spec)
         else:
             idx, deq = self.quantize(x, spec), None
-        hist = self.histogram(idx, spec.n_levels) \
+        hist = _counts(self, idx, spec) \
             if _counts_in_quantizer(spec) else None
         return idx, deq, hist
 
@@ -430,7 +447,7 @@ class TorchBackend:
         _check_packs(spec, bits)
         idx = self.quantize(x, spec)
         return (self.pack_indices(idx.reshape(-1), bits),
-                self.histogram(idx, spec.n_levels))
+                _counts(self, idx, spec))
 
     def dequantize(self, idx, spec: QuantSpec, dtype=torch.float32):
         return _dequantize(_check_cpu(idx), spec, dtype)
@@ -489,12 +506,13 @@ class CudaBackend:
     kernel backend branch for branch, on CUDA tensors).
 
     Quantization runs the per-tensor or per-tile clip+quant kernel, or
-    the per-tensor or per-tile ECSQ assignment kernel (the per-tensor
-    clip+quant kernel also counts its indices for
-    ``quantize_with_histogram``); histograms the global or per-tile index
-    histogram kernel; the fused encode the
-    megakernel over the flat or banded view, plus the device rANS stage;
-    the in-graph pack of 1/2/4-bit indices the pack kernel.  Level counts
+    the per-tensor or per-tile ECSQ assignment kernel (the clip+quant
+    kernels also count, and pack, their indices for the specs
+    :func:`_counts_in_quantizer` takes; the per-tile ECSQ kernel writes
+    coded order for ``coded_indices_device``); histograms the global or
+    per-tile index histogram kernel; the fused encode the megakernel
+    over the flat or banded view, plus the device rANS stage; the
+    in-graph pack of 1/2/4-bit indices the pack kernel.  Level counts
     above a kernel's table width, and pack widths of one index per byte,
     use the torch formulas on the device, exactly where the reference
     uses jnp.
@@ -516,32 +534,32 @@ class CudaBackend:
         return x
 
     def quantize(self, x, spec: QuantSpec):
-        from ..kernels import ops
-        spec = _normalize(spec)
-        if spec.plan is None and spec.ecsq is None:
-            # the per-tensor kernel writes no reconstruction
-            return ops.clip_quantize(self._in(x), cmin=float(spec.cmin),
-                                     cmax=float(spec.cmax),
-                                     n_levels=spec.n_levels,
-                                     want_deq=False)[0]
-        return self.quantize_dequantize(x, spec)[0]
+        """Indices only: every kernel writes no reconstruction."""
+        return self._quantize(self._in(x), _normalize(spec),
+                              want_deq=False)[0]
 
     def quantize_with_histogram(self, x, spec: QuantSpec,
                                 want_deq: bool = True):
-        """(indices, reconstruction or None, counts or None).  A
-        per-tensor uniform spec of at most 64 levels is one clip+quant
-        launch that also counts its indices; any other spec takes its
-        quantizer alone and returns no counts."""
+        """(indices, reconstruction or None, counts or None).  For the
+        specs :func:`_counts_in_quantizer` takes -- per-tensor uniform, or
+        a plan on the per-tile quantizer's fast route, of at most 64
+        levels -- one clip+quant launch also counts its indices ((N,), or
+        (n_cgroups, 1, N) per tile); any other spec takes its quantizer
+        alone and returns no counts."""
         from ..kernels import ops
         spec = _normalize(spec)
-        if _counts_in_quantizer(spec):
-            return ops.clip_quantize(self._in(x), cmin=float(spec.cmin),
-                                     cmax=float(spec.cmax),
-                                     n_levels=spec.n_levels,
-                                     want_deq=want_deq, want_hist=True)
-        if want_deq:
-            return (*self.quantize_dequantize(x, spec), None)
-        return self.quantize(x, spec), None, None
+        x = self._in(x)
+        if not _counts_in_quantizer(spec):
+            return (*self._quantize(x, spec, want_deq), None)
+        if spec.plan is not None:
+            return ops.clip_quantize_tiled(x, spec.cmin, spec.cmax,
+                                           n_levels=spec.n_levels,
+                                           plan=spec.plan, want_deq=want_deq,
+                                           want_hist=True)
+        return ops.clip_quantize(x, cmin=float(spec.cmin),
+                                 cmax=float(spec.cmax),
+                                 n_levels=spec.n_levels, want_deq=want_deq,
+                                 want_hist=True)
 
     def quantize_packed_with_histogram(self, x, spec: QuantSpec,
                                        bits: int):
@@ -551,34 +569,44 @@ class CudaBackend:
         from ..kernels import ops
         spec = _normalize(spec)
         _check_packs(spec, bits)
+        if spec.plan is not None:
+            return ops.clip_quantize_tiled_pack(self._in(x), spec.cmin,
+                                                spec.cmax,
+                                                n_levels=spec.n_levels,
+                                                plan=spec.plan, bits=bits)
         return ops.clip_quantize_pack(self._in(x), cmin=float(spec.cmin),
                                       cmax=float(spec.cmax),
                                       n_levels=spec.n_levels, bits=bits)
 
     def quantize_dequantize(self, x, spec: QuantSpec):
+        return self._quantize(self._in(x), _normalize(spec), want_deq=True)
+
+    def _quantize(self, x, spec: QuantSpec, want_deq: bool):
+        """(indices, reconstruction or None) of a normalized spec: one
+        kernel launch, which writes the reconstruction only when asked."""
         from ..kernels import ops
         from ..kernels.ecsq_assign import MAX_LEVELS
-        spec = _normalize(spec)
-        x = self._in(x)
         if spec.plan is not None:
             if isinstance(spec.ecsq, TileECSQ):
                 if spec.n_levels > MAX_LEVELS:
-                    return _tiled_qdq(x, spec, want_deq=True)
+                    return _tiled_qdq(x, spec, want_deq)
                 return ops.ecsq_quantize_tiled(
                     x, spec.cmin, spec.cmax, spec.ecsq.thresholds,
-                    spec.ecsq.levels, n_levels=spec.n_levels, plan=spec.plan)
+                    spec.ecsq.levels, n_levels=spec.n_levels, plan=spec.plan,
+                    want_deq=want_deq)
             return ops.clip_quantize_tiled(x, spec.cmin, spec.cmax,
                                            n_levels=spec.n_levels,
-                                           plan=spec.plan)
+                                           plan=spec.plan, want_deq=want_deq)
         if spec.ecsq is not None:
             if spec.n_levels > MAX_LEVELS:
-                return _ecsq_qdq(x, spec, want_deq=True)
+                return _ecsq_qdq(x, spec, want_deq)
             return ops.ecsq_quantize(x, spec.ecsq.thresholds,
                                      spec.ecsq.levels, cmin=float(spec.cmin),
-                                     cmax=float(spec.cmax))
+                                     cmax=float(spec.cmax),
+                                     want_deq=want_deq)
         return ops.clip_quantize(x, cmin=float(spec.cmin),
                                  cmax=float(spec.cmax),
-                                 n_levels=spec.n_levels)
+                                 n_levels=spec.n_levels, want_deq=want_deq)
 
     def dequantize(self, idx, spec: QuantSpec, dtype=torch.float32):
         return _dequantize(self._in(idx), spec, dtype)
@@ -617,10 +645,21 @@ class CudaBackend:
     def coded_indices_device(self, x, spec: QuantSpec, bits: int):
         """Device coded-order indices, no host transfer: the megakernel's
         packed output is unpacked and layout-stripped on the device (the
-        emit_wire intermediate); designed quantizers quantize through
-        their kernel and permute to coded order."""
-        from ..kernels.fused_clip_quant import HIST_WIDTH
+        emit_wire intermediate); the per-tile ECSQ kernel writes coded
+        order itself on its fast route; other designed quantizers
+        quantize through their kernel and permute to coded order."""
+        from ..kernels import ops
+        from ..kernels.ecsq_assign import MAX_LEVELS
+        from ..kernels.fused_clip_quant import HIST_WIDTH, fast_route, \
+            tile_maps
         spec = _normalize(spec)
+        x = self._in(x)
+        if isinstance(spec.ecsq, TileECSQ) and spec.n_levels <= MAX_LEVELS \
+                and fast_route(tile_maps(spec.plan, x.shape, x.device)):
+            # the ECSQ tile kernel writes coded order itself: one launch
+            return ops.ecsq_quantize_tiled_coded(
+                x, spec.cmin, spec.cmax, spec.ecsq.thresholds,
+                spec.ecsq.levels, n_levels=spec.n_levels, plan=spec.plan)
         if spec.ecsq is not None or spec.n_levels > HIST_WIDTH:
             return _coded_order_device(self.quantize(x, spec), spec)
         packed, _, lay = self._megakernel(x, spec, bits)

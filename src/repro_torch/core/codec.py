@@ -542,7 +542,8 @@ class FeatureCodec:
 
     def quantize_with_rate(self, x, want_deq: bool = False):
         """(indices, reconstruction or None, rate bits/element) from one
-        quantization pass.  Per-tensor uniform codecs count the indices
+        quantization pass.  Uniform codecs per tensor, or per channel
+        group with channels last and groups of 8-256, count the indices
         in the quantizer's own launch on the card
         (``backend.quantize_with_histogram``); the others histogram them
         after it (:meth:`rate_from_indices`).  The same counts give the
@@ -551,13 +552,12 @@ class FeatureCodec:
             x, self.spec(), want_deq)
         if hist is None:
             return idx, deq, self.rate_from_indices(idx, np.shape(x))
-        n = max(int(np.prod(np.shape(x))), 1)
-        return idx, deq, estimated_bits_from_hist(
-            hist, self.config.n_levels) / n
+        return idx, deq, self._rate_from_counts(hist, np.shape(x))
 
     def packs_in_quantizer(self) -> bool:
-        """Whether :meth:`quantize_packed_with_rate` takes this codec: per
-        tensor, uniform, at most 64 levels, 1/2/4-bit wire width."""
+        """Whether :meth:`quantize_packed_with_rate` takes this codec:
+        uniform, at most 64 levels, 1/2/4-bit wire width, per tensor or
+        per channel group with channels last and groups of 8-256."""
         return packs_in_quantizer(self.spec(), self.bits_per_index())
 
     def quantize_packed_with_rate(self, x):
@@ -569,9 +569,7 @@ class FeatureCodec:
         Raises unless :meth:`packs_in_quantizer`."""
         packed, hist = self.backend.quantize_packed_with_histogram(
             x, self.spec(), self.bits_per_index())
-        n = max(int(np.prod(np.shape(x))), 1)
-        return packed, estimated_bits_from_hist(hist,
-                                                self.config.n_levels) / n
+        return packed, self._rate_from_counts(hist, np.shape(x))
 
     def rate_from_indices(self, idx, shape):
         """Bits/element estimate from indices (in-graph).
@@ -581,12 +579,19 @@ class FeatureCodec:
         per-tile entropies (never above the global-histogram bound, by
         conditioning) is the tighter model of what it actually spends.
         """
+        if self.plan is not None:
+            hist = self.backend.tile_histogram(idx, self.spec())
+        else:
+            hist = self.backend.histogram(idx, self.config.n_levels)
+        return self._rate_from_counts(hist, shape)
+
+    def _rate_from_counts(self, hist, shape):
+        """Bits/element from index counts: (N,) for a per-tensor codec,
+        per tile (n_cgroups, n_sblocks, N) for a tiled one."""
         n = max(int(np.prod(shape)), 1)
         if self.plan is not None:
-            hists = self.backend.tile_histogram(idx, self.spec())
             return estimated_bits_from_tile_hists(
-                hists, self.config.n_levels) / n
-        hist = self.backend.histogram(idx, self.config.n_levels)
+                hist, self.config.n_levels) / n
         return estimated_bits_from_hist(hist, self.config.n_levels) / n
 
     def tile_rate_bits(self, x):
@@ -607,9 +612,9 @@ class FeatureCodec:
         """(fake-quant x, rate bits/element) from one quantization pass.
 
         The split-layer serving hook: quantizes once (one fused kernel on
-        the CUDA path, which for a per-tensor codec also counts the
-        indices) and derives both the pass-through activations and the
-        rate estimate from it.
+        the CUDA path, which for the codecs :meth:`quantize_with_rate`
+        names also counts the indices) and derives both the pass-through
+        activations and the rate estimate from it.
         """
         _, deq, rate = self.quantize_with_rate(x, want_deq=True)
         return deq, rate

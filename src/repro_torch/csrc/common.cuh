@@ -57,6 +57,37 @@ __device__ __forceinline__ int tile_of(unsigned i, unsigned C, unsigned inner,
   return t;
 }
 
+// PER consecutive values of T at p as float32: one to four 16-byte loads
+// (or one 8- or 4-byte load) when `vec` (p aligned to their size), else
+// one load a value.
+template <typename T, int PER>
+__device__ __forceinline__ void load_group(const T* p, bool vec,
+                                           float out[PER]) {
+  constexpr int kBytes = PER * (int)sizeof(T);
+  if constexpr (kBytes >= 4) {
+    if (vec) {
+      uint32_t raw[kBytes / 4];
+      if constexpr (kBytes >= 16) {
+#pragma unroll
+        for (int i = 0; i < kBytes / 16; ++i)
+          reinterpret_cast<uint4*>(raw)[i] =
+              __ldg(reinterpret_cast<const uint4*>(p) + i);
+      } else if constexpr (kBytes == 8) {
+        *reinterpret_cast<uint2*>(raw) =
+            __ldg(reinterpret_cast<const uint2*>(p));
+      } else {
+        raw[0] = __ldg(reinterpret_cast<const unsigned*>(p));
+      }
+      const T* e = reinterpret_cast<const T*>(raw);
+#pragma unroll
+      for (int k = 0; k < PER; ++k) out[k] = to_f32(e[k]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) out[k] = to_f32(p[k]);
+}
+
 // Division of n < 2^31 by an invariant d >= 1 as a high multiply, an add
 // and a shift (Granlund and Montgomery, "Division by invariant integers
 // using multiplication", 1994): with l = ceil(log2 d) and m = floor(2^32
@@ -298,24 +329,36 @@ inline HistGrid histogram_grid(long long n, int threads, int per,
   return {b > floor_ ? b : floor_, false};
 }
 
+// Launch `kernel` on `blocks` blocks of `threads` with `smem` bytes of
+// dynamic shared memory, as clusters of `cluster` blocks (0: none).
+template <typename... Params, typename... Args>
+inline cudaError_t launch_grid_smem(void (*kernel)(Params...),
+                                    long long blocks, int threads,
+                                    size_t smem, int cluster,
+                                    cudaStream_t s, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster > 0 ? cluster : 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 0 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // Launch `kernel` on `blocks` blocks of `threads`, as clusters of
 // kClusterBlocks when `cluster` is set.
 template <typename... Params, typename... Args>
 inline cudaError_t launch_grid(void (*kernel)(Params...), long long blocks,
                                int threads, bool cluster, cudaStream_t s,
                                Args... args) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(threads);
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = kClusterBlocks;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = cluster ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, args...);
+  return launch_grid_smem(kernel, blocks, threads, 0,
+                          cluster ? kClusterBlocks : 0, s, args...);
 }
 
 // Streaming multiprocessors of the current device (0 on an error).

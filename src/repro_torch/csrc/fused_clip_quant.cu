@@ -2,9 +2,12 @@
 //
 // repro_clip_quant replaces the Pallas kernel fused_clip_quant._kernel
 // (clip_quant_2d): per-tensor clip -> quantize -> dequantize.
-// repro_clip_quant_tiles replaces fused_clip_quant._kernel_tiles
-// (clip_quant_tiles_2d, clip_quant_rows_2d): the same with per-tile
-// ranges under a TilePlan.
+// repro_clip_quant_tiles_fast and repro_clip_quant_tiles replace
+// fused_clip_quant._kernel_tiles (clip_quant_tiles_2d, clip_quant_rows_2d):
+// the same with per-tile ranges under a TilePlan -- the first for plans
+// with channels innermost and one spatial block (with the per-tile
+// histogram, or the packed indices, in the same launch on request), the
+// second for every other plan.
 // repro_encode_tiles replaces fused_clip_quant._kernel_encode
 // (encode_tiles_2d): clip -> quantize -> bit-pack -> per-(row, band)
 // histogram in one pass.
@@ -35,12 +38,14 @@
 // packs in a second pass (its pack_bits module notes that the pack
 // belongs in this one).  It keeps no int32 index tensor and no
 // reconstruction: 2 B read and 1 / per B written a value at bfloat16.
-// clip_quant_tiles is a grid-stride elementwise loop with each thread
-// looking up its element's tile (repro::tile_of) and that tile's range, so
-// the tensor is read in its own layout -- the Pallas kernel's banded,
-// lane-padded copy existed only so a (rows, 1) range column could
-// broadcast over a VMEM block.  encode_tiles keeps the int32 index tensor
-// out of device memory; its note below says what bounds it.
+// clip_quant_tiles (the element route) is a grid-stride elementwise loop
+// with each thread looking up its element's tile (repro::tile_of) and
+// that tile's range, so the tensor is read in its own layout -- the
+// Pallas kernel's banded, lane-padded copy existed only so a (rows, 1)
+// range column could broadcast over a VMEM block; the fast route's note
+// below says how it takes a tile's range once.  encode_tiles keeps the
+// int32 index tensor out of device memory; its note below says what
+// bounds it.
 
 #include <cstdint>
 
@@ -283,8 +288,243 @@ __global__ void clip_quant_tiles_kernel(const T* __restrict__ x, unsigned n,
     float q = repro::quant_level(repro::to_f32(x[i]), l, h,
                                  __fdiv_rn(nm1, span));
     idx[i] = (int)q;
-    deq[i] = repro::from_f32<T>(
-        __fadd_rn(l, __fmul_rn(q, __fdiv_rn(span, nm1))));
+    if (deq != nullptr)
+      deq[i] = repro::from_f32<T>(
+          __fadd_rn(l, __fmul_rn(q, __fdiv_rn(span, nm1))));
+  }
+}
+
+// -- per-tile clip + quantize, channels innermost: the fast route -------------
+//
+// With channels innermost, one spatial block and channel groups of a
+// multiple of 8 channels, the 8 values of a unit -- 8 consecutive
+// channels of one row, one 16-byte load of bfloat16 -- lie in one tile.
+// A block covers UW unit columns (whole tiles, at least 8 columns: 128
+// bytes of a bfloat16 row) x RB row slots, unit column fastest, so a
+// warp's loads and stores are runs of whole sectors of a few rows; a
+// thread keeps its column, so it loads its tile's range and computes its
+// scale and step once (the same correctly rounded divides as the element
+// route), then takes PER units down the column, RB rows apart, the loads
+// of up to kBatch of them issued before any is quantized.  Bound by
+// bytes, and at the serving sizes by the launch and one read round trip
+// (PERF.md).  Counting: a thread counts its levels in 16-bit register
+// fields (repro::bin8 / count16); a warp sums a tile's fields with an
+// xor butterfly over the lane bits that do not pick the tile (its units
+// and its row slots), one lane of each tile adds the sums into the
+// block's shared row of bins for the tile, and the block stores its
+// tiles' rows once.  A tile taller than kBatch
+// passes of a block takes more blocks down its column, up to kSplit, a
+// thread block cluster whose blocks add their rows in block 0's shared
+// memory (cluster_store_rows) before block 0 stores them: no tile needs
+// the ticket.  Where a thread would count more than kCountsPerThread
+// levels, or N > 16, the warp's equal (tile, level) keys take one shared
+// atomic each (repro::match_count).  OUT names what is written: int32
+// indices (and the reconstruction where deq is given), or the indices
+// packed to OUT bits (pack_bits' layout: a unit's 8 indices make OUT
+// consecutive bytes, one store), with no int32 index tensor.
+
+constexpr int kUnit = 8;               // values of a unit
+constexpr int kRowsPerThread = 2;      // units a thread takes (no counts)
+constexpr int kBatch = 4;              // units whose loads go out together
+constexpr int kSplit = 8;              // blocks of a tile's rows at most
+constexpr int kLogMinColumns = 3;      // log2 unit columns a block, at least
+constexpr int kStageBins = 8 * kHistWidth;   // tiles x bins a split block
+
+struct FastTiles {
+  long long rows;        // the tensor seen as (rows, C)
+  int units;             // units a row: C / kUnit
+  int n_tiles;
+  int lug;               // log2 units a tile (group_size / kUnit)
+  int luw;               // log2 unit columns a block (UW, whole tiles)
+  int lrb;               // log2 row slots a block (RB)
+  int per;               // units a thread takes down its column
+  int nbr;               // blocks down a column (row chunks); a cluster
+                         // of them when counting and nbr > 1
+};
+
+// Every thread of the cluster calls this, its block's `count` bins in sh:
+// block 0 adds the cluster's rows and stores the first `keep` of them to
+// out.  The cluster barrier's first phase was arrived at as the kernel
+// started (repro::cluster_start).
+__device__ __forceinline__ void cluster_store_rows(const int* sh, int count,
+                                                   int keep,
+                                                   int* __restrict__ out) {
+  namespace cg = cooperative_groups;
+  __shared__ int s_recv[kSplit * kStageBins];
+  cg::cluster_group cl = cg::this_cluster();
+  const unsigned rank = cl.block_rank(), ranks = cl.num_blocks();
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+  int* dst = cl.map_shared_rank(s_recv + rank * kStageBins, 0);
+  for (int i = threadIdx.x; i < count; i += blockDim.x) dst[i] = sh[i];
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+  if (rank != 0) return;
+  for (int i = threadIdx.x; i < keep; i += blockDim.x) {
+    int sum = 0;
+    for (unsigned r = 0; r < ranks; ++r) sum += s_recv[r * kStageBins + i];
+    out[i] = sum;
+  }
+}
+
+template <typename T, int MODE, int OUT>
+__global__ void __launch_bounds__(kThreads)
+clip_quant_tiles_fast_kernel(const T* __restrict__ x, bool vec, FastTiles g,
+                             const float* __restrict__ lo,
+                             const float* __restrict__ hi, int n_levels,
+                             int* __restrict__ idx, T* __restrict__ deq,
+                             unsigned char* __restrict__ packed,
+                             int* __restrict__ hist) {
+  extern __shared__ int sh[];          // a row of bins a tile of the block
+  constexpr unsigned kFull = 0xFFFFFFFFu;
+  const bool split = MODE != kNoHist && g.nbr > 1;
+  repro::cluster_start(split);
+  const int uw = 1 << g.luw, rb = 1 << g.lrb;
+  const long long bu = blockIdx.x / g.nbr, br = blockIdx.x % g.nbr;
+  const int ul = threadIdx.x & (uw - 1);
+  const int n_slots = uw >> g.lug > 0 ? uw >> g.lug : 1;   // tiles a block
+  if constexpr (MODE != kNoHist) {
+    for (int i = threadIdx.x; i < n_slots * n_levels; i += blockDim.x)
+      sh[i] = 0;
+    if constexpr (MODE == kMatch) __syncthreads();
+  }
+  // the thread's column, tile and range, once
+  const long long uc = bu * uw + ul;
+  const long long row0 = br * ((long long)rb * g.per) + (threadIdx.x >> g.luw);
+  const bool col_ok = uc < g.units;
+  const int tile = (int)(uc >> g.lug);
+  const int tslot = ul >> g.lug;
+  float l = 0.f, h = 1.f;
+  if (col_ok) {
+    l = __ldg(&lo[tile]);
+    h = __ldg(&hi[tile]);
+  }
+  const float nm1 = (float)(n_levels - 1);
+  const float span = fmaxf(__fsub_rn(h, l), 1e-12f);
+  const float scale = __fdiv_rn(nm1, span), delta = __fdiv_rn(span, nm1);
+  const unsigned nl = (unsigned)n_levels;
+  uint32_t cnt[repro::kCountWords] = {};
+  // every thread runs g.per units, a batch's loads issued before any of
+  // its units is quantized; a batch stops where g.per does (uniform), so
+  // a warp's lanes meet in each match
+  constexpr int kVecs = kUnit * (int)sizeof(T) / 16;   // uint4 a unit
+  for (int k = 0; k < g.per; k += kBatch) {
+    uint4 raw[kBatch][kVecs];
+    long long off[kBatch];
+    bool act[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k + u >= g.per) break;
+      const long long row = row0 + (long long)(k + u) * rb;
+      act[u] = col_ok && row < g.rows;
+      off[u] = (row * g.units + uc) * kUnit;
+      if (!act[u]) continue;
+      if (vec) {
+#pragma unroll
+        for (int i = 0; i < kVecs; ++i)
+          raw[u][i] = __ldg(reinterpret_cast<const uint4*>(x + off[u]) + i);
+      } else {
+        T* e = reinterpret_cast<T*>(raw[u]);
+#pragma unroll
+        for (int i = 0; i < kUnit; ++i) e[i] = x[off[u] + i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (k + u >= g.per) break;
+      const T* e = reinterpret_cast<const T*>(raw[u]);
+      int q[kUnit];
+#pragma unroll
+      for (int i = 0; i < kUnit; ++i)
+        q[i] = act[u] ? (int)repro::quant_level(repro::to_f32(e[i]), l, h,
+                                                scale)
+                      : -1;
+      if (!act[u]) {
+        // counted nowhere (q = -1), but it takes part in the matches
+      } else if constexpr (OUT == 0) {
+        int4* pi = reinterpret_cast<int4*>(idx + off[u]);
+        pi[0] = make_int4(q[0], q[1], q[2], q[3]);
+        pi[1] = make_int4(q[4], q[5], q[6], q[7]);
+        if (deq != nullptr) {
+          alignas(16) T d[kUnit];
+#pragma unroll
+          for (int i = 0; i < kUnit; ++i)
+            d[i] = repro::from_f32<T>(
+                __fadd_rn(l, __fmul_rn((float)q[i], delta)));
+#pragma unroll
+          for (int i = 0; i < kVecs; ++i)
+            reinterpret_cast<uint4*>(deq + off[u])[i] =
+                reinterpret_cast<const uint4*>(d)[i];
+        }
+      } else {
+        // a unit's 8 indices are OUT consecutive bytes of pack_bits'
+        // layout
+        uint32_t word = 0;
+#pragma unroll
+        for (int i = 0; i < kUnit; ++i) word |= (uint32_t)q[i] << (i * OUT);
+        const long long unit = off[u] / kUnit;
+        if constexpr (OUT == 1)
+          packed[unit] = (unsigned char)word;
+        else if constexpr (OUT == 2)
+          reinterpret_cast<uint16_t*>(packed)[unit] = (uint16_t)word;
+        else
+          reinterpret_cast<uint32_t*>(packed)[unit] = word;
+      }
+      if constexpr (MODE == kCount8) {
+        uint32_t c8 = 0;
+#pragma unroll
+        for (int i = 0; i < kUnit; ++i)
+          c8 += repro::bin8(q[i], (unsigned)q[i] < nl);
+        repro::widen8(c8, cnt);
+      } else if constexpr (MODE == kCount16) {
+#pragma unroll
+        for (int i = 0; i < kUnit; ++i)
+          repro::count16(q[i], (unsigned)q[i] < nl, cnt);
+      } else if constexpr (MODE == kMatch) {
+#pragma unroll
+        for (int i = 0; i < kUnit; ++i) {
+          const bool on = (unsigned)q[i] < nl;
+          repro::match_count(sh, on,
+                             on ? (unsigned)(tslot * n_levels + q[i]) : 0u);
+        }
+      }
+    }
+  }
+  if constexpr (MODE == kNoHist) return;
+  const long long t0 = (bu * uw) >> g.lug;            // the block's tiles
+  const long long left = (long long)g.n_tiles - t0;
+  const int keep = (int)(left < n_slots ? left : n_slots) * n_levels;
+  const int lane = threadIdx.x & 31;
+  if constexpr (MODE != kMatch) {
+    // a tile's sums in every one of its lanes: a butterfly over the lane
+    // bits below the tile's (its units) and above the block's columns
+    // (row slots); then one lane a tile and warp adds them to the
+    // block's row of the tile
+    const int n_words = (n_levels + 1) / 2;
+#pragma unroll
+    for (int b = 0; b < 5; ++b) {
+      if (b >= g.lug && b < g.luw) continue;          // uniform
+#pragma unroll
+      for (int w = 0; w < repro::kCountWords; ++w)
+        if (w < n_words) cnt[w] += __shfl_xor_sync(kFull, cnt[w], 1 << b);
+    }
+    __syncthreads();                     // the zeroed rows
+    const int red = ((1 << g.lug) - 1) | (~((1 << g.luw) - 1) & 31);
+    if ((lane & red) == 0) {
+      int* row = sh + tslot * n_levels;
+#pragma unroll
+      for (int w = 0; w < repro::kCountWords; ++w) {
+        const int c0 = (int)(cnt[w] & 0xFFFFu), c1 = (int)(cnt[w] >> 16);
+        if (2 * w < n_levels && c0) atomicAdd(row + 2 * w, c0);
+        if (2 * w + 1 < n_levels && c1) atomicAdd(row + 2 * w + 1, c1);
+      }
+    }
+  }
+  __syncthreads();
+  if (split) {
+    cluster_store_rows(sh, n_slots * n_levels, keep, hist + t0 * n_levels);
+  } else {
+    for (int i = threadIdx.x; i < keep; i += blockDim.x)
+      hist[t0 * n_levels + i] = sh[i];
   }
 }
 
@@ -316,34 +556,6 @@ __global__ void clip_quant_tiles_kernel(const T* __restrict__ x, unsigned n,
 constexpr int kMaxCells = 32;   // cells of one block (shared bins)
 constexpr int kWords = repro::kCountWords;  // 16-bit counter words, N <= 16
 
-template <typename T, int PER>
-__device__ __forceinline__ void load_group(const T* p, bool vec,
-                                           float out[PER]) {
-  constexpr int kBytes = PER * (int)sizeof(T);
-  if constexpr (kBytes >= 4) {
-    if (vec) {
-      uint32_t raw[kBytes / 4];
-      if constexpr (kBytes >= 16) {
-#pragma unroll
-        for (int i = 0; i < kBytes / 16; ++i)
-          reinterpret_cast<uint4*>(raw)[i] =
-              __ldg(reinterpret_cast<const uint4*>(p) + i);
-      } else if constexpr (kBytes == 8) {
-        *reinterpret_cast<uint2*>(raw) =
-            __ldg(reinterpret_cast<const uint2*>(p));
-      } else {
-        raw[0] = __ldg(reinterpret_cast<const unsigned*>(p));
-      }
-      const T* e = reinterpret_cast<const T*>(raw);
-#pragma unroll
-      for (int k = 0; k < PER; ++k) out[k] = repro::to_f32(e[k]);
-      return;
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < PER; ++k) out[k] = repro::to_f32(p[k]);
-}
-
 // BYTES consecutive packed bytes per thread, all in one cell (the band's
 // byte count is a multiple of BYTES); the `group` lanes whose bytes share
 // a cell reduce their counters together.
@@ -373,7 +585,7 @@ encode_tiles_kernel(const T* __restrict__ x, bool vec, int n_sblocks, int bpb,
   const int cell = (int)cell0 + cl;              // == row * n_sblocks + band
   float v[E];
   if (threadIdx.x * BYTES < n_bytes)
-    load_group<T, E>(xb + (long long)threadIdx.x * E, vec, v);
+    repro::load_group<T, E>(xb + (long long)threadIdx.x * E, vec, v);
   const float l = lo[cell], h = hi[cell];
   const int valid = band_valid[cell % n_sblocks];
   const float scale = __fdiv_rn((float)(n_levels - 1),
@@ -396,7 +608,7 @@ encode_tiles_kernel(const T* __restrict__ x, bool vec, int n_sblocks, int bpb,
     int col = (lb - cl * bpb) * PER;          // first column in the band
     int q[E];
     if (act) {
-      if (it > 0) load_group<T, E>(xb + (long long)lb * PER, vec, v);
+      if (it > 0) repro::load_group<T, E>(xb + (long long)lb * PER, vec, v);
       uint32_t word = 0;
 #pragma unroll
       for (int e = 0; e < E; ++e) {
@@ -592,6 +804,137 @@ extern "C" int repro_clip_quant_tiles(const void* x, int dtype, int n, int C,
           (const float*)lo, (const float*)hi, n_levels, (int*)idx,
           (T*)deq));
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+int log2_of(long long v) {
+  int l = 0;
+  while ((1LL << l) < v) ++l;
+  return l;
+}
+
+// The fast route's geometry: blocks of UW unit columns (at least 8,
+// 128 bytes of a bfloat16 row, and whole tiles) x RB row slots (all the
+// rows up to kThreads / UW), widened to kThreads threads when the rows
+// are few, then narrowed (down to 64 threads) while the grid would not
+// give every SM a block.  Without counts a thread
+// takes kRowsPerThread units; with them kBatch, before a tile's rows take
+// more blocks (a cluster, a power of two of them, at most kSplit), each
+// thread PER units.
+FastTiles fast_tiles(long long rows, int C, int group_size, int sms,
+                     bool counting, int& threads, long long& blocks) {
+  FastTiles g{};
+  g.rows = rows;
+  g.units = C / kUnit;
+  const int ug = group_size / kUnit;
+  g.lug = log2_of(ug);
+  g.n_tiles = (C + group_size - 1) / group_size;
+  const int lu = log2_of(g.units);                  // columns, pow2 above
+  int luw = lu < kLogMinColumns ? lu : kLogMinColumns;
+  if (luw < g.lug) luw = lu < g.lug ? lu : g.lug;   // whole tiles
+  const int lr = log2_of(rows);
+  int lrb = lr < 8 - luw ? lr : 8 - luw;
+  if (luw + lrb < 8 && luw < lu) luw = lu < 8 - lrb ? lu : 8 - lrb;
+  if (luw + lrb < 5) lrb = 5 - luw;                 // a whole warp
+  const long long rb = 1LL << lrb;
+  const long long passes = (rows + rb - 1) / rb;    // of RB rows
+  // with counts: kBatch units a thread before a tile's rows take more
+  // blocks, at most kSplit (a power of two)
+  long long split = (passes + kBatch - 1) / kBatch;
+  split = split < kSplit ? 1LL << log2_of(split) : kSplit;
+  long long per = counting ? (passes + split - 1) / split
+                  : passes < kRowsPerThread ? passes : kRowsPerThread;
+  long long nbr = (rows + rb * per - 1) / (rb * per);
+  if (counting && nbr > 1) nbr = 1LL << log2_of(nbr);   // a cluster
+  for (;;) {
+    const long long nbu = (g.units + (1LL << luw) - 1) >> luw;
+    if (nbu * nbr >= sms || luw <= kLogMinColumns || luw <= g.lug ||
+        luw + lrb <= 6)
+      break;
+    --luw;
+  }
+  g.luw = luw;
+  g.lrb = lrb;
+  g.per = (int)per;
+  g.nbr = (int)nbr;
+  threads = 1 << (luw + lrb);
+  blocks = ((g.units + (1LL << luw) - 1) >> luw) * nbr;
+  return g;
+}
+
+template <typename T, int OUT>
+int launch_tiles_fast(const void* x, long long rows, int C, int group_size,
+                      const void* lo, const void* hi, int n_levels,
+                      void* idx, void* deq, void* packed, void* hist,
+                      int sms, cudaStream_t s) {
+  int threads;
+  long long blocks;
+  FastTiles g = fast_tiles(rows, C, group_size, sms, hist != nullptr,
+                           threads, blocks);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  // the most a thread counts: its 16-bit fields' warp sums stay < 2^16
+  const bool regs = (long long)g.per * kUnit <= repro::kCountsPerThread;
+  const int mode = hist == nullptr ? kNoHist
+                   : !regs || n_levels > 16 ? kMatch
+                   : n_levels <= 4 ? kCount8 : kCount16;
+  const int n_slots = g.luw > g.lug ? 1 << (g.luw - g.lug) : 1;
+  const size_t smem = hist == nullptr ? 0
+                      : (size_t)n_slots * n_levels * sizeof(int);
+  const bool vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int cluster = hist != nullptr && g.nbr > 1 ? g.nbr : 0;
+  auto kernel = mode == kCount8    ? clip_quant_tiles_fast_kernel<T, kCount8, OUT>
+                : mode == kCount16 ? clip_quant_tiles_fast_kernel<T, kCount16, OUT>
+                                   : clip_quant_tiles_fast_kernel<T, kMatch, OUT>;
+  if constexpr (OUT == 0) {            // packing always counts
+    if (mode == kNoHist) kernel = clip_quant_tiles_fast_kernel<T, kNoHist, 0>;
+  }
+  cudaError_t e = repro::launch_grid_smem(
+      kernel, blocks, threads, smem, cluster, s, (const T*)x, vec, g,
+      (const float*)lo, (const float*)hi, n_levels, (int*)idx, (T*)deq,
+      (unsigned char*)packed, (int*)hist);
+  return (int)(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+}  // namespace
+
+// The fast route of the per-tile quantizer: x is (rows, C) with channels
+// innermost, one spatial block, channel groups of group_size (a power of
+// two from 8 to 256) and C a multiple of 8; lo/hi hold one range a group.
+// bits 0: int32 indices to idx, the reconstruction to deq (may be null);
+// bits 1, 2 or 4: the indices packed to that width into `packed` (idx and
+// deq null), with the histogram.  hist (may be null with bits 0): the
+// (n_groups, n_levels) int32 per-tile counts, every bin stored.
+extern "C" int repro_clip_quant_tiles_fast(
+    const void* x, int dtype, long long rows, int C, int group_size,
+    const void* lo, const void* hi, int n_levels, int bits, void* idx,
+    void* deq, void* packed, void* hist, void* stream) {
+  const bool pow2 = group_size > 0 && (group_size & (group_size - 1)) == 0;
+  if (rows <= 0 || C <= 0 || C % kUnit || !pow2 || group_size < kUnit ||
+      group_size > 256 || n_levels < 2 || rows * C >= (1LL << 31) ||
+      (hist != nullptr && n_levels > kHistWidth))
+    return (int)cudaErrorInvalidValue;
+  if (bits == 0 ? (idx == nullptr || packed != nullptr)
+                : ((bits != 1 && bits != 2 && bits != 4) || idx != nullptr ||
+                   deq != nullptr || packed == nullptr || hist == nullptr ||
+                   n_levels > (1 << bits)))
+    return (int)cudaErrorInvalidValue;
+  int sms = repro::sm_count();
+  if (sms <= 0) return (int)cudaErrorInvalidDevice;
+  cudaStream_t s = (cudaStream_t)stream;
+#define REPRO_TILES_FAST(OUT)                                              \
+  REPRO_DISPATCH_FLOAT(dtype, T,                                           \
+      return launch_tiles_fast<T, OUT>(x, rows, C, group_size, lo, hi,     \
+                                       n_levels, idx, deq, packed, hist,   \
+                                       sms, s))
+  switch (bits) {
+    case 0: REPRO_TILES_FAST(0); break;
+    case 1: REPRO_TILES_FAST(1); break;
+    case 2: REPRO_TILES_FAST(2); break;
+    default: REPRO_TILES_FAST(4); break;
+  }
+#undef REPRO_TILES_FAST
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int repro_encode_tiles(const void* x, int dtype, int rows,

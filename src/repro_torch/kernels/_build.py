@@ -44,6 +44,8 @@ _SIGNATURES = {
                               _L, _P, _P),
     "repro_clip_quant_tiles": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I,
                                _P, _P, _P),
+    "repro_clip_quant_tiles_fast": (_P, _I, _L, _I, _I, _P, _P, _I, _I, _P,
+                                    _P, _P, _P, _P),
     "repro_encode_tiles": (_P, _I, _I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
                            _P, _P),
     "repro_index_histogram": (_P, _L, _I, _P, _P, _L, _P, _P),
@@ -53,6 +55,8 @@ _SIGNATURES = {
     "repro_ecsq_assign": (_P, _I, _I, _F, _F, _P, _P, _I, _P, _P, _P),
     "repro_ecsq_assign_tiles": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                                 _P, _I, _P, _P, _P),
+    "repro_ecsq_assign_tiles_fast": (_P, _I, _L, _I, _I, _P, _P, _P, _P, _I,
+                                     _P, _P, _I, _P),
     "repro_pack_bits": (_P, _L, _I, _P, _P),
 }
 

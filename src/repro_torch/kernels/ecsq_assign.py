@@ -12,13 +12,22 @@ Two kernels, each beside its plain torch version:
   ``repro_ecsq_assign``.
 * :func:`ecsq_assign_tiles` replaces ``_kernel_tiles``
   (``ecsq_assign_tiles_2d``): one quantizer and clip range per
-  ``TilePlan`` tile, read in the tensor's own layout through the plan's
-  element -> tile maps like the uniform tile kernel.  Source:
-  ``csrc/ecsq_assign.cu`` ``repro_ecsq_assign_tiles``.
+  ``TilePlan`` tile, read in the tensor's own layout.  On the fast route
+  of the tiled kernels (channels innermost, one spatial block, channel
+  groups of 8-256: :func:`~repro_torch.kernels.fused_clip_quant.
+  fast_route`) a thread takes 8 consecutive channels of a row and its
+  tile's table once; other plans take the element route, which looks up
+  each element's tile through the plan's maps.  Sources: ``csrc/
+  ecsq_assign.cu`` ``repro_ecsq_assign_tiles_fast`` and
+  ``repro_ecsq_assign_tiles``.  :func:`ecsq_assign_tiles_coded` is the
+  fast route writing only the indices, in coded order (channel-major),
+  the device entropy stage's input: no reconstruction and no permute
+  copy after it.
 
-Both are bound by bytes at small N (one read, two writes per element);
+All are bound by bytes at small N (one read, two writes per element);
 the threshold count costs N-1 compares per element (see the source
-note).  Tables enter as float32, as the reference casts them; the
+note).  Each writes no reconstruction when the caller asks for none.
+Tables enter as float32, as the reference casts them; the
 reconstruction is a table entry, so kernel and plain version agree
 exactly.
 
@@ -32,8 +41,8 @@ import torch
 
 from ..core.tiling import TilePlan
 from . import _build
-from .fused_clip_quant import (_on_cpu, channel_major, check_tables, restore,
-                               tile_ids, tile_maps)
+from .fused_clip_quant import (_on_cpu, channel_major, check_tables,
+                               fast_route, restore, tile_ids, tile_maps)
 
 MAX_LEVELS = 64
 
@@ -51,7 +60,8 @@ def _check_levels(thresholds: torch.Tensor, levels: torch.Tensor) -> int:
 # -- kernel 7: one quantizer for the tensor ------------------------------------
 
 def ecsq_assign_plain(x: torch.Tensor, thresholds: torch.Tensor,
-                      levels: torch.Tensor, cmin: float, cmax: float):
+                      levels: torch.Tensor, cmin: float, cmax: float, *,
+                      want_deq: bool = True):
     """Plain torch version of :func:`ecsq_assign` (same count and
     gather)."""
     lo, hi = (torch.tensor(float(v), dtype=torch.float32, device=x.device)
@@ -60,30 +70,32 @@ def ecsq_assign_plain(x: torch.Tensor, thresholds: torch.Tensor,
     idx = torch.zeros(x.shape, dtype=torch.int32, device=x.device)
     for t in thresholds:
         idx += (xc >= t).to(torch.int32)
-    return idx, levels[idx.long()].to(x.dtype)
+    return idx, levels[idx.long()].to(x.dtype) if want_deq else None
 
 
 def ecsq_assign(x: torch.Tensor, thresholds: torch.Tensor,
-                levels: torch.Tensor, cmin: float, cmax: float):
-    """ECSQ quantize + dequantize of ``x`` (any shape).
+                levels: torch.Tensor, cmin: float, cmax: float, *,
+                want_deq: bool = True):
+    """ECSQ quantize (+ dequantize) of ``x`` (any shape).
 
     thresholds (N-1,) and levels (N,): float32 on ``x``'s device; the
-    clip range rounds to float32.  Returns (idx int32, deq in
-    ``x.dtype``), both shaped like ``x``."""
+    clip range rounds to float32.  Returns (idx int32, deq in ``x.dtype``
+    or None when ``want_deq`` is false), both shaped like ``x``."""
     _check_levels(thresholds, levels)
     if _on_cpu(x):
-        return ecsq_assign_plain(x, thresholds, levels, cmin, cmax)
+        return ecsq_assign_plain(x, thresholds, levels, cmin, cmax,
+                                 want_deq=want_deq)
     _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
     _build.check_cuda("thresholds", thresholds, (torch.float32,), ndim=1)
     _build.check_cuda("levels", levels, (torch.float32,), ndim=1)
     _build.check_numel("x", x)
     idx = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    deq = torch.empty_like(x)
+    deq = torch.empty_like(x) if want_deq else None
     if x.numel():
         _build.launch("ecsq_assign", "repro_ecsq_assign", x.data_ptr(),
                       _build.DTYPE_CODES[x.dtype], x.numel(), float(cmin),
                       float(cmax), thresholds.data_ptr(), levels.data_ptr(),
-                      levels.shape[0], idx.data_ptr(), deq.data_ptr())
+                      levels.shape[0], idx.data_ptr(), _build.ptr(deq))
     return idx, deq
 
 
@@ -91,7 +103,8 @@ def ecsq_assign(x: torch.Tensor, thresholds: torch.Tensor,
 
 def ecsq_assign_tiles_plain(x: torch.Tensor, lo: torch.Tensor,
                             hi: torch.Tensor, thresholds: torch.Tensor,
-                            levels: torch.Tensor, maps):
+                            levels: torch.Tensor, maps, *,
+                            want_deq: bool = True):
     """Plain torch version of :func:`ecsq_assign_tiles`: the reference's
     per-tile compare loop over the channel-major view."""
     t = tile_ids(maps)
@@ -102,38 +115,103 @@ def ecsq_assign_tiles_plain(x: torch.Tensor, lo: torch.Tensor,
     idx = torch.zeros(xc.shape, dtype=torch.int32, device=x.device)
     for k in range(n_levels - 1):
         idx += (xc >= thr[:, k][t]).to(torch.int32)
+    if not want_deq:
+        return restore(idx, x.shape, maps), None
     deq = levels.reshape(-1, n_levels)[t, idx.long()]
     return restore(idx, x.shape, maps), restore(deq, x.shape, maps).to(x.dtype)
 
 
-def ecsq_assign_tiles(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                      thresholds: torch.Tensor, levels: torch.Tensor,
-                      plan: TilePlan):
-    """Per-tile ECSQ quantize + dequantize of ``x`` (any shape the plan
-    takes).
-
-    lo/hi: (n_cgroups, n_sblocks) float32 clip ranges; thresholds
-    (n_cgroups, n_sblocks, N-1) and levels (n_cgroups, n_sblocks, N)
-    float32 tables (flat tile id = cgroup * n_sblocks + sblock), all on
-    ``x``'s device.  Returns (idx int32, deq in ``x.dtype``)."""
+def _check_tiled(x, lo, hi, thresholds, levels, plan: TilePlan):
     n_levels = _check_levels(thresholds, levels)
     maps = tile_maps(plan, x.shape, x.device)
     check_tables(plan, lo=lo, hi=hi, thresholds=thresholds, levels=levels)
-    if _on_cpu(x):
-        return ecsq_assign_tiles_plain(x, lo, hi, thresholds, levels, maps)
+    return n_levels, maps
+
+
+def _check_tiled_cuda(x, lo, hi, thresholds, levels) -> None:
     _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
     for name, t in (("lo", lo), ("hi", hi), ("thresholds", thresholds),
                     ("levels", levels)):
         _build.check_cuda(name, t, (torch.float32,))
     _build.check_numel("x", x)
+
+
+def ecsq_assign_tiles(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
+                      thresholds: torch.Tensor, levels: torch.Tensor,
+                      plan: TilePlan, *, want_deq: bool = True):
+    """Per-tile ECSQ quantize (+ dequantize) of ``x`` (any shape the plan
+    takes), one launch on the card: the fast route where
+    :func:`~repro_torch.kernels.fused_clip_quant.fast_route` takes the
+    geometry, else the element route.
+
+    lo/hi: (n_cgroups, n_sblocks) float32 clip ranges; thresholds
+    (n_cgroups, n_sblocks, N-1) and levels (n_cgroups, n_sblocks, N)
+    float32 tables (flat tile id = cgroup * n_sblocks + sblock), all on
+    ``x``'s device.  Returns (idx int32, deq in ``x.dtype`` or None when
+    ``want_deq`` is false)."""
+    n_levels, maps = _check_tiled(x, lo, hi, thresholds, levels, plan)
+    if _on_cpu(x):
+        return ecsq_assign_tiles_plain(x, lo, hi, thresholds, levels, maps,
+                                       want_deq=want_deq)
+    _check_tiled_cuda(x, lo, hi, thresholds, levels)
     idx = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    deq = torch.empty_like(x)
-    if x.numel():
+    deq = torch.empty_like(x) if want_deq else None
+    if not x.numel():
+        return idx, deq
+    if fast_route(maps):
+        _build.launch("ecsq_assign_tiles", "repro_ecsq_assign_tiles_fast",
+                      x.data_ptr(), _build.DTYPE_CODES[x.dtype],
+                      x.numel() // maps.c, maps.c, maps.group_size,
+                      lo.data_ptr(), hi.data_ptr(), thresholds.data_ptr(),
+                      levels.data_ptr(), n_levels, idx.data_ptr(),
+                      _build.ptr(deq), 0)
+    else:
         _build.launch("ecsq_assign_tiles", "repro_ecsq_assign_tiles",
                       x.data_ptr(), _build.DTYPE_CODES[x.dtype], x.numel(),
                       maps.c, maps.inner, maps.cgroup.data_ptr(),
                       _build.ptr(maps.sblock), maps.n_sblocks, lo.data_ptr(),
                       hi.data_ptr(), thresholds.data_ptr(),
                       levels.data_ptr(), n_levels, idx.data_ptr(),
-                      deq.data_ptr())
+                      _build.ptr(deq))
     return idx, deq
+
+
+def ecsq_assign_tiles_coded_plain(x: torch.Tensor, lo: torch.Tensor,
+                                  hi: torch.Tensor, thresholds: torch.Tensor,
+                                  levels: torch.Tensor, maps):
+    """Plain torch version of :func:`ecsq_assign_tiles_coded`: the plain
+    indices in coded order (the channel-major view, each row permuted to
+    coded order where the plan has a permutation), flat."""
+    idx, _ = ecsq_assign_tiles_plain(x, lo, hi, thresholds, levels, maps,
+                                     want_deq=False)
+    rows = channel_major(idx, maps)
+    if maps.perm is not None:
+        rows = rows[:, maps.perm.long()]
+    return rows.reshape(-1)
+
+
+def ecsq_assign_tiles_coded(x: torch.Tensor, lo: torch.Tensor,
+                            hi: torch.Tensor, thresholds: torch.Tensor,
+                            levels: torch.Tensor, plan: TilePlan):
+    """Per-tile ECSQ indices of ``x`` written straight in coded order
+    (``plan.to_coded_order``: channel-major), one launch on the card, on
+    the fast route only (other geometries raise); tables as
+    :func:`ecsq_assign_tiles`.  Returns flat int32 indices, the input of
+    the device entropy stage."""
+    n_levels, maps = _check_tiled(x, lo, hi, thresholds, levels, plan)
+    if not fast_route(maps):
+        raise ValueError("the per-tile ECSQ quantizer writes coded order "
+                         "only on its fast route (channels innermost, one "
+                         "spatial block)")
+    if _on_cpu(x):
+        return ecsq_assign_tiles_coded_plain(x, lo, hi, thresholds, levels,
+                                             maps)
+    _check_tiled_cuda(x, lo, hi, thresholds, levels)
+    coded = torch.empty(x.numel(), dtype=torch.int32, device=x.device)
+    if x.numel():
+        _build.launch("ecsq_assign_tiles", "repro_ecsq_assign_tiles_fast",
+                      x.data_ptr(), _build.DTYPE_CODES[x.dtype],
+                      x.numel() // maps.c, maps.c, maps.group_size,
+                      lo.data_ptr(), hi.data_ptr(), thresholds.data_ptr(),
+                      levels.data_ptr(), n_levels, coded.data_ptr(), None, 1)
+    return coded

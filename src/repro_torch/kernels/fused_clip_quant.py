@@ -19,10 +19,21 @@ Three kernels, each beside its plain torch version:
   (``clip_quant_tiles_2d``, ``clip_quant_rows_2d``): the same with one
   range per :class:`~repro_torch.core.tiling.TilePlan` tile, the
   ``codec=`` hookup's pass for channel and tile granularities.  It reads
-  the tensor in its own layout through the plan's element -> tile maps
-  (:func:`tile_maps`) instead of the reference's banded, lane-padded
-  copy, and writes both outputs in that layout.  Source:
-  ``csrc/fused_clip_quant.cu`` ``repro_clip_quant_tiles``.
+  the tensor in its own layout instead of the reference's banded,
+  lane-padded copy, and writes its outputs in that layout.  Plans with
+  channels innermost, one spatial block and channel groups of 8-256
+  (:func:`fast_route`, the serving codecs') take the fast route: a
+  thread quantizes 8 channels of a row from one vector load with its
+  tile's range and scale computed once, threads grouped by tile, and on
+  request the same launch counts the per-tile histogram
+  (``want_hist``) or, in :func:`clip_quant_tiles_pack`, writes the
+  indices bit-packed with the counts and no int32 indices -- the
+  split runtime's per-channel crossing in one launch, with no tile
+  histogram (#5) or pack (#9) after it.  Other plans take the element
+  route, each element's tile looked up through the plan's maps
+  (:func:`tile_maps`).  Either writes no reconstruction when asked for
+  none.  Sources: ``csrc/fused_clip_quant.cu``
+  ``repro_clip_quant_tiles_fast`` and ``repro_clip_quant_tiles``.
 * :func:`encode_tiles_2d` replaces ``_kernel_encode``
   (``encode_tiles_2d``): the encode megakernel -- clip -> quantize ->
   bit-pack -> per-(row, band) histogram in one pass, the
@@ -271,45 +282,168 @@ def check_tables(plan: TilePlan, **tables: torch.Tensor) -> None:
                              f"{tuple(t.shape)}")
 
 
+# The fast route of the tiled kernels (#2, #8): channels innermost, one
+# spatial block, channel groups of FAST_GROUPS channels and a channel count
+# that is a multiple of UNIT, so the UNIT consecutive values of a row that
+# a thread loads (16 bytes of bfloat16) lie in one tile.
+UNIT = 8
+FAST_GROUPS = (8, 16, 32, 64, 128, 256)
+
+
+def fast_route(maps: TileMaps) -> bool:
+    """Whether the tiled kernels take their fast route on this geometry
+    (a thread a unit of ``UNIT`` channels of one row, its tile's range
+    once); every other geometry takes the element route, which looks up
+    each element's tile.  Only the fast route of #2 counts its indices
+    and packs them."""
+    return (maps.inner == 1 and maps.n_sblocks == 1 and maps.perm is None
+            and maps.group_size in FAST_GROUPS and maps.c % UNIT == 0)
+
+
+def plan_fast_route(plan: TilePlan) -> bool:
+    """:func:`fast_route` decided from the plan alone, for every shape the
+    plan takes: channels last (``channel_axis == -1``), one spatial
+    block, and the same group and channel conditions."""
+    return (plan.channel_axis == -1 and not plan.is_2d
+            and plan.n_sblocks == 1 and plan.n_channels is not None
+            and plan.channel_group_size in FAST_GROUPS
+            and plan.n_channels % UNIT == 0)
+
+
+def _check_counts(maps: TileMaps, n_levels: int, what: str) -> None:
+    if not fast_route(maps):
+        raise ValueError(f"the per-tile quantizer {what} only on its fast "
+                         "route (channels innermost, one spatial block, "
+                         f"channel groups of {FAST_GROUPS} channels, a "
+                         f"multiple of {UNIT} channels)")
+    if n_levels > HIST_WIDTH:
+        raise ValueError(f"n_levels {n_levels} > {HIST_WIDTH}")
+
+
 def clip_quant_tiles_plain(x: torch.Tensor, lo: torch.Tensor,
-                           hi: torch.Tensor, n_levels: int, maps: TileMaps):
+                           hi: torch.Tensor, n_levels: int, maps: TileMaps,
+                           *, want_deq: bool = True,
+                           want_hist: bool = False):
     """Plain torch version of :func:`clip_quant_tiles`: the reference's
     tiled formula over the channel-major view, each element's range
-    gathered by its tile id."""
+    gathered by its tile id (the histogram: :func:`~repro_torch.kernels.
+    rate_hist.index_histogram_tiles_plain` of the indices)."""
+    from .rate_hist import index_histogram_tiles_plain
     t = tile_ids(maps)
     lo_e, hi_e = lo.reshape(-1)[t], hi.reshape(-1)[t]
     q = quantize_rows(channel_major(x, maps), lo_e, hi_e, n_levels)
-    span = torch.maximum(hi_e - lo_e, torch.full_like(hi_e, _EPS))
-    deq = lo_e + q.to(torch.float32) * (
-        span / torch.full_like(span, n_levels - 1))
-    return restore(q, x.shape, maps), restore(deq, x.shape, maps).to(x.dtype)
+    idx = restore(q, x.shape, maps)
+    deq = None
+    if want_deq:
+        span = torch.maximum(hi_e - lo_e, torch.full_like(hi_e, _EPS))
+        d = lo_e + q.to(torch.float32) * (
+            span / torch.full_like(span, n_levels - 1))
+        deq = restore(d, x.shape, maps).to(x.dtype)
+    if not want_hist:
+        return idx, deq
+    return idx, deq, index_histogram_tiles_plain(idx, n_levels, maps)
 
 
 def clip_quant_tiles(x: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
-                     n_levels: int, plan: TilePlan):
-    """Per-tile clip+quantize+dequantize of ``x`` (any shape the plan
-    takes).
+                     n_levels: int, plan: TilePlan, *, want_deq: bool = True,
+                     want_hist: bool = False):
+    """Per-tile clip+quantize(+dequantize)(+histogram) of ``x`` (any shape
+    the plan takes), one launch on the card.
 
     lo/hi: (n_cgroups, n_sblocks) float32 range tables on ``x``'s device.
-    Returns (idx int32, deq in ``x.dtype``), both shaped like ``x``."""
+    Returns (idx int32, deq in ``x.dtype`` or None when ``want_deq`` is
+    false), both shaped like ``x``; with ``want_hist`` also the
+    (n_cgroups, n_sblocks, n_levels) int32 per-tile counts of idx, which
+    only the fast route (:func:`fast_route`) gives."""
     maps = tile_maps(plan, x.shape, x.device)
     check_tables(plan, lo=lo, hi=hi)
+    if want_hist:
+        _check_counts(maps, n_levels, "counts its indices")
     if _on_cpu(x):
-        return clip_quant_tiles_plain(x, lo, hi, n_levels, maps)
+        return clip_quant_tiles_plain(x, lo, hi, n_levels, maps,
+                                      want_deq=want_deq, want_hist=want_hist)
     _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
     _build.check_cuda("lo", lo, (torch.float32,))
     _build.check_cuda("hi", hi, (torch.float32,))
     _build.check_numel("x", x)
     idx = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    deq = torch.empty_like(x)
+    deq = torch.empty_like(x) if want_deq else None
+    hist = torch.empty((plan.n_cgroups, plan.n_sblocks, n_levels),
+                       dtype=torch.int32, device=x.device) \
+        if want_hist else None
+    out = (idx, deq) + ((hist,) if want_hist else ())
     if x.numel() == 0:
-        return idx, deq
-    _build.launch("clip_quant_tiles", "repro_clip_quant_tiles", x.data_ptr(),
-                  _build.DTYPE_CODES[x.dtype], x.numel(), maps.c, maps.inner,
-                  maps.cgroup.data_ptr(), _build.ptr(maps.sblock),
-                  maps.n_sblocks, lo.data_ptr(), hi.data_ptr(), n_levels,
-                  idx.data_ptr(), deq.data_ptr())
-    return idx, deq
+        if want_hist:
+            hist.zero_()
+        return out
+    if fast_route(maps):
+        _build.launch("clip_quant_tiles", "repro_clip_quant_tiles_fast",
+                      x.data_ptr(), _build.DTYPE_CODES[x.dtype],
+                      x.numel() // maps.c, maps.c, maps.group_size,
+                      lo.data_ptr(), hi.data_ptr(), n_levels, 0,
+                      idx.data_ptr(), _build.ptr(deq), None,
+                      _build.ptr(hist))
+    else:
+        _build.launch("clip_quant_tiles", "repro_clip_quant_tiles",
+                      x.data_ptr(), _build.DTYPE_CODES[x.dtype], x.numel(),
+                      maps.c, maps.inner, maps.cgroup.data_ptr(),
+                      _build.ptr(maps.sblock), maps.n_sblocks, lo.data_ptr(),
+                      hi.data_ptr(), n_levels, idx.data_ptr(),
+                      _build.ptr(deq))
+    return out
+
+
+def clip_quant_tiles_pack_plain(x: torch.Tensor, lo: torch.Tensor,
+                                hi: torch.Tensor, n_levels: int,
+                                maps: TileMaps, bits: int):
+    """Plain torch version of :func:`clip_quant_tiles_pack`: the plain
+    tiled quantizer, then :func:`~repro_torch.kernels.pack_bits.
+    pack_bits_plain` of the flat indices and the plain tile histogram."""
+    from .pack_bits import pack_bits_plain
+    idx, _, hist = clip_quant_tiles_plain(x, lo, hi, n_levels, maps,
+                                          want_deq=False, want_hist=True)
+    return pack_bits_plain(idx.reshape(-1), bits), hist
+
+
+def clip_quant_tiles_pack(x: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor, n_levels: int, plan: TilePlan,
+                          bits: int):
+    """Per-tile clip+quantize+bit-pack+histogram of ``x``, one launch on
+    the card on the fast route (:func:`fast_route`; other geometries
+    raise): the indices leave the launch only as wire bytes.
+
+    Returns (packed uint8 of ``ceil(n / (8 // bits))`` bytes, the flat
+    indices' layout of :func:`~repro_torch.kernels.pack_bits.pack_bits`;
+    (n_cgroups, 1, n_levels) int32 per-tile counts).  ``bits`` is 1, 2 or
+    4, with ``n_levels <= 2 ** bits``."""
+    from .pack_bits import PACK_BITS
+    if bits not in PACK_BITS:
+        raise ValueError(f"packable bit widths are 1/2/4, got {bits}")
+    if not 2 <= n_levels <= min(HIST_WIDTH, 1 << bits):
+        raise ValueError(f"n_levels {n_levels} does not fit {bits}-bit "
+                         f"lanes and a {HIST_WIDTH}-bin histogram")
+    maps = tile_maps(plan, x.shape, x.device)
+    check_tables(plan, lo=lo, hi=hi)
+    _check_counts(maps, n_levels, "packs its indices")
+    if _on_cpu(x):
+        return clip_quant_tiles_pack_plain(x, lo, hi, n_levels, maps, bits)
+    _build.check_cuda("x", x, tuple(_build.DTYPE_CODES))
+    _build.check_cuda("lo", lo, (torch.float32,))
+    _build.check_cuda("hi", hi, (torch.float32,))
+    _build.check_numel("x", x)
+    n = x.numel()
+    packed = torch.empty(-(-n // (8 // bits)), dtype=torch.uint8,
+                         device=x.device)
+    hist = torch.empty((plan.n_cgroups, 1, n_levels), dtype=torch.int32,
+                       device=x.device)
+    if n == 0:
+        return packed, hist.zero_()
+    _build.launch("clip_quant_tiles", "repro_clip_quant_tiles_fast",
+                  x.data_ptr(), _build.DTYPE_CODES[x.dtype], n // maps.c,
+                  maps.c, maps.group_size, lo.data_ptr(), hi.data_ptr(),
+                  n_levels, bits, None, None, packed.data_ptr(),
+                  hist.data_ptr())
+    return packed, hist
 
 
 # -- kernel 3: fused encode megakernel -----------------------------------------

@@ -18,14 +18,17 @@ takes the flat indices as they are: the pack kernel needs no lane view.
 from __future__ import annotations
 
 import functools
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..core.tiling import PaddedLayout, TilePlan
-from .ecsq_assign import ecsq_assign, ecsq_assign_tiles
+from .ecsq_assign import (ecsq_assign, ecsq_assign_tiles,
+                          ecsq_assign_tiles_coded)
 from .fused_clip_quant import (clip_quant_2d, clip_quant_pack,
-                               clip_quant_tiles, encode_tiles_2d, pack_width)
+                               clip_quant_tiles, clip_quant_tiles_pack,
+                               encode_tiles_2d, pack_width)
 from .pack_bits import PACK_BITS, pack_bits
 from .rate_hist import index_histogram_2d, index_histogram_tiles
 
@@ -42,12 +45,33 @@ def _pad_lane(n: int, big: int = 512) -> int:
     return cols
 
 
+# host tables (range, ECSQ) already on a device, by content: a codec's
+# tables cross once, not on every call (a copy is a device operation)
+_TABLES: OrderedDict = OrderedDict()
+_TABLES_MAX = 64
+
+
 def _f32(a, device, shape=None) -> torch.Tensor:
-    """Host array or tensor -> contiguous float32 tensor on ``device``."""
-    t = a if isinstance(a, torch.Tensor) \
-        else torch.from_numpy(np.array(a, np.float32))
-    t = t.to(device=device, dtype=torch.float32)
-    return (t if shape is None else t.reshape(shape)).contiguous()
+    """Host array or tensor -> contiguous float32 tensor on ``device``.
+    A host array's copy is kept by its content (the last
+    ``_TABLES_MAX``), so a table is uploaded once; the result is read
+    only."""
+    if isinstance(a, torch.Tensor):
+        t = a.to(device=device, dtype=torch.float32)
+        return (t if shape is None else t.reshape(shape)).contiguous()
+    arr = np.ascontiguousarray(a, np.float32)
+    device = torch.device(device)
+    key = (arr.tobytes(), arr.shape, shape, str(device))
+    t = _TABLES.get(key)
+    if t is None:
+        t = torch.from_numpy(arr.copy()).to(device)
+        t = (t if shape is None else t.reshape(shape)).contiguous()
+        _TABLES[key] = t
+        if len(_TABLES) > _TABLES_MAX:
+            _TABLES.popitem(last=False)
+    else:
+        _TABLES.move_to_end(key)
+    return t
 
 
 def flat_layout(n: int) -> PaddedLayout:
@@ -182,16 +206,31 @@ def clip_quantize_pack(x: torch.Tensor, *, cmin: float, cmax: float,
 
 
 def clip_quantize_tiled(x: torch.Tensor, lo, hi, *, n_levels: int,
-                        plan: TilePlan):
+                        plan: TilePlan, want_deq: bool = True,
+                        want_hist: bool = False):
     """TilePlan fused clip+quantize+dequantize (channel x spatial tiling).
 
     ``lo``/``hi`` are (n_cgroups, n_sblocks) range tables over the plan's
     channel-major (C, M) view (any array of that size: the per-channel
     codec stores its group table raveled).  Returns (idx int32, deq in
-    ``x.dtype``) shaped like ``x``."""
+    ``x.dtype`` or None without ``want_deq``) shaped like ``x``, and with
+    ``want_hist`` the (n_cgroups, n_sblocks, N) per-tile counts from the
+    same launch (the fast route's plans only)."""
     shape = (plan.n_cgroups, plan.n_sblocks)
     return clip_quant_tiles(x.contiguous(), _f32(lo, x.device, shape),
-                            _f32(hi, x.device, shape), n_levels, plan)
+                            _f32(hi, x.device, shape), n_levels, plan,
+                            want_deq=want_deq, want_hist=want_hist)
+
+
+def clip_quantize_tiled_pack(x: torch.Tensor, lo, hi, *, n_levels: int,
+                             plan: TilePlan, bits: int):
+    """TilePlan fused clip+quantize+bit-pack+histogram: (packed uint8 wire
+    bytes of the flat indices, (n_cgroups, 1, N) per-tile counts), one
+    launch on the card (the fast route's plans only)."""
+    shape = (plan.n_cgroups, plan.n_sblocks)
+    return clip_quant_tiles_pack(x.contiguous(), _f32(lo, x.device, shape),
+                                 _f32(hi, x.device, shape), n_levels, plan,
+                                 bits)
 
 
 def clip_quantize_channels(x: torch.Tensor, cmin, cmax, *, n_levels: int,
@@ -204,26 +243,41 @@ def clip_quantize_channels(x: torch.Tensor, cmin, cmax, *, n_levels: int,
 
 
 def ecsq_quantize(x: torch.Tensor, thresholds, levels, *, cmin: float,
-                  cmax: float):
-    """Threshold-based non-uniform quantize + dequantize."""
+                  cmax: float, want_deq: bool = True):
+    """Threshold-based non-uniform quantize (+ dequantize)."""
     return ecsq_assign(x.contiguous(), _f32(thresholds, x.device),
-                       _f32(levels, x.device), cmin, cmax)
+                       _f32(levels, x.device), cmin, cmax,
+                       want_deq=want_deq)
+
+
+def _ecsq_tables(x, lo, hi, thresholds, levels, plan: TilePlan):
+    shape = (plan.n_cgroups, plan.n_sblocks)
+    return (x.contiguous(), _f32(lo, x.device, shape),
+            _f32(hi, x.device, shape),
+            _f32(thresholds, x.device, shape + (-1,)),
+            _f32(levels, x.device, shape + (-1,)), plan)
 
 
 def ecsq_quantize_tiled(x: torch.Tensor, lo, hi, thresholds, levels, *,
-                        n_levels: int, plan: TilePlan):
-    """Per-tile ECSQ quantize + dequantize.
+                        n_levels: int, plan: TilePlan, want_deq: bool = True):
+    """Per-tile ECSQ quantize (+ dequantize).
 
     ``thresholds`` (n_tiles, N-1) / ``levels`` (n_tiles, N) are the
     :class:`~repro_torch.core.tiling.TileECSQ` tables (flat tile id =
     cgroup * n_sblocks + sblock); ``lo``/``hi`` the (n_cgroups,
     n_sblocks) clip ranges.  Bit-exact indices against the threshold
     compare formula (``xc >= t``)."""
-    shape = (plan.n_cgroups, plan.n_sblocks)
-    return ecsq_assign_tiles(
-        x.contiguous(), _f32(lo, x.device, shape), _f32(hi, x.device, shape),
-        _f32(thresholds, x.device, shape + (-1,)),
-        _f32(levels, x.device, shape + (-1,)), plan)
+    return ecsq_assign_tiles(*_ecsq_tables(x, lo, hi, thresholds, levels,
+                                           plan), want_deq=want_deq)
+
+
+def ecsq_quantize_tiled_coded(x: torch.Tensor, lo, hi, thresholds, levels,
+                              *, n_levels: int, plan: TilePlan):
+    """Per-tile ECSQ indices in coded order (flat, channel-major), one
+    launch on the card: the fast route's plans only (tables as
+    :func:`ecsq_quantize_tiled`)."""
+    return ecsq_assign_tiles_coded(*_ecsq_tables(x, lo, hi, thresholds,
+                                                 levels, plan))
 
 
 def encode_fused(x: torch.Tensor, lo, hi, *, n_levels: int, bits: int,

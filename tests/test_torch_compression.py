@@ -307,10 +307,12 @@ def test_split_runtime_matches_reference(reference, monkeypatch, layers,
             ref["tokens"][pos]), caches, pos)
         if transport != "raw":
             sent = codec.sent[pos]
-            # per-tensor codecs of a 1/2/4-bit width pack in the
-            # quantizer's pass; the others pack after it, or not at all
+            # uniform codecs of a 1/2/4-bit width, per tensor or per
+            # group of 8 channels last, pack in the quantizer's pass; the
+            # others pack after it, or not at all
             assert sent["fused"] == (case in ("packed-2", "packed-4",
-                                              "packed-16"))
+                                              "packed-16",
+                                              "packed-channel-g8"))
             np.testing.assert_allclose(sent["y"], ref["y"][pos], rtol=0,
                                        atol=1e-5)
             if not _same_or_at_edge(sent["payload"], ref["payload"][pos],

@@ -278,7 +278,8 @@ def test_rate_paths_count_in_the_quantizer(dev):
 def test_quantize_with_histogram_backends_agree(dev):
     """CudaBackend on the card and TorchBackend on the CPU copy (float32,
     where their formulas agree): same indices, reconstructions and
-    counts; specs whose quantizer does not count give no counts."""
+    counts (per tile for the plan); specs whose quantizer does not count
+    give no counts."""
     cb, tb = get_backend("cuda"), get_backend("torch")
     x_cpu = torch.from_numpy(np.random.default_rng(4).standard_normal(
         (8, 33, 256)).astype(np.float32) * 2)
@@ -293,7 +294,8 @@ def test_quantize_with_histogram_backends_agree(dev):
              "channel-g8": QuantSpec(lo, hi, 4, plan.channel_axis,
                                      plan=plan)}
     for name, spec in specs.items():
-        counts = name in ("tensor-4", "tensor-64")
+        # per tensor, and the g=8 plan on the tile quantizer's fast route
+        counts = name in ("tensor-4", "tensor-64", "channel-g8")
         for want_deq in (True, False):
             ki, kd, kh = cb.quantize_with_histogram(x, spec, want_deq)
             ti, td, th = tb.quantize_with_histogram(x_cpu, spec, want_deq)
@@ -764,3 +766,222 @@ def test_split_runtime_on_card(dev):
         unsplit.append(logits.to(torch.bfloat16).to(torch.float32))
         tok = unsplit[-1].argmax(-1)
     assert torch.equal(run("raw"), torch.stack(unsplit))
+
+
+# -- the fast routes of #2 and #8 -----------------------------------------------
+
+# (shape, channel_group): channels last, one spatial block -- the fast
+# route -- on each of #2's thread groups: a warp (the decode boundary, a
+# row, 1 to 24 values), a block (the prefill boundary), kSplit blocks (a
+# tile of 16,384 rows; groups of 256 at the prefill size), with short
+# last groups, groups of 8-256, up to 2^20 values and, at 4.8 million, a
+# tile whose threads count more than their register fields hold
+FAST_PLANS = {
+    "row-8": ((1, 8), 8),
+    "rows-3x24-g16": ((3, 24), 16),
+    "decode-g8": ((4, 1, 4096), 8),
+    "prefill-g8": ((4, 64, 4096), 8),
+    "prefill-g256": ((4, 64, 4096), 256),
+    "short-g64": ((700, 96), 64),
+    "narrow-g64": ((300, 16), 64),
+    "g32-odd-rows": ((333, 4, 40), 32),
+    "g128": ((5, 7, 1024), 128),
+    "split-g8": ((16384, 8), 8),
+    "split-2^20-g8": ((131072, 8), 8),
+    "split-match-g8": ((600000, 8), 8),
+}
+
+
+def _fast_case(dev, name, dtype, seed):
+    shape, group = FAST_PLANS[name]
+    c = shape[-1]
+    plan = TilePlan(channel_axis=-1, channel_group_size=group,
+                    spatial_block_size=0, n_channels=c)
+    n = int(np.prod(shape))
+    flat = _x(dev, n + 8, seed=seed, dtype=dtype) * 1.5
+    lo, hi = (torch.from_numpy(t).to(dev) for t in _ranges(plan, seed))
+    return plan, lo, hi, {"aligned": flat[8:n + 8].view(shape),
+                          "unaligned": flat[1:n + 1].view(shape)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_levels", [2, 3, 4, 16, 17, 64])
+@pytest.mark.parametrize("name", list(FAST_PLANS))
+def test_clip_quant_tiles_fast_route(dev, name, n_levels, dtype):
+    """#2's fast route, every variant -- indices and reconstruction, the
+    indices alone, either with the per-tile counts, and the packed bytes
+    with the counts at every width that holds N -- against the plain
+    version on aligned and unaligned views with values outside the
+    ranges: indices, reconstructions, bins and bytes exact; one launch
+    of #2 a call, no histogram or pack launch."""
+    plan, lo, hi, views = _fast_case(dev, name, dtype, n_levels)
+    for what, x in views.items():
+        maps = fcq.tile_maps(plan, x.shape, dev)
+        assert fcq.fast_route(maps)
+        pi, pd, ph = fcq.clip_quant_tiles_plain(x, lo, hi, n_levels, maps,
+                                                want_hist=True)
+        before = dict(_build.LAUNCHES)
+        ki, kd = fcq.clip_quant_tiles(x, lo, hi, n_levels, plan)
+        gi, gd = fcq.clip_quant_tiles(x, lo, hi, n_levels, plan,
+                                      want_deq=False)
+        hi_, hd, hh = fcq.clip_quant_tiles(x, lo, hi, n_levels, plan,
+                                           want_hist=True)
+        ii, idn, ih = fcq.clip_quant_tiles(x, lo, hi, n_levels, plan,
+                                           want_deq=False, want_hist=True)
+        assert _advanced(before, clip_quant_tiles=4, index_histogram_tiles=0)
+        assert torch.equal(ki, pi) and torch.equal(kd, pd), what
+        assert gd is None and torch.equal(gi, pi), what
+        assert torch.equal(hi_, pi) and torch.equal(hd, pd), what
+        assert torch.equal(hh, ph) and int(hh.sum()) == x.numel(), what
+        assert idn is None and torch.equal(ii, pi) and torch.equal(ih, ph)
+        for bits in (1, 2, 4):
+            if n_levels > 1 << bits:
+                continue
+            before = dict(_build.LAUNCHES)
+            kp, kh = fcq.clip_quant_tiles_pack(x, lo, hi, n_levels, plan,
+                                               bits)
+            assert _advanced(before, clip_quant_tiles=1, pack_bits=0)
+            pp, pph = fcq.clip_quant_tiles_pack_plain(x, lo, hi, n_levels,
+                                                      maps, bits)
+            assert torch.equal(kp, pp) and torch.equal(kh, pph), (what, bits)
+
+
+@pytest.mark.parametrize("name", ["decode-g8", "prefill-g8", "split-g8"])
+def test_clip_quant_tiles_variants_are_one_device_operation(dev, name):
+    plan, lo, hi, views = _fast_case(dev, name, torch.bfloat16, 4)
+    x = views["aligned"]
+    calls = [lambda: fcq.clip_quant_tiles(x, lo, hi, 4, plan),
+             lambda: fcq.clip_quant_tiles(x, lo, hi, 4, plan,
+                                          want_deq=False),
+             lambda: fcq.clip_quant_tiles(x, lo, hi, 4, plan,
+                                          want_deq=False, want_hist=True),
+             lambda: fcq.clip_quant_tiles(x, lo, hi, 4, plan,
+                                          want_hist=True),
+             lambda: fcq.clip_quant_tiles_pack(x, lo, hi, 4, plan, 2)]
+    for call in calls:
+        names = _device_ops(call)
+        assert len(names) == 1 and "clip_quant_tiles" in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_levels", [2, 4, 5, 16, 17, 64])
+@pytest.mark.parametrize("name", list(FAST_PLANS))
+def test_ecsq_assign_tiles_fast_route(dev, name, n_levels, dtype):
+    """#8's fast route -- indices and reconstruction, the indices alone,
+    the indices in coded order -- with register tables (N <= 16) and
+    shared ones (N > 16), against the plain version on aligned and
+    unaligned views: exact; one launch of #8 and one device operation a
+    call."""
+    plan, lo, hi, views = _fast_case(dev, name, dtype, n_levels + 100)
+    thr, lvl = (torch.from_numpy(t).to(dev).reshape(
+        plan.n_cgroups, 1, -1) for t in _ecsq_tables(
+            lo.cpu().numpy(), hi.cpu().numpy(), n_levels))
+    for what, x in views.items():
+        maps = fcq.tile_maps(plan, x.shape, dev)
+        pi, pd = ecsq_assign.ecsq_assign_tiles_plain(x, lo, hi, thr, lvl,
+                                                     maps)
+        before = dict(_build.LAUNCHES)
+        ki, kd = ecsq_assign.ecsq_assign_tiles(x, lo, hi, thr, lvl, plan)
+        gi, gd = ecsq_assign.ecsq_assign_tiles(x, lo, hi, thr, lvl, plan,
+                                               want_deq=False)
+        kc = ecsq_assign.ecsq_assign_tiles_coded(x, lo, hi, thr, lvl, plan)
+        assert _advanced(before, ecsq_assign_tiles=3)
+        assert torch.equal(ki, pi) and torch.equal(kd, pd), what
+        assert gd is None and torch.equal(gi, pi), what
+        assert torch.equal(kc, ecsq_assign.ecsq_assign_tiles_coded_plain(
+            x, lo, hi, thr, lvl, maps)), what
+        assert torch.equal(kc, pi.reshape(-1, x.shape[-1]).t().reshape(-1))
+    if n_levels != 4 or dtype != torch.bfloat16:
+        return                          # the serving codecs' case below
+    x = views["aligned"]
+    for call in (lambda: ecsq_assign.ecsq_assign_tiles(x, lo, hi, thr, lvl,
+                                                       plan),
+                 lambda: ecsq_assign.ecsq_assign_tiles(x, lo, hi, thr, lvl,
+                                                       plan, want_deq=False),
+                 lambda: ecsq_assign.ecsq_assign_tiles_coded(x, lo, hi, thr,
+                                                             lvl, plan)):
+        names = _device_ops(call)
+        assert len(names) == 1 and "ecsq_assign_tiles" in names[0], names
+
+
+def test_index_only_routes_write_no_reconstruction(dev):
+    """CudaBackend.quantize and quantize_with_histogram(want_deq=False)
+    on plan and ECSQ specs: the indices of quantize_dequantize, from a
+    call that allocates no reconstruction (the kernels take a null
+    pointer); the coded indices of a fast-route ECSQ plan in one launch
+    and one device operation."""
+    cb = get_backend("cuda")
+    shape, plan = _plan("channel-g8")
+    lo, hi = _ranges(plan)
+    x = _x(dev, int(np.prod(shape)), dtype=torch.bfloat16).reshape(shape)
+    thr, lvl = _ecsq_tables(lo.reshape(-1), hi.reshape(-1), 4)
+    q = design_ecsq(x.float().cpu().numpy().reshape(-1)[::7], 4, 0.05,
+                    -2.5, 3.0)
+    shape2, plan2 = _plan("2d-ragged-nchw")
+    lo2, hi2 = _ranges(plan2)
+    x2 = _x(dev, int(np.prod(shape2))).reshape(shape2)
+    thr2, lvl2 = _ecsq_tables(lo2.reshape(-1), hi2.reshape(-1), 4)
+    specs = [
+        (x, QuantSpec(lo, hi, 4, -1, plan=plan)),
+        (x, QuantSpec(lo, hi, 4, -1, TileECSQ(levels=lvl, thresholds=thr),
+                      plan)),
+        (x, QuantSpec(-2.5, 3.0, 4, ecsq=q)),
+        (x2, QuantSpec(lo2, hi2, 4, 1, plan=plan2)),
+        (x2, QuantSpec(lo2, hi2, 4, 1, TileECSQ(levels=lvl2,
+                                                 thresholds=thr2), plan2)),
+    ]
+    for xs, spec in specs:
+        want = cb.quantize_dequantize(xs, spec)[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        got = cb.quantize(xs, spec)
+        peak = torch.cuda.max_memory_allocated() - base
+        assert torch.equal(got, want)
+        assert peak <= got.numel() * 4 + (1 << 16), peak
+        got2, none, _ = cb.quantize_with_histogram(xs, spec, want_deq=False)
+        assert none is None and torch.equal(got2, want)
+    spec = specs[1][1]
+    before = dict(_build.LAUNCHES)
+    coded = cb.coded_indices_device(x, spec, 2)
+    assert _advanced(before, ecsq_assign_tiles=1)
+    assert torch.equal(coded.cpu(), torch.from_numpy(
+        plan.to_coded_order(cb.quantize(x, spec).cpu().numpy())))
+    names = _device_ops(lambda: cb.coded_indices_device(x, spec, 2))
+    assert len(names) == 1 and "ecsq_assign_tiles" in names[0], names
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 4096), (4, 64, 4096), (3, 5, 64)])
+def test_plan_codec_rate_paths_count_in_the_quantizer(dev, shape):
+    """A per-channel g=8 codec: ``quantize_with_rate`` and
+    ``apply_with_rate`` launch #2 once and #5 never, and
+    ``quantize_packed_with_rate`` launches #2 once and #9 and #5 never;
+    their rates equal the two-launch path's (quantize, then the tile
+    histogram) exactly and the packed bytes are those of quantize, then
+    pack; each quantizer stage is one device operation."""
+    c = shape[-1]
+    samples = _x(dev, 64 * c, seed=3).reshape(64, c).cpu().numpy()
+    codec = calibrate(CodecConfig(n_levels=4, clip_mode="minmax",
+                                  constrain_cmin_zero=False,
+                                  granularity="channel", channel_axis=-1,
+                                  channel_group_size=8, backend="cuda"),
+                      samples)
+    assert codec.packs_in_quantizer()
+    x = _x(dev, int(np.prod(shape)), dtype=torch.bfloat16).reshape(shape)
+    two_launch = codec.rate_from_indices(codec.quantize(x), x.shape)
+    before = dict(_build.LAUNCHES)
+    deq, rate = codec.apply_with_rate(x)
+    idx, none, rate2 = codec.quantize_with_rate(x)
+    packed, rate3 = codec.quantize_packed_with_rate(x)
+    assert _advanced(before, clip_quant_tiles=3, index_histogram_tiles=0,
+                     pack_bits=0)
+    assert torch.equal(deq, codec.apply(x)) and none is None
+    assert torch.equal(idx, codec.quantize(x))
+    assert torch.equal(packed, codec.pack(idx.reshape(-1)))
+    assert float(rate) == float(rate2) == float(rate3) == float(two_launch)
+    spec, bits = codec.spec(), codec.bits_per_index()
+    for fn in (lambda: codec.backend.quantize_with_histogram(x, spec),
+               lambda: codec.backend.quantize_packed_with_histogram(
+                   x, spec, bits)):
+        names = _device_ops(fn)
+        assert len(names) == 1 and "clip_quant_tiles" in names[0], names

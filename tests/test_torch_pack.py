@@ -171,8 +171,9 @@ def _unpacking_codec(kind: str):
     kw = {"tensor-8": {"n_levels": 8},               # 3-bit width
           "tensor-65": {"n_levels": 65},             # above 64 bins
           "tensor-256": {"n_levels": 256},           # 8-bit width
+          # groups of 3 channels: the per-tile quantizer's element route
           "channel": {"n_levels": 4, "granularity": "channel",
-                      "channel_axis": -1, "channel_group_size": 8,
+                      "channel_axis": -1, "channel_group_size": 3,
                       "clip_mode": "minmax"},
           "ecsq": {"n_levels": 4, "use_ecsq": True,
                    "clip_mode": "empirical"}}[kind]
