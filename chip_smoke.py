@@ -20,13 +20,17 @@ Phases, in order; any failure raises and exits non-zero:
    fast route (the g=8 boundaries) with and without its reconstruction,
    counting and packing, and on its element route (the other plans)
    without it, and the per-tile ECSQ quantizer (#8) likewise and in
-   coded order; the tile histogram on each of its routes, one device
-   operation a call; the histograms exact on two streams at once;
-   uniform reconstructions within 1 ulp, #2's at 0), then each kernel
+   coded order; the per-tensor ECSQ quantizer (#7) with and without its
+   reconstruction, counting and packing, from 1 to 4.8 million values;
+   the tile histogram on each of its routes, one device operation a
+   call; the histograms exact on two streams at once; uniform
+   reconstructions within 1 ulp, #2's at 0), then each kernel
    timed at both sizes the serving paths launch it at (for the
-   per-tensor and per-tile quantizers also with their histogram, with
-   and without the reconstruction, and packing; for #8 also indices
-   alone and in coded order; for the index histogram the whole wrapper
+   per-tensor quantizers (#1, #7) and the per-tile one also with their
+   histogram, with and without the reconstruction, and packing; for #8
+   also indices alone and in coded order; for #2's element route and
+   the tile histogram also (m)'s 2-D plan; for the index histogram the
+   whole wrapper
    call; for the rANS step loop: one chunk, the 16-chunk batch, a
    decode tensor), beside the plain version's time and the bound (for
    the step loop, the larger of its byte bound and its dependent chain:
@@ -43,8 +47,8 @@ Phases, in order; any failure raises and exits non-zero:
    ECSQ, ``codec=``; (f) per-channel ECSQ g=8, the bitstream hookup.
    Launch counts are reset before and read after each run -- also by
    size, prefill or decode -- and every kernel must have launched on its
-   run; (a) and (c) count their indices in the quantizer's launch and
-   must launch no histogram, with each boundary's rate equal to the
+   run; (a), (c) and (e) count their indices in the quantizer's launch
+   and must launch no histogram, with each boundary's rate equal to the
    two-launch path's (quantize, then histogram); every boundary's
    payloads of (f), whose ECSQ quantizer writes coded order, equal the
    parent's route's (quantize, then permute); on the prefill boundary of
@@ -55,27 +59,29 @@ Phases, in order; any failure raises and exits non-zero:
    split_runtime``) on the same model and weights, split 16 + 16 layers
    with both stages on this card: 4 sequences fed 8 prompt tokens one
    per decode step, then 8 greedy tokens (16 steps, ``max_seq`` 32), in
-   six runs -- (g) ``raw``; (h) ``packed`` per-tensor N=4; (i)
+   seven runs -- (g) ``raw``; (h) ``packed`` per-tensor N=4; (i)
    ``quantized_f16`` with (h)'s codec; (j) ``packed`` N=2; (k)
-   ``packed`` N=16; (l) ``packed`` per-channel g=8 N=4 -- every codec
+   ``packed`` N=16; (l) ``packed`` per-channel g=8 N=4; (n) ``packed``
+   per-tensor ECSQ N=4, designed as (e)'s -- every codec
    calibrated in "model" mode from the serve phase's warm-up batches at
    the split runtime's boundary.  (g) must equal the unsplit decode
    step's logits rounded through bfloat16, (h) and (i) must give
-   identical logits; (h), (j), (k) and (l) pack in the quantizer's
-   launch, so the pack kernel must never launch in (g)-(l), and their
-   payloads must be the bytes of the pack kernel's path (quantize, then
-   pack); (h)-(l) launch no histogram and each step's rate equals the
-   two-launch path's.  (h) then runs once more under ``torch.profiler``.
-   Then (m): the codec calls that still launch the standalone tile
-   histogram and pack -- ``tile_rate_bits`` of a 2-D tile codec,
-   ``pack`` of the per-channel ECSQ codec's indices -- against their
-   plain versions;
+   identical logits; (h), (j), (k), (l) and (n) pack in the quantizer's
+   launch, so the pack kernel must never launch in (g)-(l) and (n), and
+   their payloads must be the bytes of the pack kernel's path
+   (quantize, then pack); (h)-(l) and (n) launch no histogram and each
+   step's rate equals the two-launch path's.  (h) then runs once more
+   under ``torch.profiler``.  Then (m): the codec calls that still
+   launch the standalone index histogram, tile histogram and pack --
+   ``tile_rate_bits`` of a 2-D tile codec, ``pack`` of the per-channel
+   ECSQ codec's indices, ``rate_from_indices`` of (e)'s codec --
+   against their plain versions;
 6. launches -- each run's launch counts against the kernels it must
    launch.  The device operations (``torch.profiler``) of one decode
-   crossing of the (a) and (c) hookups (``apply_with_rate``) and of the
-   (h) and (l) split steps' crossings are counted at the end of phase 3:
-   their quantizer, histogram and pack stage must be one operation on
-   each.
+   crossing of the (a), (c) and (e) hookups (``apply_with_rate``) and
+   of the (h), (l) and (n) split steps' crossings are counted at the
+   end of phase 3: their quantizer, histogram and pack stage must be
+   one operation on each.
 
 The line before the last is the per-kernel JSON record (each kernel's
 numbers per size under ``sizes``, with its launches per run at that
@@ -118,7 +124,8 @@ ROADMAP = ROOT / "ROADMAP.md"    # its queue B table: each kernel's status
 # run -> (transport, split codec); the codecs are built in split_phase
 SPLIT_RUNS = {"g": ("raw", None), "h": ("packed", "tensor-4"),
               "i": ("quantized_f16", "tensor-4"), "j": ("packed", "tensor-2"),
-              "k": ("packed", "tensor-16"), "l": ("packed", "channel-4")}
+              "k": ("packed", "tensor-16"), "l": ("packed", "channel-4"),
+              "n": ("packed", "ecsq-4")}
 
 
 def bits_for(n_levels: int) -> int:
@@ -261,7 +268,7 @@ def ecsq_tables(lo: torch.Tensor, hi: torch.Tensor, n_levels: int, dev,
 
 
 def tiled_checks(boundary, dev):
-    """Exactness sweep of kernels #2, #5, #7 and #8 against their plain
+    """Exactness sweep of kernels #2, #5 and #8 against their plain
     versions, and of the megakernel's plan route against its CPU plain
     version: #2 on its fast route (the g=8 boundaries) with and without
     the reconstruction, with the per-tile counts and packing them at
@@ -332,13 +339,6 @@ def tiled_checks(boundary, dev):
                         ea.ecsq_assign_tiles_coded_plain(x, t_lo, t_hi, thr,
                                                          lvl, maps)),
                         f"ecsq_assign_tiles coded {what}")
-                thr, lvl = ecsq_tables(torch.tensor(lo, device=dev),
-                                       torch.tensor(hi, device=dev), n, dev,
-                                       seed=n)
-                ki, kd = ea.ecsq_assign(x, thr, lvl, lo, hi)
-                pi, pd = ea.ecsq_assign_plain(x, thr, lvl, lo, hi)
-                check(torch.equal(ki, pi) and torch.equal(kd, pd),
-                      f"ecsq_assign {what}")
         for n in (2, 4, 16, 64):
             bits = bits_for(n)
             xf = x0.float()
@@ -513,6 +513,55 @@ def pack_checks(dev):
               f"CudaBackend.pack_indices bits={bits}")
 
 
+def ecsq_tensor_checks(dev) -> None:
+    """Kernel #7's variants against their plain versions: indices and
+    reconstruction, indices alone, either with the histogram, and packed
+    at every width that holds N with the histogram -- sizes from 1 to 4.8
+    million values with ragged tails, aligned views and views that are
+    not, values outside the clip range, N in {2, 4, 16, 64}, float32 and
+    bfloat16; indices, bins and bytes exact, the reconstruction at 0
+    units (torch.equal).  The refusals: N = 16 at 2 bits."""
+    from repro_torch.kernels import ecsq_assign as ea
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    lo, hi = -2.0, 2.5
+    variants = (dict(), dict(want_deq=False), dict(want_hist=True),
+                dict(want_deq=False, want_hist=True))
+    for n in (1, 7, 4095, 4097, 16384, 70001, 1 << 20, 4_800_003):
+        x0 = torch.randn(n + 1, device=dev, generator=gen) * 2.5 + 0.3
+        for n_levels in (2, 4, 16, 64):
+            # host tables: the kernel takes them by value
+            thr, lvl = (t.cpu() for t in ecsq_tables(
+                torch.tensor(lo, device=dev), torch.tensor(hi, device=dev),
+                n_levels, dev, seed=n_levels))
+            for dtype in (torch.float32, torch.bfloat16):
+                x = x0.to(dtype)
+                for what, view in (("aligned", x[:n]), ("unaligned", x[1:])):
+                    case = f"N={n_levels} n={n} {dtype} {what}"
+                    for kw in variants:
+                        k_out = ea.ecsq_assign(view, thr, lvl, lo, hi, **kw)
+                        p_out = ea.ecsq_assign_plain(view, thr, lvl, lo, hi,
+                                                     **kw)
+                        check(all(a is None and b is None
+                                  or torch.equal(a, b)
+                                  for a, b in zip(k_out, p_out)),
+                              f"ecsq_assign {kw} {case}")
+                    for bits in (1, 2, 4):
+                        if n_levels <= 1 << bits:
+                            kp, kh = ea.ecsq_assign_pack(view, thr, lvl, lo,
+                                                         hi, bits)
+                            pp, ph = ea.ecsq_assign_pack_plain(
+                                view, thr, lvl, lo, hi, bits)
+                            check(torch.equal(kp, pp) and torch.equal(kh, ph),
+                                  f"ecsq_assign_pack bits={bits} {case}")
+    try:
+        ea.ecsq_assign_pack(x0, thr[:15], lvl[:16], lo, hi, 2)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("ecsq_assign_pack took N=16 at 2 bits")
+
+
 def tile_histogram_checks(boundary, dev) -> dict:
     """Kernel #5 against its plain version on each of its routes -- a warp
     a tile (the decode boundary under the g=8 plan of (c) and (l)), a
@@ -575,9 +624,11 @@ def tile_histogram_checks(boundary, dev) -> dict:
 
 
 def two_stream_checks(dev) -> None:
-    """The histograms of #4 (2^20 and 2^22 indices) and #1 (2^20 values)
-    launched 50 times each on each of two side streams, interleaved with
-    no sync: every bin exact (each stream has its own ticket word)."""
+    """The histograms of #4 (2^20 and 2^22 indices), #1 and #7 (2^20
+    values each) launched 50 times each on each of two side streams,
+    interleaved with no sync: every bin exact (each stream has its own
+    ticket word)."""
+    from repro_torch.kernels import ecsq_assign as ea
     from repro_torch.kernels import fused_clip_quant as fcq
     from repro_torch.kernels import ops, rate_hist
 
@@ -586,8 +637,12 @@ def two_stream_checks(dev) -> None:
                          dtype=torch.int32) for n in (1 << 20, 1 << 22)]
     x = (torch.randn(1 << 20, device=dev, generator=gen) * 2).to(
         torch.bfloat16)
+    thr = torch.tensor([-0.9, 0.1, 1.2])
+    lvl = torch.tensor([-1.5, -0.4, 0.6, 2.75])
     want = [rate_hist.index_histogram_plain(i, 16) for i in idx] + [
         fcq.clip_quant_plain(x, -1.5, 2.75, 4, want_deq=False,
+                             want_hist=True)[2],
+        ea.ecsq_assign_plain(x, thr, lvl, -1.5, 2.75, want_deq=False,
                              want_hist=True)[2]]
     streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
     torch.cuda.synchronize()
@@ -599,7 +654,10 @@ def two_stream_checks(dev) -> None:
                             ops.index_histogram(idx[1], n_levels=16),
                             fcq.clip_quant_2d(x, -1.5, 2.75, 4,
                                               want_deq=False,
-                                              want_hist=True)[2]))
+                                              want_hist=True)[2],
+                            ea.ecsq_assign(x, thr, lvl, -1.5, 2.75,
+                                           want_deq=False,
+                                           want_hist=True)[2]))
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for out in got for a, b in zip(out, want)),
           "histograms on two streams at once differ from the plain version")
@@ -613,8 +671,8 @@ def size_class(kernel: str, symbol: str, args) -> str:
     arguments (elements per call).  The step loop's arguments do not hold
     its size, so the indices of the batch it codes are recorded as the
     batch is dispatched (``STEP_INDICES``); a batch of at least one chunk
-    but below the prefill size is a "chunk".  The per-tensor quantizer's
-    class also names what it wrote besides the indices: "" (the
+    but below the prefill size is a "chunk".  The per-tensor quantizers'
+    (#1, #7) class also names what it wrote besides the indices: "" (the
     reconstruction), " +hist" (and the histogram), " idx+hist" (the
     histogram alone) or " idx" (neither); its packing variant " +pack"
     (packed bytes and the histogram, no indices).  The tiled quantizers
@@ -633,6 +691,13 @@ def size_class(kernel: str, symbol: str, args) -> str:
         return ("prefill" if args[2] * args[3] >= 600_000 else "decode") + (
             " +pack" if args[8] else " +hist" if deq and hist
             else " idx+hist" if hist else "" if deq else " idx")
+    if symbol == "repro_ecsq_assign_pack":
+        return ("prefill" if args[2] >= 600_000 else "decode") + " +pack"
+    if symbol == "repro_ecsq_assign":
+        deq, hist = args[9] is not None, args[10] is not None
+        return ("prefill" if args[2] >= 600_000 else "decode") + (
+            " +hist" if deq and hist else " idx+hist" if hist
+            else "" if deq else " idx")
     if symbol == "repro_ecsq_assign_tiles_fast":
         return ("prefill" if args[2] * args[3] >= 600_000 else "decode") + (
             " coded" if args[12] else "" if args[11] is not None else " idx")
@@ -943,8 +1008,12 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
     # range tables 8 B a tile.
     tiles = plan.n_tiles
     hist_b = tiles * N_SERVE * 4
-    thr1, lvl1 = ecsq_tables(torch.tensor(lo, device=dev),
-                             torch.tensor(hi, device=dev), N_SERVE, dev, 7)
+    # #7's table in host memory (the kernel takes it by value), and on
+    # the card for the library call
+    thr1_dev, lvl1 = ecsq_tables(torch.tensor(lo, device=dev),
+                                 torch.tensor(hi, device=dev), N_SERVE, dev,
+                                 7)
+    thr1, lvl1 = thr1_dev.cpu(), lvl1.cpu()
     thr, lvl = ecsq_tables(t_lo, t_hi, N_SERVE, dev, 8)
     s2, s5, s7, s8 = {}, {}, {}, {}
     for size, x in bnd.items():
@@ -988,17 +1057,43 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
             plain=lambda i=ki, m=maps: rate_hist.index_histogram_tiles_plain(
                 i, N_SERVE, m),
             nbytes=n * 4 + hist_b, nops=n, err=diff(kh, ph))
-        # the library yardstick of #7 is torch.bucketize on a float32
-        # copy (matching dtypes), indices only
-        ki, kd = ea.ecsq_assign(x, thr1, lvl1, lo, hi)
-        pi, pd = ea.ecsq_assign_plain(x, thr1, lvl1, lo, hi)
+        # #7: indices and reconstruction; indices alone (" idx",
+        # CudaBackend.quantize); with the histogram (" +hist", (e)'s
+        # stage); with it and no reconstruction (" idx+hist"); packed
+        # 2-bit with the histogram (" +pack", (n)'s stage).  The library
+        # yardstick is torch.bucketize on a float32 copy (matching
+        # dtypes), indices only.  Table 7 floats, bins 256 B.
         xf32 = x.float()
-        s7[size] = dict(
-            kernel=lambda x=x: ea.ecsq_assign(x, thr1, lvl1, lo, hi),
-            plain=lambda x=x: ea.ecsq_assign_plain(x, thr1, lvl1, lo, hi),
-            nbytes=n * (2 + 4 + 2) + (2 * N_SERVE - 1) * 4,
-            nops=(N_SERVE + 1) * n, err=max(diff(ki, pi), diff(kd, pd)),
-            library=lambda xf=xf32: torch.bucketize(xf, thr1, right=True))
+        variants = {"": dict(), " idx": dict(want_deq=False),
+                    " +hist": dict(want_hist=True),
+                    " idx+hist": dict(want_deq=False, want_hist=True)}
+        for tag, kw in variants.items():
+            k_out = ea.ecsq_assign(x, thr1, lvl1, lo, hi, **kw)
+            p_out = ea.ecsq_assign_plain(x, thr1, lvl1, lo, hi, **kw)
+            s7[size + tag] = dict(
+                kernel=lambda x=x, kw=kw: ea.ecsq_assign(x, thr1, lvl1, lo,
+                                                         hi, **kw),
+                plain=lambda x=x, kw=kw: ea.ecsq_assign_plain(
+                    x, thr1, lvl1, lo, hi, **kw),
+                nbytes=n * (2 + 4 + (2 if kw.get("want_deq", True) else 0))
+                + (2 * N_SERVE - 1) * 4
+                + (64 * 4 if kw.get("want_hist") else 0),
+                nops=(N_SERVE + 1) * n,
+                err=max(diff(a, b) for a, b in zip(k_out, p_out)
+                        if a is not None),
+                library=lambda xf=xf32: torch.bucketize(xf, thr1_dev,
+                                                        right=True))
+        kp, kh = ea.ecsq_assign_pack(x, thr1, lvl1, lo, hi, bits)
+        pp, ph = ea.ecsq_assign_pack_plain(x, thr1, lvl1, lo, hi, bits)
+        s7[size + " +pack"] = dict(
+            kernel=lambda x=x: ea.ecsq_assign_pack(x, thr1, lvl1, lo, hi,
+                                                   bits),
+            plain=lambda x=x: ea.ecsq_assign_pack_plain(x, thr1, lvl1, lo,
+                                                        hi, bits),
+            nbytes=n * 2 + n // per + (2 * N_SERVE - 1) * 4 + 64 * 4,
+            nops=(N_SERVE + 1) * n, err=max(diff(kp, pp), diff(kh, ph)),
+            library=lambda xf=xf32: torch.bucketize(xf, thr1_dev,
+                                                    right=True))
         xcm = fcq.channel_major(x, maps).float().reshape(tiles, -1) \
             .contiguous()
         thr2 = thr.reshape(tiles, N_SERVE - 1).contiguous()
@@ -1028,6 +1123,33 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
             nbytes=n * (2 + 4) + tab_b, nops=(N_SERVE + 1) * n,
             err=diff(kc, pc),
             library=lambda xc=xcm: torch.searchsorted(thr2, xc, right=True))
+    # (m)'s calls on its 2-D tile plan (4,096 tiles, the prefill
+    # boundary): #2's element route, indices only, and #5
+    t2d = tile2d_codec(bnd["prefill"])
+    x = bnd["prefill"]
+    n, tiles2 = x.numel(), t2d.plan.n_tiles
+    maps = fcq.tile_maps(t2d.plan, x.shape, dev)
+    lo2, hi2 = (ops._f32(t, dev, (t2d.plan.n_cgroups, t2d.plan.n_sblocks))
+                for t in t2d.tile_tables())
+    ki, _ = fcq.clip_quant_tiles(x, lo2, hi2, N_SERVE, t2d.plan,
+                                 want_deq=False)
+    pi, _ = fcq.clip_quant_tiles_plain(x, lo2, hi2, N_SERVE, maps,
+                                       want_deq=False)
+    s2["prefill element idx"] = dict(
+        kernel=lambda: fcq.clip_quant_tiles(x, lo2, hi2, N_SERVE, t2d.plan,
+                                            want_deq=False),
+        plain=lambda: fcq.clip_quant_tiles_plain(x, lo2, hi2, N_SERVE, maps,
+                                                 want_deq=False),
+        nbytes=n * (2 + 4) + tiles2 * 8, nops=6 * n, err=diff(ki, pi))
+    kh = rate_hist.index_histogram_tiles(ki, N_SERVE, t2d.plan)
+    s5["2-D plan prefill"] = dict(
+        kernel=lambda: rate_hist.index_histogram_tiles(ki, N_SERVE,
+                                                       t2d.plan),
+        plain=lambda: rate_hist.index_histogram_tiles_plain(ki, N_SERVE,
+                                                            maps),
+        nbytes=n * 4 + tiles2 * N_SERVE * 4, nops=n,
+        err=diff(kh, rate_hist.index_histogram_tiles_plain(ki, N_SERVE,
+                                                           maps)))
     row("clip_quant_tiles", "fused_clip_quant.cu",
         "src/repro/kernels/fused_clip_quant.py:55", s2)
     row("index_histogram_tiles", "rate_hist.cu",
@@ -1151,7 +1273,7 @@ def serve(dev):
     print("serve warm-up (no codec):")
     S.run(cfg, params, **run_kw)
 
-    rated = {"a": [], "c": []}
+    rated = {"a": [], "c": [], "e": []}
     runs = {"a": ("tensor", "codec"), "b": ("tensor", "host"),
             "c": ("channel", "codec"), "d": ("channel", "host"),
             "e": ("ecsq_tensor", "codec"), "f": ("ecsq_channel", "host")}
@@ -1183,10 +1305,11 @@ def serve(dev):
     for run_id in ("a", "b"):
         profiled(f"({run_id})", lambda: S.run(cfg, params, **hookups[run_id],
                                               **run_kw))
-    # one prefill boundary, then NEW_TOKENS - 1 decode boundaries; (a) and
-    # (c) count their indices in the quantizer's launch
+    # one prefill boundary, then NEW_TOKENS - 1 decode boundaries; (a),
+    # (c) and (e) count their indices in the quantizer's launch
     same_rates("(a)", codecs["tensor"], seen["a"], NEW_TOKENS)
     same_rates("(c)", codecs["channel"], seen["c"], NEW_TOKENS)
+    same_rates("(e)", codecs["ecsq_tensor"], seen["e"], NEW_TOKENS)
     # (f): every boundary's payloads against the parent's route to the
     # device entropy stage (the element route's indices, reconstruction
     # written, permuted to coded order by a copy)
@@ -1264,30 +1387,43 @@ def same_payloads(label: str, codec, seen: list) -> None:
           "the parent's route's")
 
 
+def tile2d_codec(pre):
+    """(m)'s 2-D tile codec: groups of GROUP channels by blocks of 2 x 16
+    positions, ranges by min/max of ``pre``."""
+    from repro_torch.core import CodecConfig, calibrate
+    codec = calibrate(CodecConfig(
+        n_levels=N_SERVE, clip_mode="minmax", constrain_cmin_zero=False,
+        granularity="tile", channel_axis=-1, channel_group_size=GROUP,
+        spatial_block_hw=(2, 16), backend="cuda"),
+        pre.float().cpu().numpy())
+    check(codec.plan.is_2d, "(m) tile codec plan")
+    return codec
+
+
 def codec_calls(boundary, codecs, dev) -> dict:
     """Run (m): the codec calls that still launch the standalone tile
-    histogram (#5) and pack (#9) -- ``FeatureCodec.tile_rate_bits`` of a
-    2-D tile codec on the seeded prefill boundary (its quantizer takes the
-    element route), and ``FeatureCodec.pack`` of the per-channel ECSQ
-    codec's indices of the decode boundary -- each against its two-step
-    definition.  Returns the run's launch counts."""
+    histogram (#5), pack (#9) and index histogram (#4) --
+    ``FeatureCodec.tile_rate_bits`` of a 2-D tile codec on the seeded
+    prefill boundary (its quantizer takes the element route),
+    ``FeatureCodec.pack`` of the per-channel ECSQ codec's indices of the
+    decode boundary, and ``rate_from_indices`` of the per-tensor ECSQ
+    codec's -- each against its two-step definition.  Returns the run's
+    launch counts."""
     from repro_torch.core import CodecConfig, calibrate
     from repro_torch.core.rate_model import estimated_bits_from_tile_hists
     from repro_torch.kernels import _build, pack_bits, rate_hist
     from repro_torch.kernels import fused_clip_quant as fcq
     pre, dec = boundary["prefill"], boundary["decode"]
-    tile2d = calibrate(CodecConfig(
-        n_levels=N_SERVE, clip_mode="minmax", constrain_cmin_zero=False,
-        granularity="tile", channel_axis=-1, channel_group_size=GROUP,
-        spatial_block_hw=(2, 16), backend="cuda"),
-        pre.float().cpu().numpy())
-    check(tile2d.plan.is_2d, "(m) tile codec plan")
+    tile2d = tile2d_codec(pre)
     ecsq = codecs["ecsq_channel"]
+    ecsq_t = codecs["ecsq_tensor"]
     _build.reset_launches()
     SIZE_LAUNCHES.clear()
     bits_2d = tile2d.tile_rate_bits(pre)
     idx = ecsq.quantize(dec)
     packed = ecsq.pack(idx)
+    idx_t = ecsq_t.quantize(dec)
+    rate_t = ecsq_t.rate_from_indices(idx_t, tuple(dec.shape))
     torch.cuda.synchronize()
     counts = dict(_build.LAUNCHES)
     RUN_SIZES["m"] = dict(SIZE_LAUNCHES)
@@ -1299,9 +1435,13 @@ def codec_calls(boundary, codecs, dev) -> dict:
     check(torch.equal(bits_2d, want), "(m) tile_rate_bits")
     check(torch.equal(packed, pack_bits.pack_bits_plain(
         idx.reshape(-1), ecsq.bits_per_index())), "(m) pack")
+    check(float(rate_t) == float(ecsq_t._rate_from_counts(
+        rate_hist.index_histogram_plain(idx_t, N_SERVE), tuple(dec.shape))),
+        "(m) rate_from_indices")
     print(f"codec calls (m): tile_rate_bits of a 2-D tile codec "
           f"({tile2d.plan.n_tiles} tiles) on the prefill boundary, pack of "
-          "the per-channel ECSQ codec's decode indices: launches "
+          "the per-channel ECSQ codec's decode indices, rate_from_indices "
+          "of the per-tensor ECSQ codec's: launches "
           + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
     return counts
 
@@ -1323,7 +1463,10 @@ def split_codecs(cfg, params, half: int, dev) -> dict:
              "tensor-16": (dict(n_levels=16), samples.reshape(-1)),
              "channel-4": (dict(n_levels=4, granularity="channel",
                                 channel_axis=-1, channel_group_size=GROUP),
-                           samples)}
+                           samples),
+             "ecsq-4": (dict(n_levels=4, use_ecsq=True,
+                             ecsq_lagrangian=ECSQ_LAGRANGIAN),
+                        samples.reshape(-1))}
     codecs = {}
     for kind, (kw, data) in kinds.items():
         t0 = time.perf_counter()
@@ -1387,8 +1530,8 @@ def split_decode(step, params, caches, prompt):
 
 
 def split_phase(cfg, params, dev) -> dict:
-    """Runs (g)-(l) of the packed split runtime; returns their launch
-    counts."""
+    """Runs (g)-(l) and (n) of the packed split runtime; returns their
+    launch counts."""
     from repro_torch.compression import split_runtime as SR
     from repro_torch.kernels import _build
     from repro_torch.models import decode_step, init_cache
@@ -1453,7 +1596,7 @@ def split_phase(cfg, params, dev) -> dict:
         check(set(sent) == {want}, f"({run_id}) link bytes {set(sent)} != "
               f"{want}")
         fused = transport == "packed" and codec.packs_in_quantizer()
-        check(fused == (run_id in "hjkl"), f"({run_id}) fused {fused}")
+        check(fused == (run_id in "hjkln"), f"({run_id}) fused {fused}")
         packs = counts[run_id]["pack_bits"]
         check(packs == (steps if transport == "packed" and not fused
                         else 0),
@@ -1483,9 +1626,9 @@ def split_phase(cfg, params, dev) -> dict:
           "(h) and (i) must give identical logits and tokens: the pack is "
           "lossless")
     print("split checks: (g) equals the unsplit decode; (h) and (i) "
-          "identical; (h), (j), (k) and (l) pack in the quantizer's launch, "
-          "each payload the bytes of quantize, then pack; pack_bits never "
-          "launched in (g)-(l)")
+          "identical; (h), (j), (k), (l) and (n) pack in the quantizer's "
+          "launch, each payload the bytes of quantize, then pack; pack_bits "
+          "never launched in (g)-(l), (n)")
     return counts
 
 
@@ -1559,10 +1702,11 @@ def device_ops(fn) -> list[str]:
 
 
 def crossing_ops(boundary, dev) -> dict:
-    """Device operations of one decode crossing of the (a) and (c) hookups
-    (``apply_with_rate``) and of the (h) and (l) split steps (their
-    crossing, from the step's closure) -- a per-tensor and a per-channel
-    g=8 N=4 codec at the boundary's range on the seeded decode boundary:
+    """Device operations of one decode crossing of the (a), (c) and (e)
+    hookups (``apply_with_rate``) and of the (h), (l) and (n) split steps
+    (their crossing, from the step's closure) -- a per-tensor, a
+    per-channel g=8 and a per-tensor ECSQ N=4 codec at the boundary's
+    range on the seeded decode boundary:
     the quantizer, histogram and pack stage, and the whole call.  Counted
     before the serving runs: on torch 2.11 a profiler session after their
     long profiles recorded none of this library's kernels (PERF.md)."""
@@ -1573,6 +1717,7 @@ def crossing_ops(boundary, dev) -> dict:
 
     def short(names):
         keys = ("clip_quant_tiles", "clip_quant_pack", "clip_quant",
+                "ecsq_assign_tiles", "ecsq_assign_pack", "ecsq_assign",
                 "index_histogram_tiles", "index_histogram", "pack_bits")
         return [next((k for k in keys if k in nm), nm[:40]) for nm in names]
 
@@ -1587,9 +1732,16 @@ def crossing_ops(boundary, dev) -> dict:
         granularity="channel", channel_axis=-1, channel_group_size=GROUP,
         backend="cuda"), boundary["prefill"].float().reshape(
             -1, x.shape[-1]).cpu().numpy())
+    # per-tensor ECSQ N=4, designed on the seeded prefill boundary
+    ecsq = calibrate(CodecConfig(
+        n_levels=N_SERVE, clip_mode="manual", manual_cmin=lo,
+        manual_cmax=hi, use_ecsq=True, ecsq_lagrangian=ECSQ_LAGRANGIAN,
+        backend="cuda"), boundary["prefill"].float().reshape(-1)[::16]
+        .cpu().numpy())
     out = {}
     with torch.inference_mode():
-        for (hookup, split), codec in (("ah", tensor), ("cl", channel)):
+        for (hookup, split), codec in (("ah", tensor), ("cl", channel),
+                                       ("en", ecsq)):
             spec = codec.spec()
             step = SR.make_split_decode_step(
                 get_config("codeqwen1.5-7b"), codec, transport="packed",
@@ -1610,7 +1762,8 @@ def crossing_ops(boundary, dev) -> dict:
                             x, sp, c.bits_per_index()))),
                 "whole_crossing": len(device_ops(lambda f=cross: f(x)))}
     want = {"a": "clip_quant", "h": "clip_quant_pack",
-            "c": "clip_quant_tiles", "l": "clip_quant_tiles"}
+            "c": "clip_quant_tiles", "l": "clip_quant_tiles",
+            "e": "ecsq_assign", "n": "ecsq_assign_pack"}
     for run_id, kernel in want.items():
         check(out[run_id]["stage"] == [kernel],
               f"({run_id}) quantizer + histogram (+ pack) stage: "
@@ -1707,6 +1860,7 @@ def main() -> int:
     boundary = synthetic_boundary(dev)
     worst = max(kernel_checks(boundary, dev), tiled_checks(boundary, dev))
     pack_checks(dev)
+    ecsq_tensor_checks(dev)
     # every torch.profiler count in one stretch, before the side streams
     # and the timings: a session after them recorded no device operation
     # on torch 2.11 (PERF.md)
@@ -1730,15 +1884,16 @@ def main() -> int:
     # 6. launch counts of the serving and split runs and of (m): each
     # kernel's count is read from the first run named here, and every
     # kernel must launch on each run listed for it
-    runs_of = {"clip_quant": "ahijk", "index_histogram": "e",
+    runs_of = {"clip_quant": "ahijk", "index_histogram": "m",
                "encode_tiles": "bd", "rans_step": "bdf",
                "clip_quant_tiles": "clm", "index_histogram_tiles": "m",
-               "ecsq_assign": "e", "ecsq_assign_tiles": "fm",
+               "ecsq_assign": "enm", "ecsq_assign_tiles": "fm",
                "pack_bits": "m"}
     check(sorted(r_["name"] for r_ in rows) == sorted(runs_of),
           "the kernel table must list every ported kernel")
-    # each counts its indices in the quantizer (and (h)-(l) pack them)
-    for run_id in "ahijkcl":
+    # each counts its indices in the quantizer (and (h)-(l), (n) pack
+    # them)
+    for run_id in "ahijkclen":
         for kernel in ("index_histogram", "index_histogram_tiles",
                        "pack_bits"):
             check(counts[run_id][kernel] == 0, f"{kernel} launched "
@@ -1754,12 +1909,24 @@ def main() -> int:
         # a route ("plan prefill") take the class of their last word
         for size, t in r_["sizes"].items():
             cls = size if name_ in ("clip_quant", "clip_quant_tiles",
-                                    "ecsq_assign_tiles") \
+                                    "ecsq_assign", "ecsq_assign_tiles") \
                 else size.split()[-1]
             route = runs_of[name_] if name_ != "encode_tiles" else \
                 "d" if size.startswith("plan") else "b"
+            if name_ in ("clip_quant_tiles", "index_histogram_tiles"):
+                # (m)'s 2-D plan has sizes of its own
+                route = "m" if "2-D" in size or "element" in size \
+                    else route.replace("m", "")
             t["launches"] = {run_id: RUN_SIZES[run_id].get((name_, cls), 0)
                              for run_id in route}
+    # the time each kernel loses to its bound in one run of phases 4-5 and
+    # (m): launches x (time - bound), summed over its timed sizes
+    def lost(r_):
+        return sum(sum(t["launches"].values()) * (t["ms"] - t["bound_ms"])
+                   for t in r_["sizes"].values())
+
+    print("ranking, launches x (time - bound) over the runs, ms: "
+          + ", ".join(f"{r_['name']} {lost(r_):.4f}" for r_ in rows))
     for run_id, c in counts.items():
         print(f"launches ({run_id}): "
               + ", ".join(f"{k} {v}" for k, v in c.items() if v)

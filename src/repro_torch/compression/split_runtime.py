@@ -12,16 +12,17 @@ payload's ``.to(cloud_device)``.  With both stages on one card it moves
 no bytes, and the payload's size is what a link would carry.
 
 The codec ops route through the codec's backend: on the card the
-quantize is the clip+quant kernel, which for a per-tensor codec, and for
-a per-channel one with channels last and groups of 8-256 channels (e.g.
+quantize is the clip+quant kernel (the ECSQ kernel for an ECSQ codec),
+which for a per-tensor codec, uniform or ECSQ, and for a uniform
+per-channel one with channels last and groups of 8-256 channels (e.g.
 ``granularity="channel"`` over the d_model axis at g=8), also counts the
 indices for the rate estimate in the same launch and writes no
 reconstruction; on the packed transport, at a 1/2/4-bit wire width, the
 same launch writes the packed bytes in place of the indices
 (``quantize_packed_with_rate``), so the edge's stage is one launch.
-Other tiled codecs take the per-tile clip+quant kernel, then the
-per-tile index histogram kernel, and on the packed transport the pack
-kernel.  On the CPU the torch formulas.
+Other tiled codecs take the per-tile quantizer, then the per-tile index
+histogram kernel, and on the packed transport the pack kernel.  On the
+CPU the torch formulas.
 
 The reference (``repro/compression/split_runtime.py``) writes the same
 flow as SPMD over a shard_map'd ``pod`` axis, where both pods run both

@@ -21,12 +21,13 @@ Backends implement nine primitives over a :class:`QuantSpec`:
     encode_fused(x, spec, bits)   -> (coded-order indices, per-tile hists)
 
 ``quantize_with_histogram`` is the in-graph rate path's single-pass
-contract: for a uniform spec of at most
-:data:`~repro_torch.kernels.rate_hist.MAX_LEVELS` levels, per tensor or
-under a plan the per-tile quantizer's fast route takes (channels last,
-one spatial block, channel groups of 8-256), the CUDA backend's one
-clip+quant launch also counts the indices -- (N,), or (n_cgroups, 1, N)
-per tile -- and writes no reconstruction unless asked; every other spec
+contract: for a spec of at most
+:data:`~repro_torch.kernels.rate_hist.MAX_LEVELS` levels, per tensor
+(uniform or ECSQ) or uniform under a plan the per-tile quantizer's fast
+route takes (channels last, one spatial block, channel groups of 8-256),
+the CUDA backend's one quantizer launch also counts the indices -- (N,),
+or (n_cgroups, 1, N) per tile -- and writes no reconstruction unless
+asked; every other spec
 returns ``None`` for the counts, decided from the spec before any
 launch, and its caller histograms the indices itself.  The torch
 backend makes the same choice.  ``quantize_packed_with_histogram`` goes
@@ -338,13 +339,14 @@ def _ecsq_qdq(x: torch.Tensor, spec: QuantSpec, want_deq: bool):
 
 def _counts_in_quantizer(spec: QuantSpec) -> bool:
     """Whether ``quantize_with_histogram`` returns counts for ``spec``
-    (normalized): uniform, within the histogram kernels' width, per
-    tensor or under a plan the per-tile quantizer's fast route takes
-    (:func:`~repro_torch.kernels.fused_clip_quant.plan_fast_route`:
-    channels last, one spatial block, channel groups of 8-256)."""
+    (normalized): within the histogram kernels' width, per tensor
+    (uniform or ECSQ), or uniform under a plan the per-tile quantizer's
+    fast route takes (:func:`~repro_torch.kernels.fused_clip_quant.
+    plan_fast_route`: channels last, one spatial block, channel groups of
+    8-256).  Per-tile ECSQ (``TileECSQ``) does not count."""
     from ..kernels.fused_clip_quant import plan_fast_route
     from ..kernels.rate_hist import MAX_LEVELS
-    if spec.ecsq is not None or spec.n_levels > MAX_LEVELS:
+    if spec.n_levels > MAX_LEVELS or isinstance(spec.ecsq, TileECSQ):
         return False
     return spec.plan is None or plan_fast_route(spec.plan)
 
@@ -362,13 +364,15 @@ def packs_in_quantizer(spec: QuantSpec, bits: int) -> bool:
 
 def _check_packs(spec: QuantSpec, bits: int) -> None:
     if not packs_in_quantizer(spec, bits):
-        kind = "ECSQ" if spec.ecsq is not None else \
+        kind = "per-tile ECSQ" if isinstance(spec.ecsq, TileECSQ) else \
+            "per-tensor ECSQ" if spec.ecsq is not None else \
             "tile plan" if spec.plan is not None else "per-tensor uniform"
         raise ValueError(
-            "the quantizer packs per-tensor uniform specs, and plans "
-            "with channels last, one spatial block and groups of 8-256 "
-            "channels, of at most 64 levels at 1/2/4 bits; got a "
-            f"{kind} spec of {spec.n_levels} levels at {bits} bits")
+            "the quantizer packs per-tensor specs (uniform or ECSQ) and "
+            "uniform plans with channels last, one spatial block and "
+            "groups of 8-256 channels, at 1/2/4 bits with every index "
+            f"fitting its lane; got a {kind} spec of {spec.n_levels} "
+            f"levels at {bits} bits")
 
 
 def _counts(backend, idx: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
@@ -507,7 +511,8 @@ class CudaBackend:
 
     Quantization runs the per-tensor or per-tile clip+quant kernel, or
     the per-tensor or per-tile ECSQ assignment kernel (the clip+quant
-    kernels also count, and pack, their indices for the specs
+    kernels and the per-tensor ECSQ kernel also count, and pack, their
+    indices for the specs
     :func:`_counts_in_quantizer` takes; the per-tile ECSQ kernel writes
     coded order for ``coded_indices_device``); histograms the global or
     per-tile index histogram kernel; the fused encode the megakernel
@@ -541,11 +546,11 @@ class CudaBackend:
     def quantize_with_histogram(self, x, spec: QuantSpec,
                                 want_deq: bool = True):
         """(indices, reconstruction or None, counts or None).  For the
-        specs :func:`_counts_in_quantizer` takes -- per-tensor uniform, or
-        a plan on the per-tile quantizer's fast route, of at most 64
-        levels -- one clip+quant launch also counts its indices ((N,), or
-        (n_cgroups, 1, N) per tile); any other spec takes its quantizer
-        alone and returns no counts."""
+        specs :func:`_counts_in_quantizer` takes -- per tensor, uniform or
+        ECSQ, or a uniform plan on the per-tile quantizer's fast route, of
+        at most 64 levels -- one quantizer launch (clip+quant or ECSQ)
+        also counts its indices ((N,), or (n_cgroups, 1, N) per tile); any
+        other spec takes its quantizer alone and returns no counts."""
         from ..kernels import ops
         spec = _normalize(spec)
         x = self._in(x)
@@ -556,6 +561,11 @@ class CudaBackend:
                                            n_levels=spec.n_levels,
                                            plan=spec.plan, want_deq=want_deq,
                                            want_hist=True)
+        if spec.ecsq is not None:
+            return ops.ecsq_quantize(x, spec.ecsq.thresholds,
+                                     spec.ecsq.levels, cmin=float(spec.cmin),
+                                     cmax=float(spec.cmax),
+                                     want_deq=want_deq, want_hist=True)
         return ops.clip_quantize(x, cmin=float(spec.cmin),
                                  cmax=float(spec.cmax),
                                  n_levels=spec.n_levels, want_deq=want_deq,
@@ -564,8 +574,9 @@ class CudaBackend:
     def quantize_packed_with_histogram(self, x, spec: QuantSpec,
                                        bits: int):
         """(packed uint8 wire bytes of the flat indices, counts) from one
-        clip+quant launch that packs and counts its indices, for the
-        specs :func:`packs_in_quantizer` takes; any other spec raises."""
+        quantizer launch (clip+quant or ECSQ) that packs and counts its
+        indices, for the specs :func:`packs_in_quantizer` takes; any other
+        spec raises."""
         from ..kernels import ops
         spec = _normalize(spec)
         _check_packs(spec, bits)
@@ -574,6 +585,11 @@ class CudaBackend:
                                                 spec.cmax,
                                                 n_levels=spec.n_levels,
                                                 plan=spec.plan, bits=bits)
+        if spec.ecsq is not None:
+            return ops.ecsq_quantize_pack(self._in(x), spec.ecsq.thresholds,
+                                          spec.ecsq.levels,
+                                          cmin=float(spec.cmin),
+                                          cmax=float(spec.cmax), bits=bits)
         return ops.clip_quantize_pack(self._in(x), cmin=float(spec.cmin),
                                       cmax=float(spec.cmax),
                                       n_levels=spec.n_levels, bits=bits)

@@ -542,9 +542,9 @@ class FeatureCodec:
 
     def quantize_with_rate(self, x, want_deq: bool = False):
         """(indices, reconstruction or None, rate bits/element) from one
-        quantization pass.  Uniform codecs per tensor, or per channel
-        group with channels last and groups of 8-256, count the indices
-        in the quantizer's own launch on the card
+        quantization pass.  Per-tensor codecs, uniform or ECSQ, and
+        uniform codecs per channel group with channels last and groups of
+        8-256 count the indices in the quantizer's own launch on the card
         (``backend.quantize_with_histogram``); the others histogram them
         after it (:meth:`rate_from_indices`).  The same counts give the
         same rate either way."""
@@ -555,8 +555,8 @@ class FeatureCodec:
         return idx, deq, self._rate_from_counts(hist, np.shape(x))
 
     def packs_in_quantizer(self) -> bool:
-        """Whether :meth:`quantize_packed_with_rate` takes this codec:
-        uniform, at most 64 levels, 1/2/4-bit wire width, per tensor or
+        """Whether :meth:`quantize_packed_with_rate` takes this codec: a
+        1/2/4-bit wire width, and per tensor (uniform or ECSQ) or uniform
         per channel group with channels last and groups of 8-256."""
         return packs_in_quantizer(self.spec(), self.bits_per_index())
 
@@ -564,7 +564,8 @@ class FeatureCodec:
         """(packed uint8 wire bytes of the flat indices -- the bytes of
         ``pack(quantize(x))`` -- and the rate bits/element) from one
         quantization pass that packs and counts its indices: one launch
-        on the card.  The rate comes from the same counts by the same
+        of the clip+quant or, for an ECSQ codec, the ECSQ kernel on the
+        card.  The rate comes from the same counts by the same
         formula as :meth:`quantize_with_rate`'s, so the two are equal.
         Raises unless :meth:`packs_in_quantizer`."""
         packed, hist = self.backend.quantize_packed_with_histogram(

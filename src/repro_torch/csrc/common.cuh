@@ -109,8 +109,8 @@ __device__ __forceinline__ unsigned fast_div(unsigned n, FastDiv f) {
 
 // -- counting quantizer levels in registers -----------------------------------
 //
-// The encode megakernel (#3), the per-tensor quantizer (#1) and the index
-// histogram (#4) count the same way.  A thread counts its levels in
+// The encode megakernel (#3), the per-tensor quantizers (#1, #7) and the
+// index histogram (#4) count the same way.  A thread counts its levels in
 // registers: levels < 4 into four 8-bit fields of one word (bin8), which
 // it widens into 16-bit fields after each iteration (widen8); levels < 16
 // straight into 16-bit fields, bins 2k and 2k + 1 in word k (count16).
@@ -144,6 +144,37 @@ __device__ __forceinline__ void match_count(int* sh, bool on, unsigned key) {
   unsigned peers = __match_any_sync(0xFFFFFFFFu, k);
   if (on && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
     atomicAdd(&sh[k], __popc(peers));
+}
+
+// What a per-tensor quantizer launch (#1, #7) counts: nothing, levels < 4
+// (bin8), levels < 16 (count16), or wider levels (match_count).
+enum QuantMode : int { kNoHist = 0, kCount8 = 1, kCount16 = 2, kMatch = 3 };
+
+// Four values of T as one load: 8 bytes of bfloat16 or half, 16 of
+// float32.  Their four indices are one 16-byte store, so a warp's index
+// stores (and loads, and reconstruction stores) are contiguous.
+template <typename T> struct Quad { using type = uint2; };
+template <> struct Quad<float> { using type = uint4; };
+
+// A quantizer's counting of PER levels (kNoHist counts nothing); levels
+// outside [0, nl) are not counted.
+template <int MODE, int PER>
+__device__ __forceinline__ void count_levels(const int (&q)[PER],
+                                             unsigned nl, int* sh,
+                                             uint32_t (&cnt)[kCountWords]) {
+  if constexpr (MODE == kCount8) {
+    uint32_t c8 = 0;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) c8 += bin8(q[k], (unsigned)q[k] < nl);
+    widen8(c8, cnt);
+  } else if constexpr (MODE == kCount16) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k) count16(q[k], (unsigned)q[k] < nl, cnt);
+  } else if constexpr (MODE == kMatch) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      match_count(sh, (unsigned)q[k] < nl, (unsigned)q[k]);
+  }
 }
 
 // -- one histogram from a grid, with no pre-zeroed output ---------------------

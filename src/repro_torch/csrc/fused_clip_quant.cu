@@ -63,7 +63,11 @@ constexpr int kThreads = 256;
 // (PERF.md).
 constexpr long long kOneBlockMax = 4096;
 constexpr int kPerIter = 8;           // values a thread per iteration
-enum QuantMode : int { kNoHist = 0, kCount8 = 1, kCount16 = 2, kMatch = 3 };
+using repro::kCount16;
+using repro::kCount8;
+using repro::kMatch;
+using repro::kNoHist;
+using repro::Quad;
 
 template <typename T>
 __device__ __forceinline__ int quantize_one(T v, float lo, float hi,
@@ -72,35 +76,6 @@ __device__ __forceinline__ int quantize_one(T v, float lo, float hi,
   float q = repro::quant_level(repro::to_f32(v), lo, hi, scale);
   *d = repro::from_f32<T>(__fadd_rn(lo, __fmul_rn(q, inv_scale)));
   return (int)q;
-}
-
-// Four values of T as one load: 8 bytes of bfloat16 or half, 16 of
-// float32.  Their four indices are one 16-byte store, so a warp's index
-// stores (and loads, and reconstruction stores) are contiguous.
-template <typename T> struct Quad { using type = uint2; };
-template <> struct Quad<float> { using type = uint4; };
-
-// The histogram variants' counting, kPerIter levels at a time (kNoHist
-// counts nothing).
-template <int MODE>
-__device__ __forceinline__ void count_levels(const int (&q)[kPerIter],
-                                             unsigned nl, int* sh,
-                                             uint32_t (&cnt)[repro::kCountWords]) {
-  if constexpr (MODE == kCount8) {
-    uint32_t c8 = 0;
-#pragma unroll
-    for (int k = 0; k < kPerIter; ++k)
-      c8 += repro::bin8(q[k], (unsigned)q[k] < nl);
-    repro::widen8(c8, cnt);
-  } else if constexpr (MODE == kCount16) {
-#pragma unroll
-    for (int k = 0; k < kPerIter; ++k)
-      repro::count16(q[k], (unsigned)q[k] < nl, cnt);
-  } else if constexpr (MODE == kMatch) {
-#pragma unroll
-    for (int k = 0; k < kPerIter; ++k)
-      repro::match_count(sh, (unsigned)q[k] < nl, (unsigned)q[k]);
-  }
 }
 
 // A thread quantizes two groups of four values an iteration, `stride`
@@ -147,7 +122,7 @@ clip_quant_kernel(const T* __restrict__ x, long long n, bool vec, float lo,
         for (int k = 0; k < 4; ++k) q[4 * h + k] = -1;   // counted nowhere
       }
     }
-    count_levels<MODE>(q, nl, sh, cnt);
+    repro::count_levels<MODE>(q, nl, sh, cnt);
   }
   // the scalar tail (all of it when a buffer is not aligned)
   for (long long i = n_grp * 4 + t; i - lane < n; i += kPerIter * stride) {
@@ -163,7 +138,7 @@ clip_quant_kernel(const T* __restrict__ x, long long n, bool vec, float lo,
         if (deq != nullptr) deq[j] = d;
       }
     }
-    count_levels<MODE>(q, nl, sh, cnt);
+    repro::count_levels<MODE>(q, nl, sh, cnt);
   }
   if constexpr (MODE != kNoHist)
     repro::store_histogram<MODE == kMatch>(cnt, sh, n_levels, cluster,
@@ -236,7 +211,7 @@ clip_quant_pack_kernel(const T* __restrict__ x, long long n, bool vec,
         for (int k = 0; k < UV; ++k) q[h * UV + k] = -1;   // counted nowhere
       }
     }
-    count_levels<MODE>(q, nl, sh, cnt);
+    repro::count_levels<MODE>(q, nl, sh, cnt);
   }
   constexpr int BPI = kPerIter / PER;            // tail bytes an iteration
   const long long n_bytes = (n + PER - 1) / PER;
@@ -259,7 +234,7 @@ clip_quant_pack_kernel(const T* __restrict__ x, long long n, bool vec,
       }
       if (b < n_bytes) packed[b] = (unsigned char)(acc & 0xFFu);
     }
-    count_levels<MODE>(q, nl, sh, cnt);
+    repro::count_levels<MODE>(q, nl, sh, cnt);
   }
   repro::store_histogram<MODE == kMatch>(cnt, sh, n_levels, cluster, hist,
                                          rows, ticket);

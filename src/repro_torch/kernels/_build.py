@@ -52,7 +52,10 @@ _SIGNATURES = {
     "repro_index_histogram_tiles": (_P, _I, _I, _I, _I, _I, _P, _P, _I, _I,
                                     _P, _P),
     "repro_rans_step": (_P, _P, _P, _I, _I, _P, _P, _P, _P),
-    "repro_ecsq_assign": (_P, _I, _I, _F, _F, _P, _P, _I, _P, _P, _P),
+    "repro_ecsq_assign": (_P, _I, _L, _F, _F, _P, _P, _I, _P, _P, _P, _P, _L,
+                          _P, _P),
+    "repro_ecsq_assign_pack": (_P, _I, _L, _F, _F, _P, _P, _I, _I, _P, _P,
+                               _P, _L, _P, _P),
     "repro_ecsq_assign_tiles": (_P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P,
                                 _P, _I, _P, _P, _P),
     "repro_ecsq_assign_tiles_fast": (_P, _I, _L, _I, _I, _P, _P, _P, _P, _I,

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ..core.tiling import PaddedLayout, TilePlan
-from .ecsq_assign import (ecsq_assign, ecsq_assign_tiles,
+from .ecsq_assign import (ecsq_assign, ecsq_assign_pack, ecsq_assign_tiles,
                           ecsq_assign_tiles_coded)
 from .fused_clip_quant import (clip_quant_2d, clip_quant_pack,
                                clip_quant_tiles, clip_quant_tiles_pack,
@@ -243,11 +243,24 @@ def clip_quantize_channels(x: torch.Tensor, cmin, cmax, *, n_levels: int,
 
 
 def ecsq_quantize(x: torch.Tensor, thresholds, levels, *, cmin: float,
-                  cmax: float, want_deq: bool = True):
-    """Threshold-based non-uniform quantize (+ dequantize)."""
-    return ecsq_assign(x.contiguous(), _f32(thresholds, x.device),
-                       _f32(levels, x.device), cmin, cmax,
-                       want_deq=want_deq)
+                  cmax: float, want_deq: bool = True,
+                  want_hist: bool = False):
+    """Threshold-based non-uniform quantize (+ dequantize): (idx int32,
+    deq or None without ``want_deq``), and with ``want_hist`` the (N,)
+    histogram of idx from the same launch.  The tables stay in host
+    memory: the kernel takes them by value."""
+    return ecsq_assign(x.contiguous(), _f32(thresholds, "cpu"),
+                       _f32(levels, "cpu"), cmin, cmax,
+                       want_deq=want_deq, want_hist=want_hist)
+
+
+def ecsq_quantize_pack(x: torch.Tensor, thresholds, levels, *, cmin: float,
+                       cmax: float, bits: int):
+    """Threshold-based non-uniform quantize + bit-pack + histogram:
+    (packed uint8 wire bytes of the flat indices, (N,) histogram), one
+    launch on the card."""
+    return ecsq_assign_pack(x.contiguous(), _f32(thresholds, "cpu"),
+                            _f32(levels, "cpu"), cmin, cmax, bits)
 
 
 def _ecsq_tables(x, lo, hi, thresholds, levels, plan: TilePlan):

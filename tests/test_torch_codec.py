@@ -202,8 +202,8 @@ def test_quantize_with_histogram_matches_reference(kind, n_levels):
     """The torch backend's one-pass quantize + counts against the
     reference's quantize and histogram (interpreted Pallas kernels for
     the per-tensor codec, float32): the same indices and bins; the codecs
-    whose quantizer does not count (per channel, ECSQ, N > 64) give no
-    counts.  The rate of ``quantize_with_rate`` equals the port's own
+    whose quantizer does not count (per channel groups of 4, N > 64) give
+    no counts.  The rate of ``quantize_with_rate`` equals the port's own
     two-pass rate exactly and the reference's within 1e-5 (torch and jnp
     take log2 and the sum in their own ways)."""
     from repro.core.backend import get_backend as jget_backend
@@ -215,7 +215,7 @@ def test_quantize_with_histogram_matches_reference(kind, n_levels):
     idx, deq, hist = tc.backend.quantize_with_histogram(tx, tc.spec(),
                                                         want_deq=False)
     assert deq is None and np.array_equal(idx.numpy(), np.asarray(jidx))
-    counts = kind == "tensor" and n_levels <= 64
+    counts = kind in ("tensor", "ecsq") and n_levels <= 64
     assert (hist is not None) == counts
     if counts:
         assert np.array_equal(hist.numpy(), np.asarray(

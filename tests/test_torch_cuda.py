@@ -195,7 +195,7 @@ def test_clip_quant_pack_refuses_what_does_not_fit(dev):
                                   manual_cmin=-1.0, manual_cmax=1.0,
                                   backend="cuda"))
     assert not codec.packs_in_quantizer()
-    with pytest.raises(ValueError, match="packs per-tensor uniform"):
+    with pytest.raises(ValueError, match="packs per-tensor specs"):
         codec.quantize_packed_with_rate(x)
 
 
@@ -294,8 +294,9 @@ def test_quantize_with_histogram_backends_agree(dev):
              "channel-g8": QuantSpec(lo, hi, 4, plan.channel_axis,
                                      plan=plan)}
     for name, spec in specs.items():
-        # per tensor, and the g=8 plan on the tile quantizer's fast route
-        counts = name in ("tensor-4", "tensor-64", "channel-g8")
+        # per tensor, uniform or ECSQ, and the g=8 plan on the tile
+        # quantizer's fast route
+        counts = name in ("tensor-4", "tensor-64", "ecsq", "channel-g8")
         for want_deq in (True, False):
             ki, kd, kh = cb.quantize_with_histogram(x, spec, want_deq)
             ti, td, th = tb.quantize_with_histogram(x_cpu, spec, want_deq)
@@ -490,14 +491,17 @@ def test_ecsq_assign(dev, n_levels, dtype):
     x[3] = float(thr[(n_levels - 1) // 2])     # a tie: the upper bin
     thr[(n_levels - 1) // 2] = x[3].float().item()
     thr = np.sort(thr)
-    t, lv = torch.from_numpy(thr).to(dev), torch.from_numpy(lvl).to(dev)
+    # the kernel takes its table by value, from host memory
+    t, lv = torch.from_numpy(thr), torch.from_numpy(lvl)
     before = dict(_build.LAUNCHES)
     ki, kd = ecsq_assign.ecsq_assign(x, t, lv, cmin, cmax)
     pi, pd = ecsq_assign.ecsq_assign_plain(x, t, lv, cmin, cmax)
     assert torch.equal(ki, pi) and torch.equal(kd, pd)
     assert _advanced(before, ecsq_assign=1)
     xc = x.float().clamp(np.float32(cmin), np.float32(cmax))
-    assert torch.equal(ki, torch.bucketize(xc, t, right=True).int())
+    assert torch.equal(ki, torch.bucketize(xc, t.to(dev), right=True).int())
+    with pytest.raises(ValueError, match="host memory"):
+        ecsq_assign.ecsq_assign(x, t.to(dev), lv, cmin, cmax)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -985,3 +989,105 @@ def test_plan_codec_rate_paths_count_in_the_quantizer(dev, shape):
                    x, spec, bits)):
         names = _device_ops(fn)
         assert len(names) == 1 and "clip_quant_tiles" in names[0], names
+
+
+# -- the per-tensor ECSQ quantizer's counting and packing variants (#7) --------
+
+# one block (up to 4,096 values), a cluster (the decode boundary), the
+# ticket (70,001 and the prefill boundary's 2^20), ragged tails, and more
+# than the no-histogram grid's one group a thread
+ECSQ_SIZES = [1, 7, 4095, 4097, 16384, 70001, 1 << 20, 4_800_003]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_levels", [2, 4, 16, 64])
+@pytest.mark.parametrize("n", ECSQ_SIZES)
+def test_ecsq_assign_variants(dev, n, n_levels, dtype):
+    """Every variant of #7 against its plain version on aligned views and
+    views that are not (scalar loads), values outside the clip range:
+    indices, reconstructions, bins and bytes exact, one launch a call and
+    no histogram or pack launch."""
+    cmin, cmax = -1.7, 2.9
+    thr, lvl = (torch.from_numpy(t) for t in _ecsq_tables(
+        np.float32(cmin), np.float32(cmax), n_levels, seed=7))
+    x0 = _x(dev, n + 1, seed=n, dtype=dtype)
+    for x in (x0[:n], x0[1:]):
+        for kw in (dict(), dict(want_deq=False), dict(want_hist=True),
+                   dict(want_deq=False, want_hist=True)):
+            before = dict(_build.LAUNCHES)
+            got = ecsq_assign.ecsq_assign(x, thr, lvl, cmin, cmax, **kw)
+            assert _advanced(before, ecsq_assign=1, index_histogram=0)
+            want = ecsq_assign.ecsq_assign_plain(x, thr, lvl, cmin, cmax,
+                                                 **kw)
+            for a, b in zip(got, want):
+                assert (a is None and b is None) or torch.equal(a, b), kw
+        for bits in (1, 2, 4):
+            if n_levels <= 1 << bits:
+                before = dict(_build.LAUNCHES)
+                kp, kh = ecsq_assign.ecsq_assign_pack(x, thr, lvl, cmin,
+                                                      cmax, bits)
+                assert _advanced(before, ecsq_assign=1, pack_bits=0,
+                                 index_histogram=0)
+                pp, ph = ecsq_assign.ecsq_assign_pack_plain(
+                    x, thr, lvl, cmin, cmax, bits)
+                assert torch.equal(kp, pp) and torch.equal(kh, ph), bits
+
+
+def test_ecsq_assign_variants_are_one_device_operation(dev):
+    thr, lvl = (torch.from_numpy(t) for t in _ecsq_tables(
+        np.float32(-2.0), np.float32(2.5), 4))
+    for shape in [(4, 1, 4096), (4, 64, 4096)]:
+        x = _x(dev, int(np.prod(shape)), dtype=torch.bfloat16).reshape(shape)
+        for call in (lambda: ecsq_assign.ecsq_assign(x, thr, lvl, -2.0, 2.5,
+                                                     want_hist=True),
+                     lambda: ecsq_assign.ecsq_assign_pack(x, thr, lvl, -2.0,
+                                                          2.5, 2)):
+            names = _device_ops(call)
+            assert len(names) == 1 and "ecsq_assign" in names[0], names
+
+
+def test_ecsq_histograms_on_two_streams(dev):
+    """#7's counting variant at 2^20 values, 50 launches on each of two
+    side streams interleaved with no sync: every bin exact."""
+    x = _x(dev, 1 << 20, seed=17, dtype=torch.bfloat16)
+    thr, lvl = (torch.from_numpy(t) for t in _ecsq_tables(
+        np.float32(-1.5), np.float32(2.75), 4))
+    want = ecsq_assign.ecsq_assign_plain(x, thr, lvl, -1.5, 2.75,
+                                         want_deq=False, want_hist=True)[2]
+    streams = [torch.cuda.Stream(device=dev) for _ in range(2)]
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(50):
+        for stream in streams:
+            with torch.cuda.stream(stream):
+                out.append(ecsq_assign.ecsq_assign(
+                    x, thr, lvl, -1.5, 2.75, want_deq=False,
+                    want_hist=True)[2])
+    torch.cuda.synchronize()
+    assert all(torch.equal(h, want) for h in out)
+
+
+@pytest.mark.parametrize("shape", [(4, 1, 4096), (4, 64, 4096), (3, 5, 7)])
+def test_ecsq_codec_rate_paths_count_in_the_quantizer(dev, shape):
+    """A per-tensor ECSQ N=4 codec: ``apply_with_rate``,
+    ``quantize_with_rate`` and ``quantize_packed_with_rate`` launch #7
+    once each and #4 and #9 never; their rates equal the two-launch
+    path's (quantize, then the index histogram) exactly, the packed bytes
+    those of quantize, then pack."""
+    samples = _x(dev, 1 << 14, seed=5).cpu().numpy()
+    codec = calibrate(CodecConfig(n_levels=4, use_ecsq=True,
+                                  clip_mode="empirical",
+                                  constrain_cmin_zero=False,
+                                  backend="cuda"), samples)
+    assert codec.packs_in_quantizer()
+    x = _x(dev, int(np.prod(shape)), dtype=torch.bfloat16).reshape(shape)
+    two_launch = codec.rate_from_indices(codec.quantize(x), x.shape)
+    before = dict(_build.LAUNCHES)
+    deq, rate = codec.apply_with_rate(x)
+    idx, none, rate2 = codec.quantize_with_rate(x)
+    packed, rate3 = codec.quantize_packed_with_rate(x)
+    assert _advanced(before, ecsq_assign=3, index_histogram=0, pack_bits=0)
+    assert torch.equal(deq, codec.apply(x)) and none is None
+    assert torch.equal(idx, codec.quantize(x))
+    assert torch.equal(packed, codec.pack(idx.reshape(-1)))
+    assert float(rate) == float(rate2) == float(rate3) == float(two_launch)

@@ -175,9 +175,15 @@ def _unpacking_codec(kind: str):
           "channel": {"n_levels": 4, "granularity": "channel",
                       "channel_axis": -1, "channel_group_size": 3,
                       "clip_mode": "minmax"},
-          "ecsq": {"n_levels": 4, "use_ecsq": True,
-                   "clip_mode": "empirical"}}[kind]
-    samples = x if kind == "channel" else x.ravel()
+          # per-tensor ECSQ at 8 levels: a 3-bit width
+          "ecsq": {"n_levels": 8, "use_ecsq": True,
+                   "clip_mode": "empirical"},
+          # per-channel ECSQ (TileECSQ tables)
+          "ecsq-channel": {"n_levels": 4, "use_ecsq": True,
+                           "granularity": "channel", "channel_axis": -1,
+                           "channel_group_size": 8, "clip_mode": "minmax"}
+          }[kind]
+    samples = x if kind in ("channel", "ecsq-channel") else x.ravel()
     base = {"clip_mode": "manual", "manual_cmin": CLIP[0],
             "manual_cmax": CLIP[1], "constrain_cmin_zero": False}
     return calibrate(CodecConfig(backend="torch", **{**base, **kw}),
@@ -185,13 +191,13 @@ def _unpacking_codec(kind: str):
 
 
 @pytest.mark.parametrize("kind", ["tensor-8", "tensor-65", "tensor-256",
-                                  "channel", "ecsq"])
+                                  "channel", "ecsq", "ecsq-channel"])
 def test_quantize_packed_refuses_other_codecs(kind):
     codec, x = _unpacking_codec(kind)
     assert not codec.packs_in_quantizer()
-    with pytest.raises(ValueError, match="packs per-tensor uniform"):
+    with pytest.raises(ValueError, match="packs per-tensor specs"):
         codec.quantize_packed_with_rate(x)
-    with pytest.raises(ValueError, match="packs per-tensor uniform"):
+    with pytest.raises(ValueError, match="packs per-tensor specs"):
         codec.backend.quantize_packed_with_histogram(x, codec.spec(), 2)
 
 
