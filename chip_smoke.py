@@ -76,7 +76,24 @@ Phases, in order; any failure raises and exits non-zero:
    ``tile_rate_bits`` of a 2-D tile codec, ``pack`` of the per-channel
    ECSQ codec's indices, ``rate_from_indices`` of (e)'s codec --
    against their plain versions;
-6. launches -- each run's launch counts against the kernels it must
+6. eval    -- the accuracy harness (``repro_torch.eval``) on the default
+   matrix's four scenarios, each a sweep of rungs 256, 16, 4 x clip
+   modes minmax, empirical over 2 eval batches of 2 x 32 tokens with
+   seed 0.  (o) At full width through ``harness._sweep``:
+   ``transformer-tensor`` on codeqwen1.5-7b (the serve phase's
+   weights, which are then freed), ``moe-expert`` on dbrx-132b cut to
+   2 of its 40 layers (all 40 do not fit one card), ``rwkv-state`` on
+   rwkv6-3b and ``rglru-state`` on recurrentgemma-2b, each split at the
+   harness's default tap; on each boundary a CUDA-backend codec and a
+   ``backend="torch"`` copy of it, per-tensor and per-channel g=8 at
+   every rung, must give identical payloads and indices and
+   reconstructions within 1 ulp.  (p) The registered smoke-size matrix
+   through ``run_matrix(load_matrix("default"))``.  Launch counts are
+   reset before and read after each sweep; the per-tensor quantizer and
+   the encode megakernel must launch in each; every case's
+   ``bits_per_elem`` must be ``coded_bytes * 8 / n_elems``, its logits
+   finite, with decisive tokens;
+7. launches -- each run's launch counts against the kernels it must
    launch.  The device operations (``torch.profiler``) of one decode
    crossing of the (a), (c) and (e) hookups (``apply_with_rate``) and
    of the (h), (l) and (n) split steps' crossings are counted at the
@@ -85,7 +102,8 @@ Phases, in order; any failure raises and exits non-zero:
 
 The line before the last is the per-kernel JSON record (each kernel's
 numbers per size under ``sizes``, with its launches per run at that
-size, and its port status); the last line is
+size, its launches in phase 6 under ``eval_launches``, and its port
+status); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -1632,6 +1650,187 @@ def split_phase(cfg, params, dev) -> dict:
     return counts
 
 
+# -- phase 6: the accuracy harness ---------------------------------------------
+
+# scenario -> (published config it runs at full width, layers kept; None =
+# all): dbrx-132b's 40 layers (~264 GB in bf16) do not fit one card, two do
+EVAL_FULL = {"transformer-tensor": ("codeqwen1.5-7b", None),
+             "moe-expert": ("dbrx-132b", 2),
+             "rwkv-state": ("rwkv6-3b", None),
+             "rglru-state": ("recurrentgemma-2b", None)}
+EVAL_KERNELS = ("clip_quant", "clip_quant_tiles", "encode_tiles")
+
+
+def eval_model(name: str, dev):
+    """The published config of scenario ``name`` at full width (depth cut
+    where ``EVAL_FULL`` says), random weights drawn on the card from the
+    scenario's seed."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.eval import SCENARIOS
+    from repro_torch.models import init_params
+    arch, layers = EVAL_FULL[name]
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SCENARIOS[name].seed)
+    params = init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"eval model: {cfg.name} {cfg.num_layers} of "
+          f"{get_config(arch).num_layers} layers, d_model {cfg.d_model}, "
+          f"{n_params / 1e9:.2f} B params {cfg.dtype}; init "
+          f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params
+
+
+def eval_launches(label: str, launches: dict) -> None:
+    """Print a sweep's launches of #1, #2 and #3; #1 and #3 must have
+    launched (the default matrix's codecs are all per-tensor, so #2
+    runs only in the codec check)."""
+    print(f"{label} launches: "
+          + ", ".join(f"{k} {launches[k]}" for k in EVAL_KERNELS))
+    for k in ("clip_quant", "encode_tiles"):
+        check(launches[k] > 0, f"{label}: {k} never launched")
+
+
+def eval_cases(label: str, cases, wall_s: float) -> None:
+    """Check one sweep's cases and print them."""
+    for c in cases:
+        check(c.bits_per_elem == c.coded_bytes * 8.0 / c.n_elems,
+              f"{label} {c.clip_mode} N={c.rung}: bits_per_elem "
+              f"{c.bits_per_elem!r} is not coded_bytes * 8 / n_elems")
+        check(np.isfinite(c.logit_rmse), f"{label} {c.clip_mode} "
+              f"N={c.rung}: logits not finite (rmse {c.logit_rmse})")
+        check(c.n_decisive > 0, f"{label}: no decisive token")
+    print(f"{label}: {wall_s:.2f} s wall, {cases[0].n_decisive} decisive "
+          "tokens")
+    for c in cases:
+        print(f"  {c.clip_mode:10s} N={c.rung:4d} bpe={c.bits_per_elem:.4f} "
+              f"deg={c.degradation:.4f} raw_deg={c.raw_degradation:.4f} "
+              f"logit_rmse={c.logit_rmse:.5f} bytes={c.coded_bytes}")
+
+
+def codec_agreement(name: str, cfg, params, tokens, split_after: int,
+                    dev) -> int:
+    """On the scenario's calibration boundary at full width, a CUDA-backend
+    codec and a ``backend="torch"`` copy of it (the same calibration)
+    give identical payload bytes and indices, and reconstructions within
+    1 ulp: per-tensor (#1 at N=256, #3 at 16 and 4) and per-channel g=8
+    (#2 at N=256, #3's plan route at 16 and 4) at every rung, minmax
+    ranges.  Returns the worst reconstruction distance in ulps."""
+    import dataclasses
+
+    from repro_torch.core import calibrate
+    from repro_torch.eval import SCENARIOS
+    from repro_torch.eval.harness import codec_config_for
+    from repro_torch.models import forward_from_boundary, forward_head
+    sc = SCENARIOS[name]
+    with torch.inference_mode():
+        x = forward_head(cfg, params, torch.as_tensor(tokens, device=dev),
+                         split_after=split_after).float()
+        logits = forward_from_boundary(cfg, params, x,
+                                       split_after=split_after)
+    check(bool(torch.isfinite(logits).all()), f"{name}: logits not finite")
+    host = x.cpu().numpy()
+    worst = 0
+    for grain in (sc, dataclasses.replace(sc, granularity="channel",
+                                          channel_group_size=GROUP)):
+        for rung in sc.rungs:
+            label = f"{name} {grain.granularity} N={rung}"
+            cuda = calibrate(codec_config_for(grain, rung, "minmax"), host)
+            plain = dataclasses.replace(cuda, config=dataclasses.replace(
+                cuda.config, backend="torch"))
+            payloads = list(cuda.encode_stream(host))
+            check(payloads == list(plain.encode_stream(host)),
+                  f"{label}: payloads differ from the torch backend's")
+            check(torch.equal(cuda.quantize(x).cpu(),
+                              plain.quantize(x.cpu())),
+                  f"{label}: indices differ from the torch backend's")
+            u = ulps(torch.from_numpy(cuda.decode_stream(payloads)),
+                     torch.from_numpy(plain.decode_stream(payloads)))
+            check(u <= 1, f"{label}: reconstruction {u} ulp apart")
+            worst = max(worst, u)
+    return worst
+
+
+def eval_full_width(name: str, cfg, params, dev) -> dict:
+    """(o): scenario ``name``'s sweep through the harness's ``_sweep`` on a
+    full-width model, launch counts reset just before it and read just
+    after, then the codec check on its boundary."""
+    from repro_torch.eval import SCENARIOS
+    from repro_torch.eval import harness as H
+    from repro_torch.kernels import _build
+    sc = SCENARIOS[name]
+    sa = H._default_tap(cfg)
+    ev, cal = H._token_batches(sc, cfg.vocab_size)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cases, _ = H._sweep(sc, cfg, params, ev, cal, sa, None, dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    label = f"eval (o) {name} on {cfg.name} split after {sa}"
+    eval_cases(label, cases, wall)
+    eval_launches(label, launches)
+    worst = codec_agreement(name, cfg, params, cal, sa, dev)
+    print(f"eval (o) {name}: CUDA and torch codecs agree on the boundary "
+          f"(payloads and indices exact, reconstruction {worst} ulp)")
+    return launches
+
+
+def eval_matrix(dev) -> dict:
+    """(p): the registered smoke-size default matrix through
+    ``run_matrix`` on the card."""
+    from repro_torch.eval import load_matrix, run_matrix
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    reports = run_matrix(load_matrix("default"), device=dev)
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    wall = time.perf_counter() - t0
+    for rep_name, rep in reports.items():
+        eval_cases(f"eval (p) {rep_name} split after {rep.split_after}",
+                   rep.cases, rep.elapsed_s)
+    eval_launches(f"eval (p) default matrix, {wall:.2f} s wall", launches)
+    return launches
+
+
+def eval_phase(cfg, params: list, dev) -> dict:
+    """Phase 6: (o) the default matrix's four scenarios at full width --
+    codeqwen1.5-7b on the serve phase's weights (taken from ``params``, a
+    one-item list, which is emptied so they are freed before the next
+    model is built), then dbrx-132b (two layers), rwkv6-3b and
+    recurrentgemma-2b -- and (p) the smoke-size matrix.  Returns the
+    launch counts of the phase's sweeps, summed."""
+    import gc
+    t0 = time.perf_counter()
+    total = dict.fromkeys(EVAL_KERNELS, 0)
+
+    def add(launches):
+        for k in total:
+            total[k] += launches[k]
+
+    add(eval_full_width("transformer-tensor", cfg, params.pop(), dev))
+    for name in ("moe-expert", "rwkv-state", "rglru-state"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        m_cfg, m_params = eval_model(name, dev)
+        add(eval_full_width(name, m_cfg, m_params, dev))
+        del m_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    add(eval_matrix(dev))
+    print(f"eval phase: {time.perf_counter() - t0:.1f} s wall (model "
+          "builds and codec checks included)")
+    return total
+
+
 def port_status(replaces: str) -> str:
     """A kernel's port status from the "Port" column of the row of
     ``ROADMAP.md``'s queue B table that names its TPU kernel
@@ -1881,7 +2080,13 @@ def main() -> int:
     counts.update(split_phase(cfg, params, dev))
     counts["m"] = codec_calls(boundary, codecs, dev)
 
-    # 6. launch counts of the serving and split runs and of (m): each
+    # 6. the accuracy harness: the serve phase's weights go in a list the
+    # phase empties, so they are freed before its next model is built
+    box = [params]
+    del params
+    eval_counts = eval_phase(cfg, box, dev)
+
+    # 7. launch counts of the serving and split runs and of (m): each
     # kernel's count is read from the first run named here, and every
     # kernel must launch on each run listed for it
     runs_of = {"clip_quant": "ahijk", "index_histogram": "m",
@@ -1902,6 +2107,7 @@ def main() -> int:
         name_ = r_["name"]
         r_["status"] = port_status(r_["replaces"])
         r_["launches"] = counts[runs_of[name_][0]][name_]
+        r_["eval_launches"] = eval_counts.get(name_, 0)
         for run_id in runs_of[name_]:
             check(counts[run_id][name_] > 0, f"{name_} never "
                   f"launched on serving run ({run_id})")
@@ -1933,6 +2139,8 @@ def main() -> int:
               + "; by size: " + ", ".join(
                   f"{k} {cls} {v}" for (k, cls), v in
                   sorted(RUN_SIZES[run_id].items())))
+    print("launches (eval, phase 6's sweeps): "
+          + ", ".join(f"{k} {v}" for k, v in eval_counts.items()))
     print("codec device operations per decode crossing: "
           + json.dumps(crossing))
     print(smi)

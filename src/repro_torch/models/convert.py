@@ -8,15 +8,25 @@ with its leaves as numpy arrays and unstacks it, so both packages
 compute the same function from the same weights.
 :func:`split_params_from_numpy` does the same for the split runtime's
 tree (stage layers stacked (2, half, ...), tail layers (t, ...)).
+
+Each leaf takes the dtype the reference gives it: the model's dtype,
+except the leaves the reference keeps in float32 whatever the model's
+dtype (:data:`FLOAT32_LEAVES`).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..configs.base import ModelConfig
 from ..core.backend import host_tensor
-from .transformer import _check_dense, resolve_device, torch_dtype
+from .transformer import resolve_device, torch_dtype
+
+#: (block, leaf) names of the layer leaves that stay float32: the MoE
+#: router, RWKV-6's base decay and first-token bonus, RG-LRU's Lambda
+FLOAT32_LEAVES = {("moe", "router"), ("tmix", "w0"), ("tmix", "u"),
+                  ("rec", "lam")}
 
 
 def _tensor(a, dtype, device):
@@ -26,19 +36,33 @@ def _tensor(a, dtype, device):
     return host_tensor(arr, device=device).to(dtype)
 
 
-def _tree(node, fn):
+def _tree(node, fn, path=()):
     if isinstance(node, dict):
-        return {k: _tree(v, fn) for k, v in node.items()}
-    return fn(node)
+        return {k: _tree(v, fn, path + (k,)) for k, v in node.items()}
+    return fn(node, path)
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    for spec in cfg.layer_specs():
+        if spec.kind != "attn" or spec.moe:
+            raise NotImplementedError(
+                f"{cfg.name}: split_params_from_numpy converts dense "
+                "attention + MLP layers only: the reference's split "
+                "runtime runs MoE layers expert-parallel across chips "
+                "(moe_expert_parallel), and its MoE and recurrent layers "
+                "wait for the port's multi-chip slice (ROADMAP.md A6)")
 
 
 def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
     """JAX-layout parameter tree (numpy leaves) -> port parameter dict on
     ``device`` (the card unless the CPU is asked for)."""
-    _check_dense(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
-    conv = lambda a: _tensor(a, dtype, device)  # noqa: E731
+
+    def conv(a, path):
+        keep = tuple(path[-2:]) in FLOAT32_LEAVES
+        return _tensor(a, torch.float32 if keep else dtype, device)
+
     out = {k: _tree(tree[k], conv)
            for k in ("embed", "final_norm", "head") if k in tree}
     layers = []
@@ -47,8 +71,8 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
         n_periods = int(np.asarray(specs[0]["norm1"]["scale"]).shape[0])
         for p in range(n_periods):
             for spec_params in specs:
-                layers.append(_tree(spec_params,
-                                    lambda a: conv(np.asarray(a)[p])))
+                layers.append(_tree(spec_params, lambda a, path, p=p:
+                                    conv(np.asarray(a)[p], path)))
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.name} has {cfg.num_layers}")
@@ -62,20 +86,20 @@ def split_params_from_numpy(cfg: ModelConfig, tree, *, edge_device="cuda",
     leaves) -> the port's split parameters, each stage's tensors made on
     its own device."""
     from ..compression.split_runtime import split_params
-    _check_dense(cfg)
+    _dense_only(cfg)
     edge = resolve_device(edge_device)
     cloud = resolve_device(cloud_device)
     dtype = torch_dtype(cfg)
 
     def conv(device):
-        return lambda a: _tensor(a, dtype, device)
+        return lambda a, path=(): _tensor(a, dtype, device)
 
     def unstack(stacks, lead, device):
         """Layer dicts of a stacked tree (a one-entry list for the one
         pattern position of a period-1 model), indexed ``lead + (i,)``."""
         (stack,) = stacks
         n = np.asarray(stack["norm1"]["scale"]).shape[len(lead)]
-        return [_tree(stack, lambda a, i=i: conv(device)(
+        return [_tree(stack, lambda a, path, i=i: conv(device)(
             np.asarray(a)[lead + (i,)])) for i in range(n)]
 
     layers = unstack(tree["stages"], (0,), edge) \

@@ -8,13 +8,14 @@ FeatureCodec fake-quant (``codec_fn``) or a host round-trip between the
 
 Parameters are a dict with per-layer entries (``params["layers"][i]``)
 in place of the reference's stacked scan leaves (see
-:func:`repro_torch.models.convert.params_from_numpy`); caches are a list
-per group of per-layer ``{"k", "v"}`` dicts of (B, S, K, hd) tensors.
-Caches are updated in place: a decode or prefill writes its K/V slots
-into the cache tensors it was given and returns the same objects.
-
-This slice ports the dense attention + MLP path; MoE, rwkv6 and rglru
-layers raise ``NotImplementedError``.
+:func:`repro_torch.models.convert.params_from_numpy`).  A layer's mixer
+is attention, an RG-LRU block (``rec``) or RWKV-6 time mixing
+(``tmix``); its feed-forward a dense MLP, an MoE (``moe``) or RWKV
+channel mixing (``cmix``).  Caches are a list per group of per-layer
+dicts: ``{"k", "v"}`` (B, S, K, hd) for attention, ``{"h", "conv"}`` for
+RG-LRU, ``{"tmix": {"state", "shift"}, "cmix": {"shift"}}`` for RWKV.
+Caches are updated in place: a decode or prefill writes into the cache
+tensors it was given and returns the same objects.
 """
 
 from __future__ import annotations
@@ -27,11 +28,12 @@ import torch
 
 from ..configs.base import LayerSpec, ModelConfig
 from . import layers as L
+from . import moe as MOE
+from . import rglru as RG
+from . import rwkv6 as RW
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
-_DENSE_ONLY = ("{}: only dense attention + MLP layers are ported so far "
-               "(MoE, rwkv6 and rglru wait for their slice; ROADMAP.md)")
 
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -93,12 +95,6 @@ def _group_layers(groups: list[Group]) -> list[list[tuple[LayerSpec, int]]]:
     return out
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    for spec in cfg.layer_specs():
-        if spec.kind != "attn" or spec.moe:
-            raise NotImplementedError(_DENSE_ONLY.format(cfg.name))
-
-
 # ---------------------------------------------------------------------------
 # parameter init
 # ---------------------------------------------------------------------------
@@ -114,6 +110,27 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def _init_spec(gen, spec: LayerSpec, cfg: ModelConfig, dtype, device):
+    p = {"norm1": L.init_norm(cfg.norm, cfg.d_model, dtype, device),
+         "norm2": L.init_norm(cfg.norm, cfg.d_model, dtype, device)}
+    if spec.kind == "attn":
+        p["attn"] = L.init_attention(gen, cfg, dtype, device)
+    elif spec.kind == "rglru":
+        p["rec"] = RG.init_rglru(gen, cfg, dtype, device)
+    elif spec.kind == "rwkv":
+        p["tmix"] = RW.init_rwkv(gen, cfg, dtype, device)
+    else:
+        raise ValueError(spec.kind)
+    if spec.moe:
+        p["moe"] = MOE.init_moe(gen, cfg, dtype, device)
+    elif spec.kind == "rwkv":
+        p["cmix"] = RW.init_channel_mix(gen, cfg, dtype, device)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.gated_mlp,
+                              dtype, device)
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator, *,
                 device="cuda"):
     """Random parameters drawn from ``generator`` (on ``device``, the
@@ -122,7 +139,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
     Same shapes and scales as the JAX package's init; the numbers differ
     (a different generator).  To compute the same function as a JAX
     model, convert its parameters with ``params_from_numpy``."""
-    _check_dense(cfg)
     device = resolve_device(device)
     dtype = torch_dtype(cfg)
     params = {"embed": {"table": L._normal(
@@ -132,13 +148,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
         params["head"] = {"w": L._normal(
             generator, (cfg.d_model, cfg.vocab_size), dtype, device,
             1.0 / math.sqrt(cfg.d_model))}
-    params["layers"] = [
-        {"norm1": L.init_norm(cfg.norm, cfg.d_model, dtype, device),
-         "norm2": L.init_norm(cfg.norm, cfg.d_model, dtype, device),
-         "attn": L.init_attention(generator, cfg, dtype, device),
-         "mlp": L.init_mlp(generator, cfg.d_model, cfg.d_ff,
-                           cfg.gated_mlp, dtype, device)}
-        for _ in range(cfg.num_layers)]
+    params["layers"] = [_init_spec(generator, spec, cfg, dtype, device)
+                        for spec in cfg.layer_specs()]
     return params
 
 
@@ -148,6 +159,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, *,
 
 def _init_spec_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
                      max_seq: int, dtype, device):
+    if spec.kind == "rglru":
+        return RG.init_rglru_cache(cfg, batch, dtype, device)
+    if spec.kind == "rwkv":
+        return RW.init_rwkv_cache(cfg, batch, device)
     s = min(spec.window, max_seq) if spec.window else max_seq
     kv = (batch, s, cfg.num_kv_heads, cfg.head_dim)
     if cfg.kv_quant_bits:
@@ -159,7 +174,6 @@ def _init_spec_cache(spec: LayerSpec, cfg: ModelConfig, batch: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
                split: bool = False, *, device=None):
-    _check_dense(cfg)
     dtype = torch_dtype(cfg)
     groups, _ = build_groups(cfg, split)
     return [[_init_spec_cache(spec, cfg, batch, max_seq, dtype, device)
@@ -188,49 +202,81 @@ def _kv_dec(cfg: ModelConfig, t, dtype):
 # one layer
 # ---------------------------------------------------------------------------
 
-def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, *, pos: int,
-                 cache, positions):
-    """x: (B,S,d). cache: this layer's {"k","v"} dict or None (written in
-    place). pos: absolute position of x[:, 0]."""
-    if spec.kind != "attn" or spec.moe:
-        raise NotImplementedError(_DENSE_ONLY.format(cfg.name))
-    h = L.apply_norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
-    q, k, v = L.attention_qkv(h, p["attn"], cfg, positions)
+def _attention(h, p, spec: LayerSpec, cfg: ModelConfig, *, pos: int, cache,
+               positions):
+    """Attention mixer. cache: this layer's {"k","v"} dict or None
+    (written in place)."""
+    q, k, v = L.attention_qkv(h, p, cfg, positions)
     if cache is None:
-        attn = L.multi_head_attention(q, k, v, q_offset=0,
+        return L.multi_head_attention(q, k, v, q_offset=0,
                                       window=spec.window,
                                       softcap=cfg.attn_logit_softcap)
+    s_new = q.shape[1]
+    ck, cv = cache["k"], cache["v"]
+    s_cache = ck.shape[1]
+    if s_new == 1:
+        # decode: write into ring/linear slot, attend over cache
+        slot = pos % s_cache if spec.window else pos
+        ck[:, slot] = _kv_enc(cfg, k[:, 0])
+        cv[:, slot] = _kv_enc(cfg, v[:, 0])
+        idx = torch.arange(s_cache, dtype=torch.int32, device=h.device)
+        k_pos = pos - (pos - idx) % s_cache if spec.window else idx
+        return L.multi_head_attention(
+            q, _kv_dec(cfg, ck, q.dtype), _kv_dec(cfg, cv, q.dtype),
+            q_offset=pos, k_positions=k_pos, window=spec.window,
+            softcap=cfg.attn_logit_softcap)
+    # prefill from scratch: attend over fresh K/V, then fill cache
+    attn = L.multi_head_attention(q, k, v, q_offset=0, window=spec.window,
+                                  softcap=cfg.attn_logit_softcap)
+    kq, vq = _kv_enc(cfg, k), _kv_enc(cfg, v)
+    if s_new >= s_cache:
+        tail = torch.arange(s_new - s_cache, s_new, device=h.device) % s_cache
+        ck[:, tail] = kq[:, -s_cache:]
+        cv[:, tail] = vq[:, -s_cache:]
     else:
-        s_new = q.shape[1]
-        ck, cv = cache["k"], cache["v"]
-        s_cache = ck.shape[1]
-        if s_new == 1:
-            # decode: write into ring/linear slot, attend over cache
-            slot = pos % s_cache if spec.window else pos
-            ck[:, slot] = _kv_enc(cfg, k[:, 0])
-            cv[:, slot] = _kv_enc(cfg, v[:, 0])
-            idx = torch.arange(s_cache, dtype=torch.int32, device=x.device)
-            k_pos = pos - (pos - idx) % s_cache if spec.window else idx
-            attn = L.multi_head_attention(
-                q, _kv_dec(cfg, ck, q.dtype), _kv_dec(cfg, cv, q.dtype),
-                q_offset=pos, k_positions=k_pos, window=spec.window,
-                softcap=cfg.attn_logit_softcap)
+        ck[:, :s_new] = kq
+        cv[:, :s_new] = vq
+    return attn
+
+
+def _write(cache, new) -> None:
+    """Copy a recurrent layer's new state into its cache tensors."""
+    for name, leaf in new.items():
+        if isinstance(leaf, dict):
+            _write(cache[name], leaf)
         else:
-            # prefill from scratch: attend over fresh K/V, then fill cache
-            attn = L.multi_head_attention(q, k, v, q_offset=0,
-                                          window=spec.window,
-                                          softcap=cfg.attn_logit_softcap)
-            kq, vq = _kv_enc(cfg, k), _kv_enc(cfg, v)
-            if s_new >= s_cache:
-                tail = torch.arange(s_new - s_cache, s_new,
-                                    device=x.device) % s_cache
-                ck[:, tail] = kq[:, -s_cache:]
-                cv[:, tail] = vq[:, -s_cache:]
-            else:
-                ck[:, :s_new] = kq
-                cv[:, :s_new] = vq
-    x = x + L.attention_out(attn, p["attn"])
+            cache[name].copy_(leaf)
+
+
+def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, *, pos: int,
+                 cache, positions):
+    """x: (B,S,d). cache: this layer's cache dict or None (written in
+    place). pos: absolute position of x[:, 0]."""
+    h = L.apply_norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
+    if spec.kind == "attn":
+        x = x + L.attention_out(_attention(h, p["attn"], spec, cfg, pos=pos,
+                                           cache=cache, positions=positions),
+                                p["attn"])
+    elif spec.kind == "rglru":
+        out, new = RG.rglru_block_apply(h, p["rec"], cfg, cache)
+        x = x + out
+        if cache is not None:
+            _write(cache, new)
+    elif spec.kind == "rwkv":
+        out, new = RW.time_mix_apply(h, p["tmix"], cfg,
+                                     cache["tmix"] if cache else None)
+        x = x + out
+        if cache is not None:
+            _write(cache["tmix"], new)
     h2 = L.apply_norm(x, p["norm2"], cfg.norm, cfg.norm_eps)
+    if spec.moe:
+        return x + MOE.moe_apply(h2, p["moe"], cfg)
+    if spec.kind == "rwkv":
+        out, new = RW.channel_mix_apply(h2, p["cmix"],
+                                        cache["cmix"] if cache else None)
+        if cache is not None:
+            _write(cache["cmix"], new)
+        return x + out
     return x + L.mlp_apply(h2, p["mlp"], cfg.act, cfg.gated_mlp)
 
 

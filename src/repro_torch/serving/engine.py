@@ -290,8 +290,8 @@ class ServeEngine:
         The prompt is left-padded to the batch's current absolute length
         ``pos`` and prefilled at batch size 1, then its cache is copied
         into row ``slot`` of every batched cache tensor (batch is axis 0
-        of each (B, S, K, hd) leaf), so the shared position counter stays
-        valid for every slot.  Requests whose prompt is longer than
+        of every leaf of a layer's cache, nested dicts included), so the
+        shared position counter stays valid for every slot.  Requests whose prompt is longer than
         ``pos`` (or that would overflow ``max_seq``) wait for a fresh
         epoch.
         """
@@ -316,8 +316,7 @@ class ServeEngine:
                 self.params, torch.as_tensor(toks, device=self.device), one)
         for full_g, one_g in zip(cache, one):
             for full_l, one_l in zip(full_g, one_g):
-                for name, leaf in full_l.items():
-                    leaf[slot] = one_l[name][0]
+                _copy_row(full_l, one_l, slot)
         first = int(torch.argmax(logits[0]))
         cur = cur.copy()
         cur[slot] = first
@@ -330,3 +329,13 @@ class ServeEngine:
         if len(r.out_tokens) >= r.max_new_tokens:
             self._retire(active, slot)
         return cache, cur
+
+
+def _copy_row(full: dict, one: dict, slot: int) -> None:
+    """Copy a batch-1 layer cache into row ``slot`` of the batched one,
+    walking nested dicts (an RWKV layer's {"tmix": ..., "cmix": ...})."""
+    for name, leaf in full.items():
+        if isinstance(leaf, dict):
+            _copy_row(leaf, one[name], slot)
+        else:
+            leaf[slot] = one[name][0]

@@ -1091,3 +1091,62 @@ def test_ecsq_codec_rate_paths_count_in_the_quantizer(dev, shape):
     assert torch.equal(idx, codec.quantize(x))
     assert torch.equal(packed, codec.pack(idx.reshape(-1)))
     assert float(rate) == float(rate2) == float(rate3) == float(two_launch)
+
+
+# -- the accuracy harness and the model families ----------------------------------
+
+def test_run_scenario_kernels_match_the_torch_backend(dev):
+    """``transformer-tensor`` on the card with the CUDA kernels (#1 at
+    N=256, #3 at 16 and 4) against ``backend="torch"`` on the same
+    weights: identical coded bytes and degradation, the logit rmse
+    within 1e-6 (reconstructions may part by 1 ulp)."""
+    from repro_torch.eval import SCENARIOS, run_scenario
+    sc = SCENARIOS["transformer-tensor"]
+    _build.reset_launches()
+    kern = run_scenario(sc, device=dev)
+    launched = dict(_build.LAUNCHES)
+    plain = run_scenario(sc, backend="torch", device=dev)
+    assert launched["clip_quant"] > 0 and launched["encode_tiles"] > 0
+    assert len(kern.cases) == len(plain.cases) == 6
+    for k, p in zip(kern.cases, plain.cases):
+        assert (k.rung, k.clip_mode, k.coded_bytes, k.degradation,
+                k.raw_degradation) == (p.rung, p.clip_mode, p.coded_bytes,
+                                       p.degradation, p.raw_degradation)
+        np.testing.assert_allclose(k.logit_rmse, p.logit_rmse, rtol=1e-6)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["dbrx-132b", "rwkv6-3b",
+                                  "recurrentgemma-2b"])
+def test_family_forward_on_the_card_matches_the_cpu(dev, arch, dtype):
+    """The MoE, RWKV-6 and RG-LRU models (reduced, two periods) on the
+    card against the CPU on the same weights and tokens: float32 logits
+    within rtol/atol 1e-4 (reduction order), bfloat16 logits within 2e-2
+    of the CPU's relative L2 norm (each side rounds every op to
+    bfloat16)."""
+    from repro_torch.models import forward
+    base = get_config(arch)
+    cfg = dataclasses.replace(reduced(base, layers=2 * base.period),
+                              dtype=dtype)
+    params = init_params(cfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32))
+    with torch.inference_mode():
+        want = forward(cfg, params, toks)[0]
+        got = forward(cfg, _to(params, dev), toks.to(dev))[0].cpu()
+    assert torch.isfinite(got).all()
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+    else:
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        assert rel <= 2e-2, rel

@@ -143,10 +143,23 @@ def test_init_params_shapes_and_dense_only():
     assert len(p["layers"]) == cfg.num_layers
     assert tuple(p["layers"][0]["attn"]["wq"].shape) == \
         j["groups"][0]["layers"][0]["attn"]["wq"].shape[1:]
+    # MoE, rwkv6 and rglru layers are ported: their shapes match too
+    for name in ("dbrx-132b", "rwkv6-3b", "recurrentgemma-2b"):
+        cfg = reduced(get_config(name))
+        p = tm.init_params(cfg, gen, device="cpu")
+        j = jax.eval_shape(lambda n=name: jm.init_params(
+            jreduced(jget_config(n)), jax.random.PRNGKey(0)))
+        for li, layer in enumerate(p["layers"][:cfg.period]):
+            shapes = jax.tree.map(lambda a: a.shape[1:],
+                                  j["groups"][0]["layers"][li])
+            assert jax.tree.map(lambda t: tuple(t.shape), layer) == shapes
+        assert sum(map(len, tm.init_cache(cfg, 1, 8, device="cpu"))) == \
+            cfg.num_layers
+    # the split runtime's tree stays dense-only (its MoE path is the
+    # multi-chip one)
     with pytest.raises(NotImplementedError, match="dense"):
-        tm.init_params(reduced(get_config("dbrx-132b")), gen, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
-        tm.init_cache(reduced(get_config("rwkv6-3b")), 1, 8)
+        tm.split_params_from_numpy(reduced(get_config("dbrx-132b")), {},
+                                   edge_device="cpu", cloud_device="cpu")
 
 
 def test_model_entry_points_default_to_the_card():
