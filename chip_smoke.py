@@ -30,9 +30,12 @@ Phases, in order; any failure raises and exits non-zero:
    histogram, with and without the reconstruction, and packing; for #8
    also indices alone and in coded order; for #2's element route and
    the tile histogram also (m)'s 2-D plan; for the index histogram the
-   whole wrapper
-   call; for the rANS step loop: one chunk, the 16-chunk batch, a
-   decode tensor), beside the plain version's time and the bound (for
+   whole wrapper call; for the per-tensor quantizer also phase 6's
+   float32 index-only launches at N=256; for the encode megakernel also
+   the transport tick's stacked launch of 16 decode boundaries, flat
+   and on the g=8 plan; for the rANS step loop: one chunk, the 16-chunk
+   batch, a decode tensor, and the tick's 16 per-session decode
+   launches), beside the plain version's time and the bound (for
    the step loop, the larger of its byte bound and its dependent chain:
    the cycles of the step's least dependent chain, measured in this run
    by ``tools/rans_chain_probe.cu``, per step at the top SM clock
@@ -76,6 +79,22 @@ Phases, in order; any failure raises and exits non-zero:
    ``tile_rate_bits`` of a 2-D tile codec, ``pack`` of the per-channel
    ECSQ codec's indices, ``rate_from_indices`` of (e)'s codec --
    against their plain versions;
+5b. transport -- the port's socket transport on the same weights and
+   codecs: (q) the serve run of (b) through ``launch.serve.
+   _loopback_codec_fn`` (a CloudServer on its own event-loop thread,
+   (b)'s device entropy stage on the client): tokens equal to (b)'s,
+   each boundary's wire rate above (b)'s payload rate, one server
+   session a crossing, profiled as (b); (r) one async EdgeClient with
+   16 concurrent sessions, each sending (b)'s 8 boundaries in order
+   through the client's encode tick (``TickConfig(max_wait_s=0.002,
+   max_batch=16, device_entropy=True)``) to a CloudServer on its
+   default tick: payloads byte-identical to (b)'s, echoed
+   reconstructions equal to ``decode_stream`` of them, one stacked
+   encode launch a tick and one step-loop launch a session, counted
+   exactly from the pool threads; (s) the same with the per-channel g=8
+   codec on (d)'s boundaries; (t) ``launch.serve.main`` at the reduced
+   size with ``--transport loopback --workers 2 --tick-ms 1``: no
+   session shed;
 6. eval    -- the accuracy harness (``repro_torch.eval``) on the default
    matrix's four scenarios, each a sweep of rungs 256, 16, 4 x clip
    modes minmax, empirical over 2 eval batches of 2 x 32 tokens with
@@ -92,9 +111,13 @@ Phases, in order; any failure raises and exits non-zero:
    reset before and read after each sweep; the per-tensor quantizer and
    the encode megakernel must launch in each; every case's
    ``bits_per_elem`` must be ``coded_bytes * 8 / n_elems``, its logits
-   finite, with decisive tokens;
+   finite, with decisive tokens.  ``transformer-loopback`` runs at full
+   width on the serve weights beside its ``transport="inproc"`` twin:
+   case by case the same degradation and more coded bytes on the
+   socket;
 7. launches -- each run's launch counts against the kernels it must
-   launch.  The device operations (``torch.profiler``) of one decode
+   launch ((q), (r) and (s) the encode megakernel and the step loop,
+   and no histogram or pack).  The device operations (``torch.profiler``) of one decode
    crossing of the (a), (c) and (e) hookups (``apply_with_rate``) and
    of the (h), (l) and (n) split steps' crossings are counted at the
    end of phase 3: their quantizer, histogram and pack stage must be
@@ -139,6 +162,7 @@ WARMUP_BATCHES = 2          # calibration batches of split-layer activations
 ECSQ_LAGRANGIAN = 0.05
 SPLIT_PROMPT, SPLIT_NEW, SPLIT_MAX_SEQ = 8, 8, 32
 ROADMAP = ROOT / "ROADMAP.md"    # its queue B table: each kernel's status
+TICK_SESSIONS = 16      # concurrent sessions of the transport runs (r), (s)
 # run -> (transport, split codec); the codecs are built in split_phase
 SPLIT_RUNS = {"g": ("raw", None), "h": ("packed", "tensor-4"),
               "i": ("quantized_f16", "tensor-4"), "j": ("packed", "tensor-2"),
@@ -218,8 +242,13 @@ def synthetic_boundary(dev):
     gen = torch.Generator(device=dev).manual_seed(0)
     pre = torch.randn(4, 64, 4096, device=dev, generator=gen) * 1.3 + 0.1
     dec = torch.randn(4, 1, 4096, device=dev, generator=gen) * 1.3 + 0.1
+    # the transport tick's stacked launch: TICK_SESSIONS decode
+    # boundaries, one per session, stacked on a new leading axis
+    tick = torch.randn(TICK_SESSIONS, 4, 4096, device=dev,
+                       generator=gen) * 1.3 + 0.1
     return {"prefill": pre.to(torch.bfloat16),
-            "decode": dec.to(torch.bfloat16), "range": (-2.2, 2.9)}
+            "decode": dec.to(torch.bfloat16),
+            "tick": tick.to(torch.bfloat16), "range": (-2.2, 2.9)}
 
 
 def check(cond: bool, what: str) -> None:
@@ -888,6 +917,22 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
                                                         bits),
             nbytes=n * 2 + n // per + 64 * 4, nops=6 * n,
             err=max(diff(kp, pp), diff(kh, ph)))
+    # and phase 6's launches: indices alone, float32 in, N=256 (the
+    # harness's top rung; the encode megakernel's histogram holds 64
+    # levels, so its codec quantizes through #1), on each family's
+    # boundary size -- 2 x 32 tokens of d_model 2560, 4096 and 6144
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for n in (163_840, 262_144, 393_216):
+        x = torch.randn(n, device=dev, generator=gen) * 1.3 + 0.1
+        kw = dict(want_deq=False)
+        k_out = fcq.clip_quant_2d(x, lo, hi, 256, **kw)
+        p_out = fcq.clip_quant_plain(x, lo, hi, 256, **kw)
+        sizes[f"eval f32 N=256 {n}"] = dict(
+            kernel=lambda x=x: fcq.clip_quant_2d(x, lo, hi, 256,
+                                                 want_deq=False),
+            plain=lambda x=x: fcq.clip_quant_plain(x, lo, hi, 256,
+                                                   want_deq=False),
+            nbytes=n * (4 + 4), nops=6 * n, err=diff(k_out[0], p_out[0]))
     row("clip_quant", "fused_clip_quant.cu",
         "src/repro/kernels/fused_clip_quant.py:26", sizes)
 
@@ -943,14 +988,18 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
                     + 2 * r * nsb * 4, nops=8 * r * c,
                     err=max(diff(kp, pp), diff(kh, ph)))
 
-    for size, x in bnd.items():
+    # and at the transport tick's stacked size: TICK_SESSIONS decode
+    # boundaries (262,144 values) in one launch, flat (run (r)) and on
+    # the g=8 plan (run (s))
+    tick_bnd = dict(bnd, **{"tick decode": boundary["tick"]})
+    for size, x in tick_bnd.items():
         x2d, _ = ops._to_2d(x.float().reshape(-1), lo)
         r, c = x2d.shape
         sizes[size] = encode_case(
             x2d, torch.full((r, 1), float(lo), device=dev),
             torch.full((r, 1), float(hi), device=dev), (c, 1),
             fcq.band_valid_array(1, c, None, device=dev))
-    for size, x in bnd.items():
+    for size, x in tick_bnd.items():
         xf = x.float()
         lay = ops.banded_layout(tuple(x.shape), plan)
         xp, _ = ops._banded_view(xf, lay, plan)
@@ -1001,6 +1050,36 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
         print(f"rans_step {size}: {len(lengths)} stream(s), lanes "
               f"{sorted(set(lay.lanes))}, {steps} steps (longest stream), "
               f"{cells} cells")
+    # the transport tick's chunk set: the device-entropy tick dispatches
+    # each session's chunks on its own (one launch a session), so a decode
+    # tick of TICK_SESSIONS sessions is that many decode-size launches
+    # back to back; chain bound: the launches' chains one after another
+    tick_idx = ops.clip_quantize(boundary["tick"].float().reshape(-1),
+                                 cmin=lo, cmax=hi, n_levels=N_SERVE)[0]
+    per = tick_idx.numel() // TICK_SESSIONS
+    batches = [rans_coder._plane_batch(tick_idx[i * per:(i + 1) * per],
+                                       [per], N_SERVE)
+               for i in range(TICK_SESSIONS)]
+    t_args = [((bt.bits, bt.segs, bt.table, sum(bt.lay.lanes),
+                bt.lay.n_cells), max(bt.lay.lanes)) for bt in batches]
+    err = 0.0
+    for a, m in t_args:
+        kx, kov, kw = rans_coder.rans_steps(*a, m)
+        px, pov, pw = rans_coder.rans_steps_plain(*a)
+        err = max(err, diff(kx.long() & 0xFFFFFFFF, px), diff(kov, pov),
+                  diff(kw.long() & 0xFFFF, pw))
+    sizes["tick decode"] = dict(
+        kernel=lambda: [rans_coder.rans_steps(*a, m) for a, m in t_args],
+        plain=lambda: [rans_coder.rans_steps_plain(*a) for a, _ in t_args],
+        plain_kw=dict(reps=1, trials=1),
+        nbytes=sum(bt.lay.n_cells * (1 + 1 + 2) + bt.lay.n_segs * 8
+                   + len(bt.lay.lanes) * 6 * 8 + sum(bt.lay.lanes) * 4
+                   for bt in batches),
+        nops=12 * sum(bt.lay.n_cells for bt in batches), err=err,
+        chain_steps=sum(int(bt.table[:, 4].max()) for bt in batches))
+    print(f"rans_step tick decode: {TICK_SESSIONS} launches of one "
+          f"{per}-index stream each, "
+          f"{sum(bt.lay.n_cells for bt in batches)} cells")
     row("rans_step", "rans_coder.cu", "src/repro/kernels/rans_coder.py:265",
         sizes)
     dispatch = {}
@@ -1284,7 +1363,7 @@ def serve(dev):
     codecs = calibrate_codecs(samples)
     run_kw = dict(requests=REQUESTS, prompt_len=PROMPT_LEN,
                   new_tokens=NEW_TOKENS, device=dev)
-    counts, tok_s, rates, seen = {}, {}, {}, {}
+    counts, tok_s, rates, seen, tokens = {}, {}, {}, {}, {}
 
     # warm-up without a codec: the library's first calls at these shapes
     # (matmul heuristics, allocator growth) stay out of the timed runs
@@ -1319,10 +1398,10 @@ def serve(dev):
         if run_id in rated:
             seen[run_id] = list(rated[run_id])
         tok_s[run_id] = REQUESTS * NEW_TOKENS / dt
+        tokens[run_id] = [list(r.out_tokens) for r in reqs]
         rates[run_id] = float(np.mean(eng.rate_log))
-    for run_id in ("a", "b"):
-        profiled(f"({run_id})", lambda: S.run(cfg, params, **hookups[run_id],
-                                              **run_kw))
+    profiles = {run_id: profiled(f"({run_id})", lambda: S.run(
+        cfg, params, **hookups[run_id], **run_kw)) for run_id in ("a", "b")}
     # one prefill boundary, then NEW_TOKENS - 1 decode boundaries; (a),
     # (c) and (e) count their indices in the quantizer's launch
     same_rates("(a)", codecs["tensor"], seen["a"], NEW_TOKENS)
@@ -1377,7 +1456,9 @@ def serve(dev):
         f"({r}) {runs[r][0]} {'estimated' if runs[r][1] == 'codec' else 'wire'}"
         f" {rates[r]:.4f} bits/element {tok_s[r]:.1f} tok/s" for r in runs)
         + f"; init {init_s:.1f} s")
-    return cfg, params, counts, codecs
+    served = dict(seen=seen, tokens=tokens, tok_s=tok_s, profiles=profiles,
+                  run_kw=run_kw)
+    return cfg, params, counts, codecs, served
 
 
 def same_payloads(label: str, codec, seen: list) -> None:
@@ -1650,6 +1731,229 @@ def split_phase(cfg, params, dev) -> dict:
     return counts
 
 
+# -- phase 5b: the socket transport ------------------------------------------
+
+def loopback_serve(cfg, params, codecs, served) -> dict:
+    """(q): the serve run of (b) with its boundary tensors sent through
+    the port's loopback transport (``launch.serve._loopback_codec_fn``:
+    a CloudServer on its own event-loop thread, a blocking edge client,
+    ``chunk_elems`` CHUNK).  The client codes with (b)'s device entropy
+    stage (``REPRO_ENTROPY_DEVICE=1``), so the codec, the coder and the
+    reconstruction are (b)'s and only the socket differs: the tokens must
+    equal (b)'s, each boundary's wire rate (frames included) must exceed
+    (b)'s payload rate of the same boundary, and the server must count a
+    session for every crossing.  Returns the run's launch counts."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as S
+    seen_b = served["seen"]["b"][:NEW_TOKENS]     # (b)'s timed run
+    run_kw = served["run_kw"]
+    rates, calls = [], [0]
+    prev = os.environ.get("REPRO_ENTROPY_DEVICE")
+    os.environ["REPRO_ENTROPY_DEVICE"] = "1"
+    try:
+        host_fn, cleanup = S._loopback_codec_fn(codecs["tensor"], CHUNK)
+
+        def counted(x):
+            calls[0] += 1
+            recon, rate = host_fn(x)
+            rates.append(rate)
+            return recon, rate
+
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            SIZE_LAUNCHES.clear()
+            eng, reqs, dt = S.run(cfg, params, codec_host_fn=counted,
+                                  **run_kw)
+            torch.cuda.synchronize()
+            counts = dict(_build.LAUNCHES)
+            RUN_SIZES["q"] = dict(SIZE_LAUNCHES)
+            timed = list(rates)
+            prof = profiled("(q)", lambda: S.run(
+                cfg, params, codec_host_fn=counted, **run_kw))
+        finally:
+            link = cleanup()
+    finally:
+        if prev is None:
+            del os.environ["REPRO_ENTROPY_DEVICE"]
+        else:
+            os.environ["REPRO_ENTROPY_DEVICE"] = prev
+    _check_retired(reqs)
+    check([list(r.out_tokens) for r in reqs] == served["tokens"]["b"],
+          "(q) tokens differ from (b)'s")
+    check(len(timed) == len(seen_b), f"(q) crossed {len(timed)} "
+          f"boundaries, (b) {len(seen_b)}")
+    for i, ((x, payloads), rate) in enumerate(zip(seen_b, timed)):
+        b_rate = 8.0 * sum(map(len, payloads)) / x.size
+        check(rate > b_rate, f"(q) boundary {i}: wire rate {rate} is not "
+              f"above (b)'s payload rate {b_rate}")
+    check(link["sessions_served"] == calls[0], f"(q) server served "
+          f"{link['sessions_served']} sessions for {calls[0]} crossings")
+    for k in ("encode_tiles", "rans_step"):
+        check(counts[k] > 0, f"(q): {k} never launched")
+    pb = served["profiles"]["b"]
+    b_mean = float(np.mean([8.0 * sum(map(len, p)) / x.size
+                            for x, p in seen_b]))
+    print(f"(q) loopback serve: tokens equal (b)'s; {len(timed)} "
+          f"boundaries, wire {float(np.mean(timed)):.4f} bits/element "
+          f"(b) payload {b_mean:.4f}; "
+          f"{REQUESTS * NEW_TOKENS / dt:.1f} tok/s vs (b) "
+          f"{served['tok_s']['b']:.1f}; profile wall {prof['wall_ms']:.1f} "
+          f"ms busy {prof['busy_ms']:.1f} ms idle share "
+          f"{prof['idle_share']:.3f} vs (b) wall {pb['wall_ms']:.1f} ms busy "
+          f"{pb['busy_ms']:.1f} ms idle share {pb['idle_share']:.3f}; "
+          f"server sessions {link['sessions_served']}, ticks "
+          f"{link.get('ticks', 0)}")
+    return counts
+
+
+def tick_run(run_id: str, label: str, codec, seen: list) -> dict:
+    """(r)/(s): one async EdgeClient opens TICK_SESSIONS concurrent
+    sessions, each sending the recorded boundaries ``seen`` of a
+    bitstream serve run in order, through the client's encode tick
+    (``TickConfig(max_wait_s=0.002, max_batch=TICK_SESSIONS,
+    device_entropy=True)``) to a port CloudServer on its default tick.
+    Every tensor's payloads must be the serve run's (``encode_stream(x,
+    chunk_elems=CHUNK, device_entropy=True)``), every echoed
+    reconstruction ``decode_stream`` of them, each tick one stacked
+    launch per group of at most TICK_SESSIONS same-geometry sessions and
+    one step-loop launch per session.  Returns the run's launch counts."""
+    import asyncio
+    from collections import Counter
+
+    from repro_torch.kernels import _build
+    from repro_torch.serving import TickConfig
+    from repro_torch.transport import CloudServer, EdgeClient
+    from repro_torch.transport import client as client_mod
+    xs = [np.asarray(x, np.float32) for x, _ in seen]
+    want = [p for _, p in seen]
+    recon = [codec.decode_stream(p).reshape(x.shape)
+             for x, p in zip(xs, want)]
+    index = {id(x): i for i, x in enumerate(xs)}
+    ticks = []
+    real = client_mod.encode_tick
+
+    def recording(items, cfg):
+        payloads, stats = real(items, cfg)
+        ticks.append(([index[id(x)] for _, x in items], payloads, stats))
+        return payloads, stats
+
+    tick = TickConfig(max_wait_s=0.002, max_batch=TICK_SESSIONS,
+                      device_entropy=True)
+
+    async def session(client):
+        return [await client.submit(x) for x in xs]
+
+    async def run():
+        async with CloudServer(echo_features=True,
+                               backend=codec.backend) as srv:
+            async with EdgeClient("127.0.0.1", srv.port, codec=codec,
+                                  chunk_elems=CHUNK, tick=tick) as client:
+                res = await asyncio.gather(*(session(client)
+                                             for _ in range(TICK_SESSIONS)))
+                return res, dict(client.encode_counters), srv.counters
+
+    client_mod.encode_tick = recording
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    SIZE_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    try:
+        results, enc, srv_c = asyncio.run(asyncio.wait_for(run(), 600))
+    finally:
+        client_mod.encode_tick = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    RUN_SIZES[run_id] = dict(SIZE_LAUNCHES)
+    n = TICK_SESSIONS * len(xs)
+    fused = 0
+    for ids, payloads, stats in ticks:
+        for i, p in zip(ids, payloads):
+            check(p == want[i], f"({run_id}) boundary {i}: tick payloads "
+                  "differ from encode_stream's")
+        # per-tensor codecs stack any shapes; a plan stacks one geometry
+        groups = Counter(0 if codec.plan is None else xs[i].shape
+                         for i in ids)
+        expect = sum(-(-k // TICK_SESSIONS) for k in groups.values())
+        check(stats.fused_launches == expect, f"({run_id}) a tick of "
+              f"{stats.sessions} sessions made {stats.fused_launches} "
+              f"fused launches, not {expect}")
+        fused += stats.fused_launches
+    check(sum(s.sessions for _, _, s in ticks) == n == enc["sessions"],
+          f"({run_id}) ticks coded {enc['sessions']} tensors, not {n}")
+    check(enc["stacked_sessions"] > 0, f"({run_id}) no stacked session")
+    for res in results:
+        for i, r in enumerate(res):
+            check(np.array_equal(np.asarray(r.arrays[0]), recon[i]),
+                  f"({run_id}) boundary {i}: echoed reconstruction differs "
+                  "from decode_stream")
+    check(srv_c["sessions_served"] == n, f"({run_id}) server served "
+          f"{srv_c['sessions_served']} of {n}")
+    quantizer = "encode_tiles"
+    check(counts[quantizer] == fused, f"({run_id}) {quantizer} launched "
+          f"{counts[quantizer]} times for {fused} fused launches")
+    check(counts["rans_step"] == n, f"({run_id}) rans_step launched "
+          f"{counts['rans_step']} times for {n} sessions")
+    bits = 8.0 * sum(r.coded_bytes for res in results for r in res)
+    elems = sum(r.n_elems for res in results for r in res)
+    print(f"({run_id}) {label}: {TICK_SESSIONS} sessions x {len(xs)} "
+          f"boundaries, wall {wall:.2f} s, {n / wall:.1f} tensors/s, ticks "
+          f"{enc['ticks']}, fused launches {enc['fused_launches']} (at most "
+          f"{max(s.fused_launches for _, _, s in ticks)} a tick), entropy "
+          f"calls {enc['entropy_calls']}, stacked sessions "
+          f"{enc['stacked_sessions']}, wire {bits / elems:.4f} "
+          f"bits/element, server ticks {srv_c['ticks']} (occupancy "
+          f"{srv_c['batch_occupancy_avg']:.2f}); launches "
+          + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    return counts
+
+
+def cli_run() -> dict:
+    """(t): ``repro_torch.launch.serve.main`` at the reduced size with the
+    loopback transport through a dispatcher over two in-process workers;
+    no session may be shed.  Returns the run's launch counts."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as S
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    SIZE_LAUNCHES.clear()
+    t0 = time.perf_counter()
+    link = S.main(["--arch", "codeqwen1.5-7b", "--codec-levels", "4",
+                   "--transport", "loopback", "--workers", "2",
+                   "--tick-ms", "1"])
+    torch.cuda.synchronize()
+    counts = dict(_build.LAUNCHES)
+    RUN_SIZES["t"] = dict(SIZE_LAUNCHES)
+    check(link["routed_sessions"] > 0, "(t) no session routed")
+    check(link["shed_sessions"] == 0,
+          f"(t) {link['shed_sessions']} sessions shed")
+    print(f"(t) serve CLI, --transport loopback --workers 2: "
+          f"{time.perf_counter() - t0:.1f} s wall, "
+          f"{link['routed_sessions']} sessions routed, 0 shed; launches "
+          + ", ".join(f"{k} {v}" for k, v in counts.items() if v))
+    return counts
+
+
+def transport_phase(cfg, params, codecs, served) -> dict:
+    """Phase 5b: (q) the loopback serve, (r) and (s) the encode tick
+    across sessions with the per-tensor and the per-channel g=8 codec on
+    the boundaries of (b)'s and (d)'s timed runs (one prefill, then
+    NEW_TOKENS - 1 decode boundaries; the profiled repeat of (b) recorded
+    its own after them), (t) the serve CLI over two workers.  Returns
+    each run's launch counts."""
+    t0 = time.perf_counter()
+    counts = {"q": loopback_serve(cfg, params, codecs, served),
+              "r": tick_run("r", "tick, per-tensor", codecs["tensor"],
+                            served["seen"]["b"][:NEW_TOKENS]),
+              "s": tick_run("s", f"tick, per-channel g={GROUP}",
+                            codecs["channel"],
+                            served["seen"]["d"][:NEW_TOKENS]),
+              "t": cli_run()}
+    print(f"transport phase: {time.perf_counter() - t0:.1f} s wall")
+    return counts
+
+
 # -- phase 6: the accuracy harness ---------------------------------------------
 
 # scenario -> (published config it runs at full width, layers kept; None =
@@ -1782,6 +2086,38 @@ def eval_full_width(name: str, cfg, params, dev) -> dict:
     return launches
 
 
+def eval_loopback(cfg, params, dev) -> None:
+    """``transformer-loopback`` at full width on the serve weights,
+    through a real localhost socket, and its ``transport="inproc"`` twin:
+    case by case the same degradation, and strictly more coded bytes on
+    the socket (frame headers)."""
+    import dataclasses
+
+    from repro_torch.eval import SCENARIOS
+    from repro_torch.eval import harness as H
+    sc = SCENARIOS["transformer-loopback"]
+    sa = H._default_tap(cfg)
+    ev, cal = H._token_batches(sc, cfg.vocab_size)
+    out = {}
+    for transport in ("loopback", "inproc"):
+        t0 = time.perf_counter()
+        cases, _ = H._sweep(dataclasses.replace(sc, transport=transport),
+                            cfg, params, ev, cal, sa, None, dev)
+        torch.cuda.synchronize()
+        eval_cases(f"eval (o) {sc.name} transport={transport} on "
+                   f"{cfg.name} split after {sa}", cases,
+                   time.perf_counter() - t0)
+        out[transport] = cases
+    for cl, ci in zip(out["loopback"], out["inproc"]):
+        label = f"{sc.name} {cl.clip_mode} N={cl.rung}"
+        check(cl.degradation == ci.degradation, f"{label}: degradation "
+              f"{cl.degradation} on the socket, {ci.degradation} in process")
+        check(cl.coded_bytes > ci.coded_bytes, f"{label}: socket bytes "
+              f"{cl.coded_bytes} not above in-process {ci.coded_bytes}")
+    print(f"eval (o) {sc.name}: loopback and inproc agree case by case "
+          "(degradation equal, socket bytes larger)")
+
+
 def eval_matrix(dev) -> dict:
     """(p): the registered smoke-size default matrix through
     ``run_matrix`` on the card."""
@@ -1816,7 +2152,10 @@ def eval_phase(cfg, params: list, dev) -> dict:
         for k in total:
             total[k] += launches[k]
 
-    add(eval_full_width("transformer-tensor", cfg, params.pop(), dev))
+    serve_params = params.pop()
+    add(eval_full_width("transformer-tensor", cfg, serve_params, dev))
+    eval_loopback(cfg, serve_params, dev)
+    del serve_params
     for name in ("moe-expert", "rwkv-state", "rglru-state"):
         gc.collect()
         torch.cuda.empty_cache()
@@ -1972,10 +2311,10 @@ def crossing_ops(boundary, dev) -> dict:
     return out
 
 
-def profiled(label: str, run) -> None:
-    """Repeat one serving run under ``torch.profiler`` and print the
-    device's busy time (summed kernel durations, one stream) against the
-    wall clock."""
+def profiled(label: str, run) -> dict:
+    """Repeat one serving run under ``torch.profiler``, print the device's
+    busy time (summed kernel durations, one stream) against the wall
+    clock, and return both with the idle share."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1989,6 +2328,8 @@ def profiled(label: str, run) -> None:
     print(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
           f"{busy_ms:.1f} ms, idle share {1 - busy_ms / wall_ms:.3f}, "
           f"{len(kernels)} device kernels")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1 - busy_ms / wall_ms, "kernels": len(kernels)}
 
 
 def _leaves(tree):
@@ -2073,12 +2414,15 @@ def main() -> int:
     rows = kernel_timings(boundary, dev, sm_mhz, cycles)
 
     # 4. serve
-    cfg, params, counts, codecs = serve(dev)
+    cfg, params, counts, codecs, served = serve(dev)
 
     # 5. the packed split runtime on the same weights, then the codec
     # calls that still launch the standalone tile histogram and pack
     counts.update(split_phase(cfg, params, dev))
     counts["m"] = codec_calls(boundary, codecs, dev)
+
+    # 5b. the socket transport on the same weights and codecs
+    counts.update(transport_phase(cfg, params, codecs, served))
 
     # 6. the accuracy harness: the serve phase's weights go in a list the
     # phase empties, so they are freed before its next model is built
@@ -2090,7 +2434,7 @@ def main() -> int:
     # kernel's count is read from the first run named here, and every
     # kernel must launch on each run listed for it
     runs_of = {"clip_quant": "ahijk", "index_histogram": "m",
-               "encode_tiles": "bd", "rans_step": "bdf",
+               "encode_tiles": "bdqrs", "rans_step": "bdfqrs",
                "clip_quant_tiles": "clm", "index_histogram_tiles": "m",
                "ecsq_assign": "enm", "ecsq_assign_tiles": "fm",
                "pack_bits": "m"}
@@ -2098,7 +2442,7 @@ def main() -> int:
           "the kernel table must list every ported kernel")
     # each counts its indices in the quantizer (and (h)-(l), (n) pack
     # them)
-    for run_id in "ahijkclen":
+    for run_id in "ahijkclenqrs":
         for kernel in ("index_histogram", "index_histogram_tiles",
                        "pack_bits"):
             check(counts[run_id][kernel] == 0, f"{kernel} launched "
@@ -2118,7 +2462,13 @@ def main() -> int:
                                     "ecsq_assign", "ecsq_assign_tiles") \
                 else size.split()[-1]
             route = runs_of[name_] if name_ != "encode_tiles" else \
-                "d" if size.startswith("plan") else "b"
+                "s" if size.startswith("plan tick") else \
+                "d" if size.startswith("plan") else \
+                "r" if size.startswith("tick") else "b"
+            if name_ == "rans_step" and size.startswith("tick"):
+                # the tick's per-session launches are decode-size ones,
+                # counted under "decode" already
+                route = ""
             if name_ in ("clip_quant_tiles", "index_histogram_tiles"):
                 # (m)'s 2-D plan has sizes of its own
                 route = "m" if "2-D" in size or "element" in size \

@@ -26,8 +26,10 @@ mode, re-using the head's boundaries and the uncompressed tail's logits
 across every case.  The model runs on ``device`` (the card unless the
 CPU is asked for) with random weights from a generator seeded with the
 scenario's seed; boundaries cross to the host as float32 numpy, as in
-the JAX package.  The loopback transport (a real socket between edge
-and cloud) is not ported yet and raises.
+the JAX package.  A ``transport="loopback"`` scenario sends every
+boundary through a real localhost socket (a CloudServer on its own
+event-loop thread and a blocking edge client) and counts the wire's
+bytes; the server dequantizes on the codec's backend.
 """
 
 from __future__ import annotations
@@ -139,6 +141,56 @@ def _roundtrip_inproc(codec: FeatureCodec, x: np.ndarray
             sum(len(p) for p in payloads))
 
 
+class _LoopbackLink:
+    """A real CloudServer on a daemon-thread event loop plus a blocking
+    edge client: boundary tensors cross an actual socket and the rate is
+    the client's wire accounting.  The server dequantizes on the codec's
+    backend."""
+
+    def __init__(self, codec: FeatureCodec):
+        import asyncio
+        import threading
+
+        from ..serving import TickConfig
+        from ..transport import CloudServer, SyncEdgeClient
+
+        self._loop = asyncio.new_event_loop()
+        self._thread = threading.Thread(target=self._loop.run_forever,
+                                        name="eval-cloud", daemon=True)
+        self._thread.start()
+        self._server = CloudServer(echo_features=True,
+                                   tick=TickConfig(max_wait_s=0.0),
+                                   backend=codec.backend)
+        self._client = None
+        try:
+            asyncio.run_coroutine_threadsafe(
+                self._server.start(), self._loop).result()
+            self._client = SyncEdgeClient("127.0.0.1", self._server.port,
+                                          codec=codec)
+        except BaseException:
+            self.close()
+            raise
+
+    def roundtrip(self, x: np.ndarray) -> tuple[np.ndarray, int]:
+        res = self._client.submit(x)
+        # a copy: the received array is a read-only view of the frame
+        return np.array(res.arrays[0]), res.coded_bytes
+
+    def close(self) -> None:
+        """Close the client, the server and the loop, in that order."""
+        import asyncio
+
+        try:
+            if self._client is not None:
+                self._client.close()
+        finally:
+            asyncio.run_coroutine_threadsafe(
+                self._server.close(), self._loop).result()
+            self._loop.call_soon_threadsafe(self._loop.stop)
+            self._thread.join(timeout=10)
+            self._loop.close()
+
+
 def _sweep(sc: Scenario, cfg, params, ev_tokens: np.ndarray,
            cal_tokens: np.ndarray, split_after: int, backend: str | None,
            device) -> tuple[list[CaseResult], int]:
@@ -181,22 +233,31 @@ def _sweep(sc: Scenario, cfg, params, ev_tokens: np.ndarray,
             codec = calibrate(
                 codec_config_for(sc, rung, clip_mode, backend=backend),
                 cal_boundary)
+            link = (_LoopbackLink(codec) if sc.transport == "loopback"
+                    else None)
             agree_dec = 0
             agree_all = 0
             sq = 0.0
             coded = 0
             elems = 0
-            for b, rt, rl, dm in zip(boundaries, ref_top1, ref_logits,
-                                     decisive):
-                recon, nbytes = _roundtrip_inproc(codec, b)
-                with torch.inference_mode():
-                    logits = tail(recon.reshape(b.shape))
-                same = np.argmax(logits, axis=-1) == rt
-                agree_dec += int(same[dm].sum())
-                agree_all += int(same.sum())
-                sq += float(((logits - rl) ** 2).sum())
-                coded += nbytes
-                elems += b.size
+            try:
+                for b, rt, rl, dm in zip(boundaries, ref_top1, ref_logits,
+                                         decisive):
+                    if link is not None:
+                        recon, nbytes = link.roundtrip(b)
+                    else:
+                        recon, nbytes = _roundtrip_inproc(codec, b)
+                    with torch.inference_mode():
+                        logits = tail(recon.reshape(b.shape))
+                    same = np.argmax(logits, axis=-1) == rt
+                    agree_dec += int(same[dm].sum())
+                    agree_all += int(same.sum())
+                    sq += float(((logits - rl) ** 2).sum())
+                    coded += nbytes
+                    elems += b.size
+            finally:
+                if link is not None:
+                    link.close()
             agreement = agree_dec / n_decisive
             raw_agreement = agree_all / n_tokens
             cases.append(CaseResult(
@@ -225,10 +286,6 @@ def run_scenario(sc: Scenario, *, split_after: int | None = None,
     (None: the CUDA kernels; "torch": the torch formulas on the CPU);
     ``device`` is where the model runs.
     """
-    if sc.transport == "loopback":
-        raise NotImplementedError(
-            f"{sc.name}: the loopback transport waits for the transport/ "
-            "+ serving/batcher.py slice (ROADMAP.md A2)")
     t0 = time.perf_counter()
     device = models.resolve_device(device)
     cfg = sc.model_config()

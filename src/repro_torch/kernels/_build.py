@@ -76,8 +76,9 @@ build_seconds: float | None = None   # wall time of this process's build
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -153,12 +154,15 @@ def library() -> ctypes.CDLL:
 
 def launch(kernel: str, symbol: str, *args) -> None:
     """Call C entry point ``symbol`` (stream appended), raise on a bad
-    status, and count one launch of ``kernel``."""
+    status, and count one launch of ``kernel``.  The count is taken under
+    the lock: the transport launches kernels from pool threads, and an
+    unguarded read-modify-write of the counter could lose one."""
     fn = getattr(library(), symbol)
     status = fn(*args, torch.cuda.current_stream().cuda_stream)
     if status != 0:
         raise RuntimeError(f"{symbol} launch failed: CUDA error {status}")
-    LAUNCHES[kernel] += 1
+    with _lock:
+        LAUNCHES[kernel] += 1
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

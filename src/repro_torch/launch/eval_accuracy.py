@@ -21,7 +21,8 @@ degradation stays within ``--budget``.  The model runs on ``--device``
 (default ``cuda``; there is no silent CPU fallback), and the codec's
 quantizer on the CUDA kernels unless ``--backend torch`` asks for the
 torch formulas on the CPU.  The loopback-transport scenario
-(``transformer-loopback``) is not ported yet and raises.
+(``transformer-loopback``) streams its boundaries through a localhost
+socket on the same backend.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Observability layer: metrics and stage tracing (stdlib only).
+"""Observability layer: metrics, stage tracing, exposition (stdlib only).
 
 - :mod:`repro_torch.obs.metrics` -- a thread-safe :class:`MetricsRegistry`
   of typed Counter/Gauge/Histogram instruments with Prometheus text-format
@@ -6,8 +6,12 @@
 - :mod:`repro_torch.obs.tracing` -- span-based stage tracing, disabled by
   default; optionally wraps the fused-encode dispatch in
   ``torch.profiler.record_function``.
+- :mod:`repro_torch.obs.exposition` -- a minimal asyncio HTTP endpoint
+  serving ``GET /metrics`` (Prometheus text 0.0.4) and ``GET /events``
+  (the JSON span log), plus a text-format parser for tests.
 """
 
+from .exposition import MetricsExposition, parse_prometheus_text
 from .metrics import (
     BPE_BUCKETS,
     LATENCY_BUCKETS,
@@ -27,10 +31,12 @@ __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
+    "MetricsExposition",
     "MetricsRegistry",
     "Tracer",
     "configure_tracing",
     "default_registry",
+    "parse_prometheus_text",
     "render_registries",
     "span",
     "tracer",

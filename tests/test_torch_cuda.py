@@ -1150,3 +1150,105 @@ def test_family_forward_on_the_card_matches_the_cpu(dev, arch, dtype):
     else:
         rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
         assert rel <= 2e-2, rel
+
+
+# -- the transport slice: the encode tick and the socket link on the card -----
+
+def _tick_twins(kind):
+    """(CUDA-backend codec, torch twin, items) for a tick case: the
+    codecs calibrated alike from one seeded set of samples."""
+    from repro_torch.core.codec import CodecConfig as C
+    rng = np.random.default_rng(11)
+    last = (rng.standard_normal((4, 64, 256)) * 1.3 + 0.1).astype(np.float32)
+    conv = (rng.exponential(1.0, (1, 16, 8, 9))
+            + np.linspace(0, 5, 16)[None, :, None, None]).astype(np.float32)
+    base = dict(n_levels=4, clip_mode="minmax", constrain_cmin_zero=False)
+    kinds = {
+        "tensor": (dict(base), last.reshape(-1),
+                   [last, 0.5 * last, last[:, :1]]),
+        "channel_g8": (dict(base, granularity="channel", channel_axis=-1,
+                            channel_group_size=8), last.reshape(-1, 256),
+                       [last, 0.5 * last, 2.0 * last]),
+        "tile1d": (dict(base, granularity="tile", channel_axis=1,
+                        channel_group_size=2, spatial_block_size=24),
+                   conv, [conv, 2.0 * conv]),
+        "tile2d": (dict(base, granularity="tile", channel_axis=1,
+                        channel_group_size=2, spatial_block_hw=(4, 3)),
+                   conv, [conv, 0.25 * conv, 4.0 * conv]),
+        "tile2d_ecsq": (dict(base, granularity="tile", channel_axis=1,
+                             channel_group_size=2, spatial_block_hw=(4, 3),
+                             use_ecsq=True), conv, [conv, 0.5 * conv]),
+    }
+    kw, samples, xs = kinds[kind]
+    cuda = calibrate(C(backend="cuda", **kw), samples=samples)
+    cpu = calibrate(C(backend="torch", **kw), samples=samples)
+    return cuda, cpu, xs
+
+
+@pytest.mark.parametrize("device_entropy", [False, True])
+@pytest.mark.parametrize("kind", ["tensor", "channel_g8", "tile1d",
+                                  "tile2d", "tile2d_ecsq"])
+def test_encode_tick_matches_the_torch_backend(dev, kind, device_entropy):
+    """A stacked tick on the CUDA backend writes the torch backend's
+    payloads and its own per-session ``encode_stream``'s, and launches
+    the encode megakernel once per stacked group (the ECSQ plan: its
+    tile kernel) and, with ``device_entropy``, the step loop once per
+    session."""
+    from repro_torch.serving import TickConfig, encode_tick
+    cuda, cpu, xs = _tick_twins(kind)
+    cfg = TickConfig(chunk_elems=4096, device_entropy=device_entropy)
+    before = dict(_build.LAUNCHES)
+    got, stats = encode_tick([(cuda, x) for x in xs], cfg)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    want, cstats = encode_tick([(cpu, x) for x in xs], cfg)
+    assert got == want
+    assert dataclasses.replace(stats, encode_s=0) == \
+        dataclasses.replace(cstats, encode_s=0)
+    assert got == [list(cuda.encode_stream(x, chunk_elems=4096,
+                                           device_entropy=device_entropy))
+                   for x in xs]
+    assert stats.stacked_sessions == len(xs)
+    quantizer = "ecsq_assign_tiles" if kind == "tile2d_ecsq" \
+        else "encode_tiles"
+    assert launched[quantizer] == stats.fused_launches == 1
+    assert launched["rans_step"] == (len(xs) if device_entropy else 0)
+
+
+def test_sockets_on_the_card(dev):
+    """A port client and server on the card over 127.0.0.1: 8 concurrent
+    sessions through the client's encode tick (stacked launch, device
+    entropy stage) and the server's decode tick; every reconstruction
+    equals ``decode_stream`` of the session's payloads, and the launch
+    counts taken from the pool threads are exact."""
+    import asyncio
+
+    from repro_torch.serving import TickConfig
+    from repro_torch.transport import CloudServer, EdgeClient
+    cuda, _, _ = _tick_twins("tensor")
+    rng = np.random.default_rng(3)
+    xs = [(rng.standard_normal((4, 1, 256)) * (1 + i / 8)).astype(np.float32)
+          for i in range(8)]
+    tick = TickConfig(max_wait_s=0.05, max_batch=8, device_entropy=True)
+
+    async def run():
+        async with CloudServer(echo_features=True) as srv:
+            async with EdgeClient("127.0.0.1", srv.port, codec=cuda,
+                                  chunk_elems=512, tick=tick) as client:
+                res = await asyncio.gather(*(client.submit(x) for x in xs))
+                return res, dict(client.encode_counters), srv.counters
+
+    before = dict(_build.LAUNCHES)
+    results, enc, counters = asyncio.run(asyncio.wait_for(run(), 120))
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    for x, res in zip(xs, results):
+        payloads = list(cuda.encode_stream(x, chunk_elems=512,
+                                           device_entropy=True))
+        np.testing.assert_array_equal(
+            np.asarray(res.arrays[0]),
+            cuda.decode_stream(payloads).reshape(x.shape))
+    assert counters["sessions_served"] == 8
+    assert enc["sessions"] == 8 and enc["stacked_sessions"] > 0
+    assert launched["encode_tiles"] == enc["fused_launches"]
+    assert launched["rans_step"] == 8

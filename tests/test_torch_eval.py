@@ -214,14 +214,29 @@ def test_select_split_point_picks_the_reference_tap(reference_weights):
             1.0 / r.report.cases[0].n_decisive
 
 
-def test_loopback_scenario_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="A2"):
-        teval.run_scenario(teval.SCENARIOS["transformer-loopback"],
-                           backend="torch", device="cpu")
-    from repro_torch.launch import eval_accuracy
-    with pytest.raises(NotImplementedError, match="loopback"):
-        eval_accuracy.main(["--matrix", "transformer-loopback",
-                            "--backend", "torch", "--device", "cpu"])
+def test_loopback_scenario_matches_reference(reference_weights):
+    """``transformer-loopback`` sends every boundary through a localhost
+    CloudServer: the same degradation as its ``transport="inproc"``
+    twin, strictly more coded bytes (frame headers), and the
+    reference's loopback run's numbers within the end-to-end
+    tolerances above."""
+    sc = teval.SCENARIOS["transformer-loopback"]
+    loop = teval.run_scenario(sc, backend="torch", device="cpu")
+    inproc = teval.run_scenario(dataclasses.replace(sc, transport="inproc"),
+                                backend="torch", device="cpu")
+    ref = jeval.run_scenario(jeval.SCENARIOS["transformer-loopback"],
+                             backend="jnp")
+    assert len(loop.cases) == len(inproc.cases) == len(ref.cases) == 6
+    for cl, ci, r in zip(loop.cases, inproc.cases, ref.cases):
+        assert (cl.rung, cl.clip_mode) == (ci.rung, ci.clip_mode) == \
+            (r.rung, r.clip_mode)
+        assert cl.degradation == ci.degradation
+        assert cl.logit_rmse == ci.logit_rmse
+        assert cl.coded_bytes > ci.coded_bytes
+        assert abs(cl.degradation - r.degradation) <= 1.0 / r.n_decisive
+        np.testing.assert_allclose(cl.bits_per_elem, r.bits_per_elem,
+                                   rtol=2e-3)
+        assert cl.bits_per_elem == cl.coded_bytes * 8.0 / cl.n_elems
 
 
 def test_harness_runs_on_the_card_unless_the_cpu_is_asked():

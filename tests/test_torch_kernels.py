@@ -184,3 +184,42 @@ def test_other_devices_are_refused():
     with pytest.raises(ValueError, match="device"):
         trh.index_histogram_2d(torch.zeros(8, dtype=torch.int32,
                                            device="meta"), 4)
+
+
+def test_launch_counts_are_exact_from_many_threads(monkeypatch):
+    """``_build.launch`` counts under its lock: 8 threads launching
+    through a stubbed library (no card needed) lose no count, with the
+    interpreter switching threads every microsecond."""
+    import sys
+    import threading
+    import types
+
+    class Stream:
+        cuda_stream = 0
+
+    stub = types.SimpleNamespace(repro_pack_bits=lambda *args: 0)
+    monkeypatch.setattr(_build, "library", lambda: stub)
+    monkeypatch.setattr(_build.torch.cuda, "current_stream",
+                        lambda *a: Stream())
+    before = dict(_build.LAUNCHES)
+    n_threads, per_thread = 8, 2000
+
+    def work():
+        for _ in range(per_thread):
+            _build.launch("pack_bits", "repro_pack_bits", 0, 0, 0, 0)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert _build.LAUNCHES["pack_bits"] - before["pack_bits"] == \
+        n_threads * per_thread
+    assert {k: v for k, v in _build.LAUNCHES.items() if k != "pack_bits"} \
+        == {k: v for k, v in before.items() if k != "pack_bits"}

@@ -167,7 +167,91 @@ def test_serve_cli_channel_granularity_on_cpu(capsys):
     assert "6 tokens in" in out and "split-link rate:" in out
 
 
-def test_loopback_transport_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="transport"):
-        tserve.main(["--arch", "codeqwen1.5-7b", "--device", "cpu",
-                     "--transport", "loopback", "--codec-levels", "4"])
+LOOPBACK_ARGS = ["--arch", "codeqwen1.5-7b", "--device", "cpu",
+                 "--requests", "2", "--prompt-len", "5", "--new-tokens", "3",
+                 "--codec-levels", "4", "--warmup-batches", "1",
+                 "--transport", "loopback"]
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_serve_cli_loopback_on_cpu(monkeypatch, capsys, workers):
+    """``--transport loopback --device cpu`` streams every boundary
+    tensor through a localhost CloudServer (or a dispatcher over two
+    in-process workers): its tokens equal the engine's with the
+    in-process round trip ``decode_stream(encode_stream(x))`` on the
+    same weights and codec, every crossing is one session, none shed."""
+    runs, crossings, codecs = [], [], []
+    real_run, real_fn = tserve.run, tserve._loopback_codec_fn
+    real_cal = tserve._calibrate_warmup
+
+    def run(*a, **kw):
+        out = real_run(*a, **kw)
+        runs.append((a, kw, out))
+        return out
+
+    def loopback_fn(codec, *a, **kw):
+        host_fn, cleanup = real_fn(codec, *a, **kw)
+
+        def counted(x):
+            crossings.append(x.shape)
+            return host_fn(x)
+        return counted, cleanup
+
+    def calibrate_warmup(*a, **kw):
+        codecs.append(real_cal(*a, **kw))
+        return codecs[-1]
+
+    monkeypatch.setattr(tserve, "run", run)
+    monkeypatch.setattr(tserve, "_loopback_codec_fn", loopback_fn)
+    monkeypatch.setattr(tserve, "_calibrate_warmup", calibrate_warmup)
+    link = tserve.main(LOOPBACK_ARGS + ["--workers", str(workers),
+                                        "--tick-ms", "1"])
+    out = capsys.readouterr().out
+    assert "loopback transport: streaming split tensors via" in out
+    assert "codec bank cache:" in out and "split-link rate:" in out
+    (a, kw, (_, reqs, _)), = runs
+    assert kw.pop("codec") is None and kw.pop("codec_host_fn") is not None
+    (codec,) = codecs
+
+    def inproc(x):
+        payloads = list(codec.encode_stream(x, chunk_elems=1 << 16))
+        return (codec.decode_stream(payloads).reshape(x.shape),
+                8.0 * sum(map(len, payloads)) / x.size)
+
+    _, twin, _ = real_run(*a, codec_host_fn=inproc, **kw)
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in twin]
+    assert crossings
+    if workers == 1:
+        assert "cloud ticks:" in out
+        assert link["sessions_served"] == len(crossings)
+    else:
+        assert "dispatcher: " in out
+        assert link["routed_sessions"] == len(crossings)
+        assert link["shed_sessions"] == 0
+        assert link["worker_restarts"] == 0
+
+
+def test_serve_cli_loopback_needs_the_card_or_the_cpu():
+    """Without ``--device cpu`` the launcher runs on the card: with none
+    it raises rather than serve the link on the CPU."""
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    args = [a for a in LOOPBACK_ARGS if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tserve.main(args)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--transport", "none", "--workers", "2"],
+    ["--transport", "none", "--secret", "x"],
+    ["--metrics-port", "0", "--transport", "none"],
+    ["--tls-key", "k.pem"],
+    ["--workers", "0"],
+    ["--workers", "2", "--metrics-port", "0"]])
+def test_serve_cli_loopback_argument_checks(extra):
+    args = [a for a in LOOPBACK_ARGS if a not in ("--transport",
+                                                  "loopback")]
+    with pytest.raises(SystemExit):
+        tserve.main(args + (extra if "--transport" in extra else
+                            extra + ["--transport", "loopback"]))
