@@ -31,7 +31,8 @@ Phases, in order; any failure raises and exits non-zero:
    also indices alone and in coded order; for #2's element route and
    the tile histogram also (m)'s 2-D plan; for the index histogram the
    whole wrapper call; for the per-tensor quantizer also phase 6's
-   float32 index-only launches at N=256; for the encode megakernel also
+   float32 index-only launches at N=256 and phase 8's (8, 256, 1152)
+   training boundary with its histogram; for the encode megakernel also
    the transport tick's stacked launch of 16 decode boundaries, flat
    and on the g=8 plan; for the rANS step loop: one chunk, the 16-chunk
    batch, a decode tensor, and the tick's 16 per-session decode
@@ -115,18 +116,40 @@ Phases, in order; any failure raises and exits non-zero:
    width on the serve weights beside its ``transport="inproc"`` twin:
    case by case the same degradation and more coded bytes on the
    socket;
-7. launches -- each run's launch counts against the kernels it must
-   launch ((q), (r) and (s) the encode megakernel and the step loop,
-   and no histogram or pack).  The device operations (``torch.profiler``) of one decode
-   crossing of the (a), (c) and (e) hookups (``apply_with_rate``) and
-   of the (h), (l) and (n) split steps' crossings are counted at the
-   end of phase 3: their quantizer, histogram and pack stage must be
-   one operation on each.
+7. launches -- (checked after phase 8) each run's launch counts
+   against the kernels it must launch ((q), (r) and (s) the encode
+   megakernel and the step loop, and no histogram or pack; (w) the
+   per-tensor quantizer).  The device operations (``torch.profiler``)
+   of one decode crossing of the (a), (c) and (e) hookups
+   (``apply_with_rate``) and of the (h), (l) and (n) split steps'
+   crossings are counted at the end of phase 3: their quantizer,
+   histogram and pack stage must be one operation on each;
+8. train   -- gemma3-1b at published width and full depth (26 layers,
+   bf16, random weights from seed 0, the repo's token stream, batch 8 x
+   256, AdamW defaults, warmup 2): (u) ``Trainer.run`` for 8 steps with
+   one final async checkpoint -- loss finite and falling, step ms, the
+   step split into forward + backward and AdamW, one step profiled, peak
+   device memory, checkpoint size and write time, and its restore equal
+   bit for bit to the state in memory; (v) 8 steps with 4-bit gradient
+   compression and error feedback through the trainer's step method;
+   (w) a per-tensor N=4 codec (calibrated in "model" mode from one
+   forward's boundary) in the loop through ``make_train_step``, 4 steps:
+   the per-tensor quantizer launches once a step and nothing else, the
+   leaves before the boundary get zero gradients and exactly the
+   decay-only update; (x) at the smoke size, a failure at step 5 after
+   the step-4 checkpoint and a resume, the final parameters within
+   rtol = atol = 1e-6 of the uninterrupted run's; (y) ``loss_fn`` and
+   the gradients' global norm on the card (bf16) against the port's
+   float32 CPU run of the same weights (1 x 128 tokens); (z) ``python -m
+   repro_torch.launch.train --arch gemma3-1b --steps 4
+   --grad-compress-bits 4`` in a subprocess.  Checkpoints go under
+   ``build/train_phase`` (removed after the phase), which must have room
+   for (u)'s ~14 GB.
 
 The line before the last is the per-kernel JSON record (each kernel's
 numbers per size under ``sizes``, with its launches per run at that
-size, its launches in phase 6 under ``eval_launches``, and its port
-status); the last line is
+size, its launches in phase 6 under ``eval_launches`` and in (w)
+under ``train_launches``, and its port status); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -726,6 +749,8 @@ def size_class(kernel: str, symbol: str, args) -> str:
     name theirs the same way on their fast route (#8: "", " idx", or
     " coded" for coded order), and " element" (" element idx") on the
     element route."""
+    if kernel == "clip_quant" and args[2] == TRAIN_N:
+        return "train +hist" if args[10] is not None else "train"
     if symbol == "repro_clip_quant_pack":
         return ("prefill" if args[2] >= 600_000 else "decode") + " +pack"
     if kernel == "clip_quant":
@@ -933,6 +958,23 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
             plain=lambda x=x: fcq.clip_quant_plain(x, lo, hi, 256,
                                                    want_deq=False),
             nbytes=n * (4 + 4), nops=6 * n, err=diff(k_out[0], p_out[0]))
+    # and phase 8's launch: the codec-in-the-loop training run (w) at
+    # gemma3-1b's boundary, bf16 (8, 256, 1152), indices, reconstruction
+    # and histogram (apply_with_rate)
+    x = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, TRAIN_N // (TRAIN_BATCH
+                                                          * TRAIN_SEQ),
+                     device=dev, generator=gen) * 1.3 + 0.1).to(torch.bfloat16)
+    kw = dict(want_hist=True)
+    k_out = fcq.clip_quant_2d(x, lo, hi, N_SERVE, **kw)
+    p_out = fcq.clip_quant_plain(x, lo, hi, N_SERVE, **kw)
+    check(torch.equal(k_out[0], p_out[0]) and torch.equal(k_out[2], p_out[2])
+          and ulps(k_out[1], p_out[1]) <= 1,
+          "clip_quant +hist at the training boundary")
+    sizes["train +hist"] = dict(
+        kernel=lambda x=x: fcq.clip_quant_2d(x, lo, hi, N_SERVE, **kw),
+        plain=lambda x=x: fcq.clip_quant_plain(x, lo, hi, N_SERVE, **kw),
+        nbytes=TRAIN_N * (2 + 4 + 2) + 64 * 4, nops=6 * TRAIN_N,
+        err=max(diff(a, b) for a, b in zip(k_out, p_out)))
     row("clip_quant", "fused_clip_quant.cu",
         "src/repro/kernels/fused_clip_quant.py:26", sizes)
 
@@ -2170,6 +2212,416 @@ def eval_phase(cfg, params: list, dev) -> dict:
     return total
 
 
+# -- phase 8: training ------------------------------------------------------------
+
+TRAIN_ARCH = "gemma3-1b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 8
+TRAIN_N = TRAIN_BATCH * TRAIN_SEQ * 1152    # (w)'s boundary, gemma3-1b d_model
+CODEC_STEPS = 4
+# (y): bf16 on the card against float32 on the CPU, relative
+TRAIN_LOSS_RTOL, TRAIN_GNORM_RTOL = 2e-2, 5e-2
+
+
+def timed_steps(step, times: list):
+    """``step`` wrapped to append its wall seconds, between two device
+    syncs, to ``times``."""
+    def run(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def steady_ms(times: list) -> float:
+    """Median ms of steps 2 onward (the first two warm the libraries)."""
+    return statistics.median(times[2:]) * 1e3
+
+
+def step_split(cfg, dcfg, tr, state) -> dict:
+    """Where (u)'s step goes: the forward and backward pass, then the
+    AdamW update, each between device syncs; then one whole step under
+    ``torch.profiler`` for the device's busy time and idle share."""
+    from repro_torch.data import stream
+    from repro_torch.models import loss_and_grads
+    from repro_torch.optim import adamw_update
+
+    batch = next(stream(dcfg, TRAIN_STEPS))
+    tokens = torch.as_tensor(batch["tokens"], device=state["opt"]["step"]
+                             .device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = loss_and_grads(cfg, state["params"], tokens, remat=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    out = adamw_update(tr.opt_cfg, state["params"], grads, state["opt"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    del grads, out
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t3 = time.perf_counter()
+        tr._step(state["params"], state["opt"], state["ef"], batch,
+                 TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t3) * 1e3
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy_ms = sum(by_name.values())
+    kinds = {"matmul": ("gemm", "xmma", "nvjet", "cutlass"),
+             "elementwise": ("elementwise",), "reduction": ("reduce",)}
+    share = dict.fromkeys([*kinds, "other"], 0.0)
+    for name, ms in by_name.items():
+        kind = next((k for k, keys in kinds.items()
+                     if any(w in name.lower() for w in keys)), "other")
+        share[kind] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"(u) step split: forward + backward {(t1 - t0) * 1e3:.1f} ms, "
+          f"AdamW {(t2 - t1) * 1e3:.1f} ms (wall, between syncs); one step "
+          f"under torch.profiler: wall {wall_ms:.1f} ms, "
+          + (f"device busy {busy_ms:.1f} ms (idle share "
+             f"{1 - busy_ms / wall_ms:.3f}): "
+             + ", ".join(f"{k} {v:.1f}" for k, v in share.items())
+             + " ms; top kernels: " + "; ".join(
+                 f"{n[:60]} {v:.1f}" for n, v in top)
+             if by_name else "no device kernel recorded: busy time not "
+             "measured"))
+    return {"fwd_bwd_ms": (t1 - t0) * 1e3, "adamw_ms": (t2 - t1) * 1e3,
+            "profiled_wall_ms": wall_ms,
+            "busy_ms": busy_ms if by_name else None,
+            "busy_by_kind_ms": share if by_name else None}
+
+
+def train_plain(cfg, dcfg, root: Path, dev) -> dict:
+    """(u): ``Trainer.run`` for TRAIN_STEPS steps, one final async
+    checkpoint; the checkpoint restored equals the state bit for bit."""
+    import shutil
+
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.tree import leaves
+
+    n_params = cfg.param_count()
+    need = n_params * (2 + 4 + 4 + 4)       # params, mu, nu, error feedback
+    free = shutil.disk_usage(root).free
+    check(free > need * 1.1, f"(u) needs {need * 1.1 / 1e9:.1f} GB free "
+          f"under {root} for its checkpoint; {free / 1e9:.1f} GB free")
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+                         ckpt_dir=str(root / "u"), ckpt_async=True,
+                         warmup_steps=2, seed=0)
+    tr = Trainer(cfg, tcfg, dcfg, device=dev)
+    times, saved = [], {}
+    tr._step = timed_steps(tr._step, times)
+    real_save = tr._save
+
+    def save(step, state):
+        t0 = time.perf_counter()
+        real_save(step, state)          # host snapshot, then the thread
+        saved["snapshot_s"] = time.perf_counter() - t0
+        tr.wait_for_checkpoint()
+        saved["total_s"] = time.perf_counter() - t0
+
+    tr._save = save
+    torch.cuda.reset_peak_memory_stats()
+    state = tr.run(resume=False)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in tr.metrics_log]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"(u) loss not finite and falling: {losses}")
+    split = step_split(cfg, dcfg, tr, state)
+    step_dir = Path(tcfg.ckpt_dir) / f"step_{TRAIN_STEPS:08d}"
+    ckpt_bytes = sum(f.stat().st_size for f in step_dir.iterdir())
+    t0 = time.perf_counter()
+    back = ckpt.restore(tcfg.ckpt_dir, TRAIN_STEPS, state)
+    restore_s = time.perf_counter() - t0
+    n_leaves = 0
+    for (_, a), (_, b) in zip(leaves(state), leaves(back), strict=True):
+        check(a.dtype == b.dtype and torch.equal(a, b),
+              "(u) the restored checkpoint differs from the state in memory")
+        n_leaves += 1
+    del back, state
+    shutil.rmtree(tcfg.ckpt_dir)
+    out = {"losses": losses, "step_ms": steady_ms(times),
+           "peak_gb": peak / 1e9, "ckpt_gb": ckpt_bytes / 1e9,
+           "ckpt_snapshot_s": saved["snapshot_s"],
+           "ckpt_write_s": saved["total_s"], "restore_s": restore_s,
+           "leaves": n_leaves, **split}
+    print(f"(u) {cfg.name} {n_params / 1e9:.3f} B params, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; step {out['step_ms']:.1f} ms (median of "
+          f"steps 2-{TRAIN_STEPS - 1}); peak {out['peak_gb']:.2f} GB; "
+          f"checkpoint {out['ckpt_gb']:.2f} GB of {n_leaves} leaves, "
+          f"host snapshot {saved['snapshot_s']:.1f} s, written in "
+          f"{saved['total_s']:.1f} s; restored in {restore_s:.1f} s, equal "
+          "bit for bit")
+    return out
+
+
+def train_compressed(cfg, dcfg, root: Path, dev) -> dict:
+    """(v): TRAIN_STEPS steps with 4-bit gradient compression and error
+    feedback, through the trainer's step method."""
+    from repro_torch.compression import GradCompressionConfig
+    from repro_torch.data import stream
+    from repro_torch.train import Trainer, TrainerConfig
+
+    tcfg = TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=str(root / "v"),
+                         warmup_steps=2, seed=0,
+                         grad_compression=GradCompressionConfig(n_levels=16))
+    tr = Trainer(cfg, tcfg, dcfg, device=dev)
+    state = tr.init_state()
+    times, metrics = [], []
+    step = timed_steps(tr._step, times)
+    p, o, e = state["params"], state["opt"], state["ef"]
+    del state
+    for i, batch in zip(range(TRAIN_STEPS), stream(dcfg)):
+        p, o, e, m = step(p, o, e, batch, i)
+        metrics.append({k: float(v) for k, v in m.items()})
+    losses = [m["loss"] for m in metrics]
+    mse = [m["grad_compress_mse"] for m in metrics]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+          and all(np.isfinite(mse)),
+          f"(v) loss not finite and falling: {losses}")
+    out = {"losses": losses, "grad_compress_mse": mse,
+           "step_ms": steady_ms(times)}
+    print(f"(v) grad compression N=16: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; grad_compress_mse "
+          + ", ".join(f"{v:.3e}" for v in mse)
+          + f"; step {out['step_ms']:.1f} ms")
+    return out
+
+
+def train_codec(cfg, dcfg, dev) -> dict:
+    """(w): the codec in the loop -- a per-tensor N=4 codec calibrated in
+    "model" mode from one forward's boundary, ``codec_fn=codec.
+    apply_with_rate`` through ``make_train_step`` for CODEC_STEPS steps.
+    The leaves before the boundary get zero gradients and the decay-only
+    update; kernel #1 launches once a step."""
+    from repro_torch.core import CodecConfig, calibrate
+    from repro_torch.data import stream
+    from repro_torch.kernels import _build
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import (build_groups, forward_head, init_params,
+                                    loss_and_grads)
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.tree import leaves
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    batches = [torch.as_tensor(b["tokens"], device=dev)
+               for _, b in zip(range(CODEC_STEPS), stream(dcfg))]
+    with torch.no_grad():
+        x = forward_head(cfg, params, batches[0])
+    check(x.numel() == TRAIN_N, f"(w) boundary {tuple(x.shape)}")
+    codec = calibrate(CodecConfig(n_levels=4, clip_mode="model",
+                                  constrain_cmin_zero=False, backend="cuda"),
+                      samples=x.float().cpu().numpy().reshape(-1))
+    groups, _ = build_groups(cfg, split=True)
+    n_head = groups[0].n_periods * len(groups[0].specs)
+    (_, aux), grads = loss_and_grads(cfg, params, batches[0],
+                                     codec_fn=codec.apply_with_rate,
+                                     remat=True)
+    head = [g for path, g in leaves(grads)
+            if path[0] == "layers" and path[1] < n_head]
+    tail = [g for path, g in leaves(grads)
+            if path[0] == "layers" and path[1] >= n_head]
+    check(all(not g.any() for g in head) and all(g.any() for g in tail),
+          "(w) gradients: zero before the boundary, non-zero after")
+    del grads
+    opt_cfg = AdamWConfig()
+    step = make_train_step(cfg, opt_cfg, codec_fn=codec.apply_with_rate)
+    opt = init_opt_state(params)
+    times, rates, losses, moved = [], [], [], 0
+    lr = torch.tensor(opt_cfg.lr, device=dev)
+    _build.reset_launches()
+    SIZE_LAUNCHES.clear()
+    for tokens in batches:
+        before = [p for path, p in leaves(params)
+                  if path[0] == "layers" and path[1] < n_head]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, {"tokens": tokens})
+        rates.append(float(m["codec_rate_bits"]))
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+        after = [p for path, p in leaves(params)
+                 if path[0] == "layers" and path[1] < n_head]
+        for a, b in zip(before, after):
+            af = a.float()
+            want = (af - lr * (opt_cfg.weight_decay * af)).to(a.dtype)
+            check(torch.equal(b, want), "(w) a leaf before the boundary "
+                  "took another update than weight decay alone")
+            moved += int((b != a).sum())
+    launches = dict(_build.LAUNCHES)
+    RUN_SIZES["w"] = dict(SIZE_LAUNCHES)
+    check(launches["clip_quant"] == CODEC_STEPS
+          and sum(launches.values()) == CODEC_STEPS,
+          f"(w) launches {launches}: want clip_quant once a step")
+    check(all(np.isfinite(losses)) and all(0 < r < 3 for r in rates),
+          f"(w) losses {losses}, rates {rates}")
+    n_before = sum(p.numel() for path, p in leaves(params)
+                   if path[0] == "layers" and path[1] < n_head)
+    print(f"(w) codec N=4 at the boundary after {n_head} of "
+          f"{cfg.num_layers} layers, remat: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; codec_rate_bits "
+          + ", ".join(f"{r:.4f}" for r in rates)
+          + f"; clip_quant launches {launches['clip_quant']} in "
+          f"{CODEC_STEPS} steps; step {statistics.median(times[1:]) * 1e3:.1f} "
+          f"ms (median of steps 1-{CODEC_STEPS - 1}); the {n_before} "
+          "values before the boundary: zero gradient, decay-only update "
+          f"exact, {moved} values changed in bf16")
+    return {"launches": launches, "rates": rates, "losses": losses,
+            "step_ms": statistics.median(times[1:]) * 1e3,
+            "moved": moved, "values_before": n_before}
+
+
+def train_resume(root: Path, dev) -> dict:
+    """(x): at the smoke size, a failure at step 5 after the step-4
+    checkpoint, then a resume; final parameters against the
+    uninterrupted run's within rtol = atol = 1e-6."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.data import DataConfig
+    from repro_torch.train import Trainer, TrainerConfig
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.tree import leaves
+
+    cfg = dataclasses.replace(reduced(get_config(TRAIN_ARCH)), vocab_size=256)
+    dcfg = DataConfig(vocab_size=256, batch=8, seq_len=32)
+
+    def trainer(d, **kw):
+        return Trainer(cfg, TrainerConfig(steps=8, ckpt_every=4,
+                                          ckpt_dir=str(root / d),
+                                          warmup_steps=2), dcfg,
+                       device=dev, **kw)
+
+    full = trainer("x_full").run(resume=False)
+    try:
+        trainer("x_crash", fail_at_step=5).run(resume=False)
+        raise AssertionError("(x) the injected failure did not raise")
+    except RuntimeError as err:
+        check("injected failure" in str(err), f"(x) {err}")
+    check(ckpt.latest_step(str(root / "x_crash")) == 4,
+          "(x) no step-4 checkpoint")
+    resumed = trainer("x_crash").run(resume=True)
+    worst, ok = 0.0, True
+    for (_, a), (_, b) in zip(leaves(full["params"]),
+                              leaves(resumed["params"])):
+        a64, b64 = a.double(), b.double()
+        worst = max(worst, float((a64 - b64).abs().max()))
+        ok &= bool(torch.allclose(b64, a64, rtol=1e-6, atol=1e-6))
+    check(ok, f"(x) resumed parameters differ: max |diff| {worst:.3e}")
+    print(f"(x) {cfg.name} vocab 256: failure at step 5, resumed from the "
+          f"step-4 checkpoint; max |diff| of the final parameters "
+          f"{worst:.3e} (tolerance rtol = atol = 1e-6)")
+    return {"max_abs_diff": worst}
+
+
+def train_card_vs_cpu(cfg, dev) -> dict:
+    """(y): ``loss_fn`` and the gradients' global norm on the card (bf16)
+    against the port's float32 CPU run of the same weights, one batch of
+    1 x 128."""
+    import dataclasses
+
+    from repro_torch.data import DataConfig, stream
+    from repro_torch.models import init_params, loss_and_grads
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_map
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, device=dev)
+    tokens = next(stream(DataConfig(vocab_size=cfg.vocab_size, batch=1,
+                                    seq_len=128)))["tokens"]
+    (loss_c, _), g = loss_and_grads(cfg, params, torch.as_tensor(
+        tokens, device=dev), remat=False)
+    gn_c = float(global_norm(g))
+    loss_c = float(loss_c)
+    del g
+    cpu = tree_map(lambda t: t.float().cpu(), params)
+    del params
+    t0 = time.perf_counter()
+    (loss_h, _), g = loss_and_grads(dataclasses.replace(cfg, dtype="float32"),
+                                    cpu, torch.as_tensor(tokens), remat=False)
+    gn_h = float(global_norm(g))
+    loss_h = float(loss_h)
+    cpu_s = time.perf_counter() - t0
+    rel_l, rel_g = abs(loss_c - loss_h) / abs(loss_h), abs(gn_c - gn_h) / gn_h
+    check(rel_l <= TRAIN_LOSS_RTOL and rel_g <= TRAIN_GNORM_RTOL,
+          f"(y) card against CPU: loss {loss_c} vs {loss_h}, grad norm "
+          f"{gn_c} vs {gn_h}")
+    print(f"(y) 1 x 128 tokens: loss {loss_c:.5f} (card, bf16) against "
+          f"{loss_h:.5f} (CPU, float32), rel {rel_l:.2e} (tolerance "
+          f"{TRAIN_LOSS_RTOL}); grad norm {gn_c:.5f} against {gn_h:.5f}, rel "
+          f"{rel_g:.2e} (tolerance {TRAIN_GNORM_RTOL}); CPU run {cpu_s:.1f} s")
+    return {"loss": [loss_c, loss_h], "grad_norm": [gn_c, gn_h]}
+
+
+def train_cli(root: Path) -> dict:
+    """(z): the training CLI at the reduced size with 4-bit gradient
+    compression, in a subprocess."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         TRAIN_ARCH, "--steps", "4", "--grad-compress-bits", "4",
+         "--ckpt-dir", str(root / "z")], capture_output=True, text=True,
+        timeout=600, env=env, cwd=ROOT)
+    check(out.returncode == 0 and "final loss:" in out.stdout,
+          f"(z) the CLI failed ({out.returncode}):\n{out.stdout}\n"
+          f"{out.stderr[-3000:]}")
+    final = [ln for ln in out.stdout.splitlines() if "final loss" in ln][0]
+    print(f"(z) python -m repro_torch.launch.train --arch {TRAIN_ARCH} "
+          f"--steps 4 --grad-compress-bits 4: {final} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    return {"final": final}
+
+
+def train_phase(dev) -> dict:
+    """Phase 8: training gemma3-1b at published width and full depth
+    (bf16, random weights from seed 0, the repo's token stream, batch
+    TRAIN_BATCH x TRAIN_SEQ, AdamW defaults, warmup 2): (u) plain, (v)
+    gradient compression, (w) the codec in the loop, (x) resume at the
+    smoke size, (y) card against CPU, (z) the CLI.  Returns the runs'
+    numbers."""
+    import gc
+    import shutil
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, batch=TRAIN_BATCH,
+                      seq_len=TRAIN_SEQ)
+    root = ROOT / "build" / "train_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {}
+    try:
+        for run_id, run in (("u", lambda: train_plain(cfg, dcfg, root, dev)),
+                            ("v", lambda: train_compressed(cfg, dcfg, root,
+                                                           dev)),
+                            ("w", lambda: train_codec(cfg, dcfg, dev)),
+                            ("x", lambda: train_resume(root, dev)),
+                            ("y", lambda: train_card_vs_cpu(cfg, dev)),
+                            ("z", lambda: train_cli(root))):
+            gc.collect()
+            torch.cuda.empty_cache()
+            out[run_id] = run()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"(v) step {out['v']['step_ms']:.1f} ms against (u)'s "
+          f"{out['u']['step_ms']:.1f}; (w) {out['w']['step_ms']:.1f} ms")
+    print(f"train phase: {time.perf_counter() - t0:.1f} s wall")
+    return out
+
+
 def port_status(replaces: str) -> str:
     """A kernel's port status from the "Port" column of the row of
     ``ROADMAP.md``'s queue B table that names its TPU kernel
@@ -2430,10 +2882,14 @@ def main() -> int:
     del params
     eval_counts = eval_phase(cfg, box, dev)
 
+    # 8. training gemma3-1b; (w)'s launches are read like a serving run's
+    train = train_phase(dev)
+    counts["w"] = train["w"]["launches"]
+
     # 7. launch counts of the serving and split runs and of (m): each
     # kernel's count is read from the first run named here, and every
     # kernel must launch on each run listed for it
-    runs_of = {"clip_quant": "ahijk", "index_histogram": "m",
+    runs_of = {"clip_quant": "ahijkw", "index_histogram": "m",
                "encode_tiles": "bdqrs", "rans_step": "bdfqrs",
                "clip_quant_tiles": "clm", "index_histogram_tiles": "m",
                "ecsq_assign": "enm", "ecsq_assign_tiles": "fm",
@@ -2452,6 +2908,7 @@ def main() -> int:
         r_["status"] = port_status(r_["replaces"])
         r_["launches"] = counts[runs_of[name_][0]][name_]
         r_["eval_launches"] = eval_counts.get(name_, 0)
+        r_["train_launches"] = counts["w"][name_]
         for run_id in runs_of[name_]:
             check(counts[run_id][name_] > 0, f"{name_} never "
                   f"launched on serving run ({run_id})")

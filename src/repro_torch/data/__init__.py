@@ -1,3 +1,3 @@
-from .pipeline import DataConfig, stream
+from .pipeline import DataConfig, PrefetchingLoader, stream
 
-__all__ = ["DataConfig", "stream"]
+__all__ = ["DataConfig", "PrefetchingLoader", "stream"]

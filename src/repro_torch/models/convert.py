@@ -21,7 +21,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.backend import host_tensor
-from .transformer import resolve_device, torch_dtype
+from .transformer import build_groups, resolve_device, torch_dtype
 
 #: (block, leaf) names of the layer leaves that stay float32: the MoE
 #: router, RWKV-6's base decay and first-token bonus, RG-LRU's Lambda
@@ -29,16 +29,38 @@ FLOAT32_LEAVES = {("moe", "router"), ("tmix", "w0"), ("tmix", "u"),
                   ("rec", "lam")}
 
 
-def _tensor(a, dtype, device):
+def from_numpy(a, dtype=None, device=None) -> torch.Tensor:
+    """Numpy leaf -> tensor (cast to ``dtype`` when given).  A bfloat16
+    leaf, which numpy holds as two-byte void (``'<V2'``, what ``np.savez``
+    writes for it) or as an extension dtype, keeps its bits."""
     arr = np.asarray(a)
-    if arr.dtype.kind not in "fiub":     # e.g. a bfloat16 extension dtype
-        arr = arr.astype(np.float32)
-    return host_tensor(arr, device=device).to(dtype)
+    if arr.dtype.kind not in "fiub" and arr.dtype.itemsize == 2:
+        bits = host_tensor(np.ascontiguousarray(arr).view(np.int16))
+        t = bits.view(torch.bfloat16).to(device)
+    else:
+        if arr.dtype.kind not in "fiub":     # another extension dtype
+            arr = arr.astype(np.float32)
+        t = host_tensor(arr, device=device)
+    return t if dtype is None else t.to(dtype)
+
+
+def to_numpy(t) -> np.ndarray:
+    """Tensor -> a numpy copy on the host; bfloat16 as ``'<V2'`` with the
+    same bits (numpy has no bfloat16), as the reference's checkpoints
+    store it."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
 
 
 def _tree(node, fn, path=()):
     if isinstance(node, dict):
         return {k: _tree(v, fn, path + (k,)) for k, v in node.items()}
+    if isinstance(node, (list, tuple)):
+        return [_tree(v, fn, path + (i,)) for i, v in enumerate(node)]
     return fn(node, path)
 
 
@@ -53,6 +75,62 @@ def _dense_only(cfg: ModelConfig) -> None:
                 "wait for the port's multi-chip slice (ROADMAP.md A6)")
 
 
+def _layout(cfg: ModelConfig, tree, conv):
+    """A JAX-layout tree in the port's layout, ``conv(leaf, path)`` of
+    every leaf: each group's stacked layer leaves cut into one dict a
+    layer, in run order."""
+    out = {k: _tree(v, conv) for k, v in tree.items() if k != "groups"}
+    layers = []
+    for group in tree["groups"]:
+        specs = group["layers"]
+        n_periods = int(np.shape(specs[0]["norm1"]["scale"])[0])
+        for p in range(n_periods):
+            for spec_params in specs:
+                layers.append(_tree(spec_params, lambda a, path, p=p:
+                                    conv(a[p], path)))
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, config "
+                         f"{cfg.name} has {cfg.num_layers}")
+    out["layers"] = layers
+    return out
+
+
+def _stacked(trees, stack):
+    """One tree of ``stack``ed leaves from same-shaped trees, dict keys
+    sorted as ``jax.tree`` orders them."""
+    if isinstance(trees[0], dict):
+        return {k: _stacked([t[k] for t in trees], stack)
+                for k in sorted(trees[0])}
+    return stack(trees)
+
+
+def _restack(cfg: ModelConfig, tree, stack):
+    """Port layout -> the JAX package's (unsplit) layout: each group's
+    layers stacked over its periods by ``stack``, keys sorted."""
+    groups, _ = build_groups(cfg)
+    layers, i, gps = tree["layers"], 0, []
+    for g in groups:
+        n = len(g.specs)
+        gps.append({"layers": [
+            _stacked([layers[i + p * n + j] for p in range(g.n_periods)],
+                     stack) for j in range(n)]})
+        i += g.n_periods * n
+    out = {k: v for k, v in tree.items() if k != "layers"}
+    out["groups"] = gps
+    return {k: out[k] for k in sorted(out)}
+
+
+def stack_layers(cfg: ModelConfig, tree):
+    """A port-layout tree of tensors in the JAX package's stacked layout
+    (dict keys sorted, so its leaves come in ``jax.tree``'s order)."""
+    return _restack(cfg, tree, torch.stack)
+
+
+def unstack_layers(cfg: ModelConfig, tree):
+    """Inverse of :func:`stack_layers`: per-layer views of the stacks."""
+    return _layout(cfg, tree, lambda a, path: a)
+
+
 def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
     """JAX-layout parameter tree (numpy leaves) -> port parameter dict on
     ``device`` (the card unless the CPU is asked for)."""
@@ -61,23 +139,43 @@ def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
 
     def conv(a, path):
         keep = tuple(path[-2:]) in FLOAT32_LEAVES
-        return _tensor(a, torch.float32 if keep else dtype, device)
+        return from_numpy(a, torch.float32 if keep else dtype, device)
 
-    out = {k: _tree(tree[k], conv)
-           for k in ("embed", "final_norm", "head") if k in tree}
-    layers = []
-    for group in tree["groups"]:
-        specs = group["layers"]
-        n_periods = int(np.asarray(specs[0]["norm1"]["scale"]).shape[0])
-        for p in range(n_periods):
-            for spec_params in specs:
-                layers.append(_tree(spec_params, lambda a, path, p=p:
-                                    conv(np.asarray(a)[p], path)))
-    if len(layers) != cfg.num_layers:
-        raise ValueError(f"tree holds {len(layers)} layers, config "
-                         f"{cfg.name} has {cfg.num_layers}")
-    out["layers"] = layers
-    return out
+    return _layout(cfg, tree, conv)
+
+
+def train_state_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
+    """The JAX package's training state ``{"params", "opt": {"mu", "nu",
+    "step"}, "ef"}`` (numpy leaves, stacked layout, bfloat16 leaves as
+    ``'<V2'`` bits or an extension dtype) -> the port's, on ``device``.
+    Parameters take :func:`params_from_numpy`'s dtypes; moments and
+    error feedback stay float32, the step count int32."""
+    device = resolve_device(device)
+
+    def f32(t):
+        return _layout(cfg, t, lambda a, path:
+                       from_numpy(a, torch.float32, device))
+
+    opt = tree["opt"]
+    return {"params": params_from_numpy(cfg, tree["params"], device=device),
+            "opt": {"mu": f32(opt["mu"]), "nu": f32(opt["nu"]),
+                    "step": from_numpy(opt["step"], torch.int32, device)},
+            "ef": f32(tree["ef"])}
+
+
+def train_state_to_numpy(cfg: ModelConfig, state):
+    """The port's training state -> the JAX package's unsplit stacked
+    layout with numpy leaves (bfloat16 as ``'<V2'`` bits), for
+    ``repro.train.checkpoint`` or ``jax.tree.map(jnp.asarray, ...)``."""
+    def host(tree):
+        host_tree = _tree(tree, lambda t, path: to_numpy(t))
+        return _restack(cfg, host_tree, np.stack)
+
+    opt = state["opt"]
+    return {"ef": host(state["ef"]),
+            "opt": {"mu": host(opt["mu"]), "nu": host(opt["nu"]),
+                    "step": to_numpy(opt["step"])},
+            "params": host(state["params"])}
 
 
 def split_params_from_numpy(cfg: ModelConfig, tree, *, edge_device="cuda",
@@ -92,7 +190,7 @@ def split_params_from_numpy(cfg: ModelConfig, tree, *, edge_device="cuda",
     dtype = torch_dtype(cfg)
 
     def conv(device):
-        return lambda a, path=(): _tensor(a, dtype, device)
+        return lambda a, path=(): from_numpy(a, dtype, device)
 
     def unstack(stacks, lead, device):
         """Layer dicts of a stacked tree (a one-entry list for the one

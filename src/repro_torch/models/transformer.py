@@ -25,8 +25,10 @@ import math
 from typing import Callable
 
 import torch
+import torch.utils.checkpoint
 
 from ..configs.base import LayerSpec, ModelConfig
+from ..tree import leaves, rebuild
 from . import layers as L
 from . import moe as MOE
 from . import rglru as RG
@@ -280,8 +282,41 @@ def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, *, pos: int,
     return x + L.mlp_apply(h2, p["mlp"], cfg.act, cfg.gated_mlp)
 
 
+def _remat_group_size(n: int) -> int:
+    """Largest small divisor g of n: layers run in super-steps of g
+    periods under one checkpoint, so only n/g residual carries are saved
+    (sqrt-style remat); a super-step's forward is replayed once in the
+    backward pass."""
+    for g in (8, 7, 6, 5, 4, 3, 2):
+        if n % g == 0 and n // g >= 2:
+            return g
+    return 1
+
+
+def _run_layers(x, params, members, cfg: ModelConfig, pos: int, positions):
+    for spec, li in members:
+        x = _apply_layer(x, params["layers"][li], spec, cfg, pos=pos,
+                         cache=None, positions=positions)
+    return x
+
+
 def _apply_group(x, params, members, cfg: ModelConfig, *, pos: int,
-                 gcache, positions):
+                 gcache, positions, remat: bool = False, period: int = 1):
+    """Run one group's layers (``period`` of them a period).  ``remat``
+    (no cache) recomputes each period's activations in the backward pass,
+    as the reference's ``jax.checkpoint`` of its scan body; a group of 64
+    periods or more checkpoints super-steps of ``_remat_group_size``
+    periods instead."""
+    if remat and gcache is None:
+        n = len(members) // period
+        size = period
+        if n >= 64 and _remat_group_size(n) > 1:
+            size = period * _remat_group_size(n)
+        for s in range(0, len(members), size):
+            x = torch.utils.checkpoint.checkpoint(
+                _run_layers, x, params, members[s:s + size], cfg, pos,
+                positions, use_reentrant=False)
+        return x
     for j, (spec, li) in enumerate(members):
         x = _apply_layer(x, params["layers"][li], spec, cfg, pos=pos,
                          cache=gcache[j] if gcache is not None else None,
@@ -337,20 +372,81 @@ def _need_boundary(cfg, boundary):
                          "full periods)")
 
 
-def forward(cfg: ModelConfig, params, batch_in, *,
-            codec_fn: Callable | None = None, split: bool = False):
-    """Scoring forward pass (no cache).  Returns (logits, aux)."""
-    groups, boundary = _setup(cfg, split or codec_fn is not None)
+def _hidden_forward(cfg: ModelConfig, params, batch_in, *, codec_fn,
+                    split: bool, remat: bool):
+    """Backbone only: returns final hidden states (B, S, d) + aux."""
+    groups, boundary = build_groups(cfg, split or codec_fn is not None)
     x = _embed_in(cfg, params, batch_in)
     positions = _positions(x)
     aux = {}
-    for gi, members in enumerate(groups):
+    for gi, members in enumerate(_group_layers(groups)):
         x = _apply_group(x, params, members, cfg, pos=0, gcache=None,
-                         positions=positions)
+                         positions=positions, remat=remat,
+                         period=len(groups[gi].specs))
         if codec_fn is not None and boundary and gi == boundary - 1:
             x, rate = codec_fn(x)
             aux["codec_rate_bits"] = rate
+    return x, aux
+
+
+def forward(cfg: ModelConfig, params, batch_in, *,
+            codec_fn: Callable | None = None, split: bool = False,
+            remat: bool = False):
+    """Training/scoring forward pass (no cache).  Returns (logits, aux)."""
+    x, aux = _hidden_forward(cfg, params, batch_in, codec_fn=codec_fn,
+                             split=split, remat=remat)
     return _logits_out(cfg, params, x), aux
+
+
+def sharded_xent(cfg: ModelConfig, params, x, labels):
+    """Softmax cross entropy of the head's logits, step by step as the
+    reference's ``sharded_xent`` on one device: the logits stay in the
+    model dtype (a softcap is applied in float32 and cast back), the
+    max is subtracted in that dtype without a gradient, and ``exp`` and
+    ``log`` run in float32."""
+    xn = L.apply_norm(x, params["final_norm"], cfg.norm, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits = torch.einsum("bsd,vd->bsv", xn, params["embed"]["table"])
+    else:
+        logits = xn @ params["head"]["w"]
+    if cfg.final_logit_softcap > 0:
+        c = torch.tensor(cfg.final_logit_softcap, device=logits.device)
+        logits = (c * torch.tanh(logits.to(torch.float32) / c)) \
+            .to(logits.dtype)
+    m = torch.amax(logits.detach(), dim=-1, keepdim=True)
+    shifted = logits - m
+    sumexp = torch.sum(torch.exp(shifted.to(torch.float32)), dim=-1)
+    lse = m[..., 0].to(torch.float32) + torch.log(sumexp)
+    picked = torch.gather(shifted, -1, labels[..., None].long())[..., 0]
+    picked = picked.to(torch.float32) + m[..., 0].to(torch.float32)
+    return torch.mean(lse - picked)
+
+
+def loss_and_grads(cfg: ModelConfig, params, tokens, **loss_kw):
+    """``jax.value_and_grad(loss_fn, has_aux=True)`` at ``params``:
+    ((loss, aux), grads), the grads a tree like ``params``.  A leaf the
+    loss does not reach gets a zero gradient, as in the reference: the
+    leaves before a codec boundary, whose quantizer carries none."""
+    flat = [p.detach().requires_grad_() for _, p in leaves(params)]
+    with torch.enable_grad():
+        loss, aux = loss_fn(cfg, rebuild(params, iter(flat)), tokens,
+                            **loss_kw)
+        gs = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, gs)]
+    return (loss.detach(), aux), rebuild(params, iter(grads))
+
+
+def loss_fn(cfg: ModelConfig, params, tokens, *, codec_fn=None,
+            split: bool = False, remat: bool = True, inputs=None):
+    """Next-token cross entropy.  ``inputs`` overrides the embedded input
+    stream (audio/vlm stubs); labels always come from ``tokens``.
+    Returns (loss, aux)."""
+    batch_in = inputs if inputs is not None else tokens
+    x, aux = _hidden_forward(cfg, params, batch_in, codec_fn=codec_fn,
+                             split=split, remat=remat)
+    loss = sharded_xent(cfg, params, x[:, :-1], tokens[:, 1:])
+    return loss, aux
 
 
 def forward_head(cfg: ModelConfig, params, batch_in, *,

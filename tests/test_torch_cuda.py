@@ -1252,3 +1252,105 @@ def test_sockets_on_the_card(dev):
     assert enc["sessions"] == 8 and enc["stacked_sessions"] > 0
     assert launched["encode_tiles"] == enc["fused_launches"]
     assert launched["rans_step"] == 8
+
+
+# -- training ----------------------------------------------------------------------
+
+def _train_cfg(dtype="float32"):
+    return dataclasses.replace(
+        reduced(get_config("codeqwen1.5-7b")), vocab_size=128, d_model=32,
+        d_ff=64, num_heads=2, num_kv_heads=2, head_dim=16, dtype=dtype)
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev):
+    """One float32 ``make_train_step`` step (remat, two microbatches) on
+    the card and on the CPU from the same weights: loss rtol 1e-5,
+    parameters and moments rtol 1e-5, atol 1e-6."""
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import init_opt_state
+    from repro_torch.tree import leaves, tree_map
+    cfg = _train_cfg()
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = tree_map(lambda t: t.to(dev), cpu)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32))
+    step = make_train_step(cfg, microbatches=2)
+    out_c = step(card, init_opt_state(card), {"tokens": toks.to(dev)})
+    out_h = step(cpu, init_opt_state(cpu), {"tokens": toks})
+    assert float(out_c[2]["loss"]) == pytest.approx(float(out_h[2]["loss"]),
+                                                    rel=1e-5)
+    for got, want in ((out_c[0], out_h[0]), (out_c[1]["mu"], out_h[1]["mu"]),
+                      (out_c[1]["nu"], out_h[1]["nu"])):
+        for (path, a), (_, b) in zip(leaves(got), leaves(want), strict=True):
+            assert a.device.type == "cuda"
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5,
+                                       atol=1e-6, err_msg=str(path))
+
+
+def test_codec_in_the_loop_training_launches_clip_quant_once(dev):
+    """``codec_fn=codec.apply_with_rate`` on the card: one per-tensor
+    quantizer launch (#1, with its histogram) a step, zero gradients
+    before the boundary, and the loss of the torch backend's codec."""
+    from repro_torch.models import build_groups, loss_and_grads
+    from repro_torch.tree import leaves, tree_map
+    cfg = _train_cfg("bfloat16")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    kw = dict(n_levels=4, clip_mode="manual", manual_cmin=-1.5,
+              manual_cmax=1.5)
+    cuda = calibrate(CodecConfig(**kw, backend="cuda"))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32)).to(dev)
+    before = dict(_build.LAUNCHES)
+    (loss, aux), grads = loss_and_grads(cfg, params, toks,
+                                        codec_fn=cuda.apply_with_rate)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _build.LAUNCHES.items()}
+    assert launched["clip_quant"] == 1 and sum(launched.values()) == 1
+    groups, _ = build_groups(cfg, split=True)
+    n_head = groups[0].n_periods * len(groups[0].specs)
+    for path, g in leaves(grads):
+        if path[0] == "layers":
+            assert g.any() == (path[1] >= n_head), path
+    cpu = calibrate(CodecConfig(**kw, backend="torch"))
+    (loss_h, aux_h), _ = loss_and_grads(
+        dataclasses.replace(cfg, dtype="float32"),
+        tree_map(lambda t: t.float().cpu(), params), toks.cpu(),
+        codec_fn=cpu.apply_with_rate)
+    assert float(loss) == pytest.approx(float(loss_h), rel=2e-2)
+    assert 0 < float(aux["codec_rate_bits"]) < 3
+
+
+def test_prefetching_loader_copies_pinned_batches_to_the_card(dev):
+    from repro_torch.data import DataConfig, PrefetchingLoader, stream
+    cfg = DataConfig(vocab_size=50, batch=2, seq_len=8)
+    loader = PrefetchingLoader(cfg, device=dev, start_step=2)
+    try:
+        for (_, want), got in zip(zip(range(3), stream(cfg, 2)), loader):
+            assert got["tokens"].device.type == "cuda"
+            np.testing.assert_array_equal(got["tokens"].cpu().numpy(),
+                                          want["tokens"])
+    finally:
+        loader.close()
+    assert not loader._thread.is_alive()
+
+
+def test_checkpoint_keeps_bfloat16_bits_on_the_card(dev, tmp_path):
+    """bfloat16 tensors on the card are saved as '<V2' arrays with their
+    bits and restored onto the card unchanged."""
+    from repro_torch.train import checkpoint as ckpt
+    g = torch.Generator(device=dev).manual_seed(5)
+    tree = {"w": torch.randn(33, 7, device=dev, generator=g)
+            .to(torch.bfloat16), "m": [torch.randn(5, device=dev,
+                                                   generator=g)],
+            "step": torch.tensor(3, dtype=torch.int32, device=dev)}
+    ckpt.save(str(tmp_path), 3, tree)
+    with np.load(tmp_path / "step_00000003" / "arrays.npz") as data:
+        assert data["w"].dtype == np.dtype("V2")
+        assert data["w"].tobytes() == \
+            tree["w"].view(torch.int16).cpu().numpy().tobytes()
+    back = ckpt.restore(str(tmp_path), 3, tree)
+    assert back["w"].device.type == "cuda"
+    assert torch.equal(back["w"], tree["w"])
+    assert torch.equal(back["m"][0], tree["m"][0])
+    assert torch.equal(back["step"], tree["step"])
