@@ -144,7 +144,27 @@ Phases, in order; any failure raises and exits non-zero:
    repro_torch.launch.train --arch gemma3-1b --steps 4
    --grad-compress-bits 4`` in a subprocess.  Checkpoints go under
    ``build/train_phase`` (removed after the phase), which must have room
-   for (u)'s ~14 GB.
+   for (u)'s ~14 GB;
+9. dry run -- ``repro_torch.launch.dryrun.run_cell`` on the one-card
+   mesh (``make_smoke_mesh(1)``, the ``meta`` device) for three steps
+   the card runs above: gemma3-1b's train step at 8 x 256 (remat, one
+   microbatch), codeqwen1.5-7b's prefill at (4, 64) and its decode at
+   (4, 1) over the serve engine's cache of 80 positions; and rwkv6-3b's
+   train step at 2 x 40 (published width, 4 of 32 layers), whose time
+   loop the meta pass counts one step times the padded length of 48
+   while the card runs all 48.  Each prints its model FLOPs, counted
+   FLOPs, eager traffic and eager roofline (the record's
+   ``step_time_lower_bound_s``: the larger of the FLOPs at the H100's
+   peak and the eager traffic at its HBM rate); then the same step runs
+   on the card (weights from seed 0).  Gates: ``FlopCounterMode``
+   around it counts exactly the meta pass's FLOPs; the bytes of its
+   arguments on the card equal the predicted ``memory.argument_bytes``;
+   ``max_memory_allocated`` over the timed runs is within 10% of the
+   predicted peak.  On the first three cells the first two gates hold
+   by construction (shape-only FLOP formulas, no device branch; the
+   one-card mesh shards nothing); the rwkv6 cell's FLOP gate and every
+   peak gate can fail.  Its median time over 7 runs between syncs is
+   printed against the eager roofline with the model-FLOPs share.
 
 The line before the last is the per-kernel JSON record (each kernel's
 numbers per size under ``sizes``, with its launches per run at that
@@ -156,6 +176,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -2622,6 +2643,106 @@ def train_phase(dev) -> dict:
     return out
 
 
+# -- phase 9: the dry run against the card -------------------------------------
+
+# (arch, InputShape fields, config overrides): steps the card runs in
+# phases 8 and 4 -- (u)'s batch, and the serve runs' prefill and decode
+# (the engine's cache of 64 + 8 + 8 positions) -- and an RWKV-6 train
+# step, whose time loop the meta pass counts a step at a time over 40
+# tokens padded to three chunks
+DRY_CELLS = (("gemma3-1b", ("train_8x256", 256, 8, "train"), {}),
+             ("codeqwen1.5-7b", ("prefill_4x64", 64, 4, "prefill"), {}),
+             ("codeqwen1.5-7b", ("decode_4x80", 80, 4, "decode"), {}),
+             ("rwkv6-3b", ("train_2x40", 40, 2, "train"), {"num_layers": 4}))
+DRY_REPS = 7
+DRY_PEAK_RTOL = 0.10        # max_memory_allocated against the estimate
+
+
+def dry_cell(arch: str, shape, overrides: dict, smi: str, dev) -> None:
+    """One cell of phase 9: ``run_cell`` on the one-card mesh (meta
+    device), then the same step on the card -- its FLOPs under
+    ``FlopCounterMode`` and the bytes of its arguments must equal the
+    meta pass's, its peak memory the estimate within DRY_PEAK_RTOL; its
+    median time over DRY_REPS runs between syncs beside the eager
+    roofline."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.dryrun import H100
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    rec = dryrun.run_cell(arch, shape, mesh=make_smoke_mesh(1),
+                          microbatches=1, save_ops=False,
+                          overrides=overrides)
+    check(rec["status"] == "ok", f"(9) {arch} {shape.name}: "
+          f"{rec.get('traceback', rec.get('reason'))}")
+    ops, rl = rec["ops"], rec["roofline"]
+    lb_ms = rl["step_time_lower_bound_s"] * 1e3
+    print(f"(9) {arch} {shape.name} {overrides or ''} predicted (meta "
+          f"pass {rec['trace_s']} s): model FLOPs "
+          f"{rec['model_flops_global']:.4e}, counted FLOPs "
+          f"{ops['flops']:.4e}, eager traffic {ops['traffic_bytes']:.4e} "
+          f"B, eager roofline {lb_ms:.3f} ms ({rl['bound']}-bound: "
+          f"compute {rl['compute_s'] * 1e3:.3f} ms, memory "
+          f"{rl['memory_s'] * 1e3:.3f} ms)")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step, args = dryrun.cell_step(cfg, shape, 1, device=dev, generator=gen)
+    held = sum(t.numel() * t.element_size() for t in _leaves(list(args))
+               if isinstance(t, torch.Tensor))
+    check(held == rec["memory"]["argument_bytes"], f"(9) {arch} "
+          f"{shape.name}: {held} argument bytes on the card, predicted "
+          f"{rec['memory']['argument_bytes']}")
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    torch.cuda.synchronize()
+    card_flops = fc.get_total_flops()
+    check(card_flops == ops["flops"], f"(9) {arch} {shape.name}: "
+          f"FlopCounterMode counts {card_flops} FLOPs on the card, the "
+          f"meta pass {ops['flops']}")
+    step(*args)                               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(DRY_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = statistics.median(times) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    est = rec["memory"]["peak_bytes_est"]
+    mfu = rec["model_flops_global"] / (ms / 1e3 * H100["peak_flops"])
+    print(f"(9) {arch} {shape.name} measured: {ms:.2f} ms (median of "
+          f"{DRY_REPS} between syncs) / eager roofline {lb_ms:.3f} ms = "
+          f"{ms / lb_ms:.1f}x; model-FLOPs share {mfu:.4f}; FLOPs on the "
+          f"card {card_flops} = the meta pass's; arguments {held} B = "
+          f"predicted; peak {peak / 1e9:.2f} GB "
+          f"(torch.cuda.max_memory_allocated) against the estimate "
+          f"{est / 1e9:.2f} GB ({peak / est - 1:+.4f}); {smi}")
+    check(abs(peak - est) <= DRY_PEAK_RTOL * est, f"(9) {arch} "
+          f"{shape.name}: peak {peak} B on the card, estimated {est} B, "
+          f"not within {DRY_PEAK_RTOL:.0%}")
+
+
+def dryrun_phase(smi: str, dev) -> None:
+    """Phase 9: the dry run's prediction of each of DRY_CELLS against the
+    same step on the card."""
+    import gc
+
+    from repro_torch.configs import InputShape
+
+    t0 = time.perf_counter()
+    for arch, fields, overrides in DRY_CELLS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        dry_cell(arch, InputShape(*fields), overrides, smi, dev)
+    print(f"dry-run phase: {time.perf_counter() - t0:.1f} s wall")
+
+
 def port_status(replaces: str) -> str:
     """A kernel's port status from the "Port" column of the row of
     ``ROADMAP.md``'s queue B table that names its TPU kernel
@@ -2784,6 +2905,14 @@ def profiled(label: str, run) -> dict:
             "idle_share": 1 - busy_ms / wall_ms, "kernels": len(kernels)}
 
 
+def smi_line() -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2816,10 +2945,7 @@ def main() -> int:
     # 1. device
     name = torch.cuda.get_device_name(0)
     probe = start_probe_build()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
-    smi = smi.splitlines()[0]
+    smi = smi_line()
     sm_mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
@@ -2885,6 +3011,9 @@ def main() -> int:
     # 8. training gemma3-1b; (w)'s launches are read like a serving run's
     train = train_phase(dev)
     counts["w"] = train["w"]["launches"]
+
+    # 9. the dry run's predictions against the card's steps
+    dryrun_phase(smi, dev)
 
     # 7. launch counts of the serving and split runs and of (m): each
     # kernel's count is read from the first run named here, and every

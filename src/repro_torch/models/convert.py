@@ -126,6 +126,19 @@ def stack_layers(cfg: ModelConfig, tree):
     return _restack(cfg, tree, torch.stack)
 
 
+def stack_cache(cfg: ModelConfig, cache):
+    """A port cache (unsplit ``init_cache``: a list a group of per-layer
+    dicts) in the JAX package's layout: a list a group of one dict per
+    pattern position, each leaf stacked over the group's periods."""
+    groups, _ = build_groups(cfg)
+    out = []
+    for g, layers in zip(groups, cache):
+        n = len(g.specs)
+        out.append([_stacked([layers[p * n + j] for p in range(g.n_periods)],
+                             torch.stack) for j in range(n)])
+    return out
+
+
 def unstack_layers(cfg: ModelConfig, tree):
     """Inverse of :func:`stack_layers`: per-layer views of the stacks."""
     return _layout(cfg, tree, lambda a, path: a)

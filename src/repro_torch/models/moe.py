@@ -68,7 +68,8 @@ def _dispatch_indices(top_i, k: int, e: int, cap: int):
     token_of = torch.arange(t, device=dev).repeat_interleave(k)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(flat_e, minlength=e)        # (E,)
+    counts = torch.zeros(e, dtype=flat_e.dtype, device=dev).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))             # (E,)
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(t * k, device=dev) - starts[sorted_e]
     keep = pos_in_e < cap
@@ -100,13 +101,16 @@ def moe_local(x2d, p, cfg, cap: int | None = None):
     cap = cap or _capacity(t, k, e, cfg.capacity_factor)
     w, i = _route(x2d, p["router"], k)
     slot, keep, tok_sorted, order = _dispatch_indices(i, k, e, cap)
-    kept = slot[keep]
-    buf = torch.zeros((e * cap, d), dtype=x2d.dtype, device=x2d.device)
-    buf[kept] = x2d[tok_sorted[keep]]
-    y = _expert_ffn(buf.reshape(e, cap, d), p, act_fn).reshape(e * cap, d)
-    contrib = torch.zeros((t * k, d), dtype=torch.float32, device=x2d.device)
-    contrib[keep] = y[kept].to(torch.float32)
-    w_sorted = w.reshape(-1)[order]
+    # every shape stays independent of the routing, so the step runs on
+    # "meta": a spare row past the E*cap slots takes the dropped
+    # assignments (the reference's mode="drop" scatter), and they gather
+    # a clamped slot with weight 0 (its mode="fill" gather)
+    buf = torch.zeros((e * cap + 1, d), dtype=x2d.dtype, device=x2d.device)
+    buf[slot] = x2d[tok_sorted]
+    y = _expert_ffn(buf[:e * cap].reshape(e, cap, d), p, act_fn) \
+        .reshape(e * cap, d)
+    contrib = y[slot.clamp_max(e * cap - 1)].to(torch.float32)
+    w_sorted = w.reshape(-1)[order] * keep
     out = torch.zeros((t, d), dtype=torch.float32, device=x2d.device)
     out.index_add_(0, tok_sorted, contrib * w_sorted[:, None])
     return out.to(x2d.dtype)

@@ -13,7 +13,9 @@ Execution: projections/LoRA are parallel over the sequence; the state
 recurrence runs over *time chunks* of 16 steps (the sequence padded to a
 whole number of chunks, as the JAX package pads it, so the same work is
 done) of rank-1 state updates batched over (B, H).  Decode is a single
-state update.
+state update.  :func:`time_loop` swaps the loop over the padded
+sequence for another with the same signature (the cost analysis counts
+one step of it times the sequence length).
 
 Simplifications vs the reference implementation (noted in DESIGN.md):
 static token-shift mix ratios (Finch makes them data-dependent), and
@@ -23,6 +25,7 @@ GroupNorm.
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -130,6 +133,34 @@ def time_mix_apply(x, p, cfg, cache=None):
     return out, new_cache
 
 
+def _wkv_loop(step, r, k, v, w, u, state):
+    """The recurrence over the whole (padded) sequence, ``step`` (one
+    rank-1 state update, :func:`_wkv_step`) a time step.  Returns (o,
+    final_state)."""
+    outs = []
+    for t in range(r.shape[1]):
+        o, state = step(r[:, t], k[:, t], v[:, t], w[:, t], u, state)
+        outs.append(o)
+    return torch.stack(outs, dim=1), state
+
+
+# the loop _wkv_chunk_scan runs over the padded sequence (see time_loop)
+_time_loop = _wkv_loop
+
+
+@contextlib.contextmanager
+def time_loop(loop):
+    """Inside ``with``, the chunk scan runs ``loop(step, r, k, v, w, u,
+    state) -> (o, final_state)`` over the padded sequence in place of
+    :func:`_wkv_loop`."""
+    global _time_loop
+    prev, _time_loop = _time_loop, loop
+    try:
+        yield
+    finally:
+        _time_loop = prev
+
+
 def _wkv_chunk_scan(r, k, v, w, u, state0):
     """Exact recurrence over time chunks of length _CHUNK.
 
@@ -138,21 +169,15 @@ def _wkv_chunk_scan(r, k, v, w, u, state0):
     chunks (zeros; w with 1.0, which leaves the state as it is), as the
     reference pads it.  Returns (o, final_state).
     """
-    b, s, h, n = r.shape
+    s = r.shape[1]
     pad = (-s) % _CHUNK
     if pad:
         def zp(a, cv=0.0):
             return F.pad(a, (0, 0, 0, 0, 0, pad), value=cv)
         r, k, v, w = zp(r), zp(k), zp(v), zp(w, 1.0)
-    state = state0.to(torch.float32)
-    outs = []
-    for t in range(r.shape[1]):
-        kt, vt, rt, wt = k[:, t], v[:, t], r[:, t], w[:, t]
-        kv = kt[..., :, None] * vt[..., None, :]
-        outs.append(torch.einsum("bhi,bhij->bhj", rt,
-                                 state + u[..., None] * kv))
-        state = wt[..., :, None] * state + kv
-    return torch.stack(outs, dim=1)[:, :s], state
+    o, state = _time_loop(_wkv_step, r, k, v, w, u,
+                          state0.to(torch.float32))
+    return o[:, :s], state
 
 
 def channel_mix_apply(x, p, cache=None):

@@ -1354,3 +1354,45 @@ def test_checkpoint_keeps_bfloat16_bits_on_the_card(dev, tmp_path):
     assert torch.equal(back["w"], tree["w"])
     assert torch.equal(back["m"][0], tree["m"][0])
     assert torch.equal(back["step"], tree["step"])
+
+
+# -- the dry run: the meta pass against the card ---------------------------------
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "gemma3-1b", "dbrx-132b",
+                                  "rwkv6-3b", "recurrentgemma-2b"])
+def test_dry_run_counts_what_the_card_step_does(dev, arch, kind):
+    """A reduced cell's ``run_cell`` on the one-card mesh: the same step
+    on the card (weights from seed 0) holds exactly the predicted
+    argument bytes, and ``FlopCounterMode`` around it counts exactly the
+    meta pass's FLOPs."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_smoke_mesh
+    shape = InputShape(kind, 16, 2, kind)
+    cfg = reduced(get_config(arch))
+    rec = dryrun.run_cell(arch, shape, mesh=make_smoke_mesh(1),
+                          overrides={f.name: getattr(cfg, f.name)
+                                     for f in dataclasses.fields(cfg)},
+                          microbatches=1, save_ops=False)
+    assert rec["status"] == "ok", rec.get("traceback")
+    step, args = dryrun.cell_step(
+        cfg, shape, 1, device=dev,
+        generator=torch.Generator(device=dev).manual_seed(0))
+    held = sum(t.numel() * t.element_size() for t in _flat(args)
+               if isinstance(t, torch.Tensor))
+    assert held == rec["memory"]["argument_bytes"]
+    with FlopCounterMode(display=False) as fc:
+        step(*args)
+    torch.cuda.synchronize()
+    assert fc.get_total_flops() == rec["ops"]["flops"]
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _flat(v)]
+    return [tree]
