@@ -164,7 +164,38 @@ Phases, in order; any failure raises and exits non-zero:
    by construction (shape-only FLOP formulas, no device branch; the
    one-card mesh shards nothing); the rwkv6 cell's FLOP gate and every
    peak gate can fail.  Its median time over 7 runs between syncs is
-   printed against the eager roofline with the model-FLOPs share.
+   printed against the eager roofline with the model-FLOPs share;
+10. distributed -- the multi-device path (``repro_torch.models.context``).
+   (aa) qwen3-moe-235b-a22b at published width (d_model 4096, 128
+   experts, top-8, ``moe_d_ff`` 1536, capacity factor 1.25), bf16, cut
+   to 2 of its 94 layers, random weights from seed 0, expert-parallel
+   over two ranks spawned on this card in a (data, model) = (1, 2) mesh
+   over gloo (NCCL refuses two ranks on one card; gloo stages the
+   card's tensors through the host, so no collective time here is a
+   link's), each rank keeping its 64 experts a layer.  Gates: on the
+   prefill boundary (2, 64) each rank's chunk of the MoE layer's output
+   equals ``moe_local`` of that chunk at the chunk's capacity, on the
+   decode boundary (2, 1) the output equals ``moe_local`` at the rank's
+   whole token count, both within 2^-5 of the largest output (bf16 FFNs
+   at another batch shape; the decode path also sums in another order);
+   ``ServeEngine(ctx=...)``'s logits on the prefill and 8 greedy decode
+   steps identical in every bit on both ranks, tokens identical; one
+   ``make_train_step(ctx=...)`` step at 2 x 64 on the model cut further
+   to 32 experts and an 8,192-token vocabulary (AdamW's state for two
+   ranks of the serving model does not fit the card): the loss identical
+   on both ranks, every replicated leaf identical in every bit after
+   it, the step's global norm within 1e-3 of the norm of the gradients
+   gathered whole.  Printed: ms per EP layer on each boundary beside
+   the one-rank layer's, each rank's peak memory beside the one-rank
+   model's.  (ab) The packed split runtime at published width on that
+   model (split 1 + 1) and on rwkv6-3b (all 32 layers, 16 + 16), 2
+   sequences, 8 decode steps, a per-tensor N=4 codec calibrated in
+   "model" mode: ``raw`` equal to the unsplit decode step rounded
+   through bfloat16, ``packed`` launching the per-tensor quantizer once
+   a step and never the pack kernel or a histogram.  (ac) ``python -m
+   torch.distributed.run --standalone --nproc_per_node 1 -m
+   repro_torch.launch.train --distributed --arch gemma3-1b --steps 2
+   --device cuda`` in a subprocess: NCCL, a world of one.
 
 The line before the last is the per-kernel JSON record (each kernel's
 numbers per size under ``sizes``, with its launches per run at that
@@ -1669,25 +1700,26 @@ def link_counted(codec, sent: list, rated: list, payloads: list):
                       for f in dataclasses.fields(codec)})
 
 
-def split_decode(step, params, caches, prompt):
-    """Feed ``prompt`` (B, P) one token per step, then greedy tokens until
-    ``SPLIT_NEW`` have been fed.  Returns (logits per step, generated
-    tokens (B, SPLIT_NEW), mean rate bits, seconds)."""
+def split_decode(step, params, caches, prompt, n_prompt=SPLIT_PROMPT,
+                 n_new=SPLIT_NEW):
+    """Feed ``prompt`` (B, n_prompt) one token per step, then greedy tokens
+    until ``n_new`` have been fed.  Returns (logits per step, generated
+    tokens (B, n_new), mean rate bits, seconds)."""
     logits_all, rates, fed = [], [], []
     tok = prompt[:, 0]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for pos in range(SPLIT_PROMPT + SPLIT_NEW):
+    for pos in range(n_prompt + n_new):
         logits, caches, rate = step(params, tok, caches, pos)
         logits_all.append(logits)
         rates.append(rate)
         nxt = logits.argmax(-1)
-        tok = prompt[:, pos + 1] if pos + 1 < SPLIT_PROMPT else nxt
-        if pos + 1 >= SPLIT_PROMPT:
+        tok = prompt[:, pos + 1] if pos + 1 < n_prompt else nxt
+        if pos + 1 >= n_prompt:
             fed.append(nxt)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    return (torch.stack(logits_all), torch.stack(fed[:SPLIT_NEW], 1),
+    return (torch.stack(logits_all), torch.stack(fed[:n_new], 1),
             float(np.mean([float(r) for r in rates])), dt)
 
 
@@ -2455,7 +2487,8 @@ def train_codec(cfg, dcfg, dev) -> dict:
           "(w) gradients: zero before the boundary, non-zero after")
     del grads
     opt_cfg = AdamWConfig()
-    step = make_train_step(cfg, opt_cfg, codec_fn=codec.apply_with_rate)
+    step = make_train_step(cfg, opt_cfg=opt_cfg,
+                           codec_fn=codec.apply_with_rate)
     opt = init_opt_state(params)
     times, rates, losses, moved = [], [], [], 0
     lr = torch.tensor(opt_cfg.lr, device=dev)
@@ -2743,6 +2776,455 @@ def dryrun_phase(smi: str, dev) -> None:
     print(f"dry-run phase: {time.perf_counter() - t0:.1f} s wall")
 
 
+# -- phase 10: the multi-device path ---------------------------------------------
+
+EP_ARCH, EP_LAYERS = "qwen3-moe-235b-a22b", 2        # 2 of its 94 layers
+EP_BATCH, EP_PROMPT, EP_DECODES = 2, 64, 8
+EP_MAX_SEQ = EP_PROMPT + EP_DECODES + 8
+# the train step's further cut: AdamW holds 12 bytes a parameter, twice
+# during the update, so two ranks of the serving model (each 64 experts a
+# layer and the 151,936-token embedding and head) need ~2 x 46 GB, more
+# than the card; the step keeps every width but these two
+EP_TRAIN_CUT = {"num_experts": 32, "vocab_size": 8192}
+EP_TRAIN_BATCH, EP_TRAIN_SEQ = 2, 64
+# the layer output on each boundary against moe_local: bf16 expert FFNs
+# whose matmuls run at another batch shape, so up to 8 bf16 units of
+# roundoff (2^-8) of the output's largest magnitude
+EP_LAYER_TOL = 2.0 ** -5
+EP_GNORM_RTOL = 1e-3       # the step's global norm, gradients recomputed
+EP_REPS = 5
+EP_TIMEOUT_S = 600
+SPLIT_FAMILIES = (("qwen3-moe-235b-a22b", {"num_layers": EP_LAYERS}),
+                  ("rwkv6-3b", {}))
+FAMILY_PROMPT, FAMILY_NEW = 4, 4           # 8 decode steps a run
+
+
+def ep_config():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(EP_ARCH), num_layers=EP_LAYERS)
+
+
+def ep_inputs(cfg, dev) -> dict:
+    """The phase's seeded inputs, the same on every rank: the prefill and
+    decode boundaries of one MoE layer, the engine's prompts."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    prompts = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (EP_BATCH, EP_PROMPT)).astype(np.int32)
+    return {"prefill": torch.randn((EP_BATCH, EP_PROMPT, cfg.d_model),
+                                   generator=gen, device=dev,
+                                   dtype=torch.bfloat16),
+            "decode": torch.randn((EP_BATCH, 1, cfg.d_model), generator=gen,
+                                  device=dev, dtype=torch.bfloat16),
+            "prompts": prompts}
+
+
+def layer_ms(fn) -> float:
+    """Median wall ms of ``fn`` between device syncs, after a warm-up."""
+    fn()
+    times = []
+    for _ in range(EP_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def engine_run(cfg, params, prompts, dev, ctx=None) -> dict:
+    """Greedy generation through ``ServeEngine`` (one prefill of the
+    prompts, then EP_DECODES decode steps), the logits of every step
+    recorded."""
+    from repro_torch.serving import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, slots=EP_BATCH, max_seq=EP_MAX_SEQ,
+                      ctx=ctx, device=dev)
+    logits = []
+    prefill, decode = eng._prefill, eng._decode
+
+    def rec_prefill(p, t, c):
+        lg, c = prefill(p, t, c)
+        logits.append(lg.float().cpu())
+        return lg, c
+
+    def rec_decode(p, t, c, pos):
+        lg, c, aux = decode(p, t, c, pos)
+        logits.append(lg.float().cpu())
+        return lg, c, aux
+
+    eng._prefill, eng._decode = rec_prefill, rec_decode
+    reqs = [Request(prompt=pr, max_new_tokens=EP_DECODES + 1)
+            for pr in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    return {"logits": torch.stack(logits),
+            "tokens": torch.tensor([r.out_tokens for r in reqs]),
+            "s": time.perf_counter() - t0}
+
+
+def _rank_tree_digest(tree) -> dict:
+    """sha256 of the bytes of each replicated (non-expert) leaf."""
+    import hashlib
+
+    from repro_torch.models.context import is_expert_leaf
+    from repro_torch.tree import leaves
+    return {"/".join(map(str, path)): hashlib.sha256(
+        t.detach().contiguous().view(torch.uint8).cpu().numpy().tobytes())
+        .hexdigest() for path, t in leaves(tree) if not is_expert_leaf(path)}
+
+
+def ep_rank(rank: int, init: str, out_dir: str) -> None:
+    """One of the two expert-parallel ranks of (aa), both on cuda:0 in a
+    (data, model) = (1, 2) mesh over gloo: this rank keeps its 64 experts
+    a layer.  Writes its numbers, logits and digests to ``out_dir``."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import (DistContext, init_params, loss_and_grads,
+                                    shard_experts)
+    from repro_torch.models import context as C
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import global_norm, init_opt_state
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank, "backend": dist.get_backend()}
+    try:
+        ctx = DistContext(device_mesh(Mesh((1, 2), ("data", "model")),
+                                      "cuda"))
+        out["tp_rank"] = ctx.tp_rank
+        cfg = ep_config()
+        full = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+        whole0 = full["layers"][0]["moe"]         # all 128 experts
+        params = shard_experts(cfg, full, ctx)
+        del full
+        inp = ep_inputs(cfg, dev)
+        mine = params["layers"][0]["moe"]
+        e, k = cfg.num_experts, cfg.experts_per_token
+        with torch.inference_mode():
+            # (1) the prefill boundary: this rank's chunk of the sequence
+            # path against moe_local of that chunk at its capacity
+            x = inp["prefill"]
+            ep = MOE.moe_apply(x, mine, cfg, ctx)
+            n = EP_PROMPT // 2
+            chunk = x[:, rank * n:(rank + 1) * n].reshape(-1, cfg.d_model)
+            cap = MOE._capacity(chunk.shape[0], k, e, cfg.capacity_factor)
+            ref = MOE.moe_local(chunk, whole0, cfg, cap=cap)
+            got = ep[:, rank * n:(rank + 1) * n].reshape(-1, cfg.d_model)
+            out["prefill_err"] = float((got.float() - ref.float()).abs().max())
+            out["prefill_scale"] = float(ref.float().abs().max())
+            out["prefill_exact"] = float((got == ref).float().mean())
+            out["prefill_cap"] = cap
+            # (2) the decode boundary: all tokens on every rank, partial
+            # sums across the ranks, against moe_local at the whole t
+            x = inp["decode"]
+            ep = MOE.moe_apply(x, mine, cfg, ctx).reshape(-1, cfg.d_model)
+            ref = MOE.moe_local(x.reshape(-1, cfg.d_model), whole0, cfg)
+            out["decode_err"] = float((ep.float() - ref.float()).abs().max())
+            out["decode_scale"] = float(ref.float().abs().max())
+            out["prefill_ms"] = layer_ms(
+                lambda: MOE.moe_apply(inp["prefill"], mine, cfg, ctx))
+            out["decode_ms"] = layer_ms(
+                lambda: MOE.moe_apply(inp["decode"], mine, cfg, ctx))
+        del whole0, ep, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (3) the engine: prefill and greedy decode steps, logits recorded
+        torch.cuda.reset_peak_memory_stats()
+        run = engine_run(cfg, params, inp["prompts"], dev, ctx)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["param_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in _leaves(params))
+        out["engine_s"] = run["s"]
+        torch.save({"logits": run["logits"], "tokens": run["tokens"]},
+                   os.path.join(out_dir, f"ep_rank{rank}.pt"))
+        del params, run
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (4) one train step at EP_TRAIN_BATCH x EP_TRAIN_SEQ (the model cut
+        # further, EP_TRAIN_CUT): the global norm of the gradients
+        # gathered whole, then the step itself
+        torch.cuda.reset_peak_memory_stats()
+        tcfg = dataclasses.replace(cfg, **EP_TRAIN_CUT)
+        tparams = shard_experts(tcfg, init_params(
+            tcfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+            ctx)
+        tokens = torch.as_tensor(np.random.default_rng(8).integers(
+            0, tcfg.vocab_size, (EP_TRAIN_BATCH, EP_TRAIN_SEQ)), device=dev)
+        (_, _), grads = loss_and_grads(tcfg, tparams, tokens, ctx=ctx)
+        whole = C.gather_experts(C.average_grads(grads, ctx), ctx)
+        out["gathered_norm"] = float(global_norm(whole))
+        del grads, whole
+        gc.collect()
+        step = make_train_step(tcfg, ctx=ctx)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new_p, _, m = step(tparams, init_opt_state(tparams),
+                           {"tokens": tokens})
+        torch.cuda.synchronize()
+        out["step_s"] = time.perf_counter() - t0
+        out["loss"] = float(m["loss"])
+        out["loss_bits"] = m["loss"].float().cpu().numpy().tobytes().hex()
+        out["grad_norm"] = float(m["grad_norm"])
+        out["digests"] = _rank_tree_digest(new_p)
+        out["train_peak_bytes"] = torch.cuda.max_memory_allocated()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"ep_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def ep_one_rank(cfg, params, inp, dev) -> dict:
+    """The one-rank model of (aa): the engine run and the MoE layer on
+    both boundaries with all 128 experts on one process."""
+    from repro_torch.models import moe as MOE
+
+    whole0 = params["layers"][0]["moe"]
+    with torch.inference_mode():
+        prefill_ms = layer_ms(lambda: MOE.moe_apply(inp["prefill"], whole0,
+                                                    cfg))
+        decode_ms = layer_ms(lambda: MOE.moe_apply(inp["decode"], whole0,
+                                                   cfg))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = engine_run(cfg, params, inp["prompts"], dev)
+    return {**run, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(params)),
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
+
+
+def family_split(arch: str, overrides: dict, dev, params=None) -> None:
+    """(ab) on one arch at published width: the packed split runtime, split
+    half + half, 8 decode steps of EP_BATCH sequences each in ``raw`` and
+    ``packed`` (per-tensor N=4, calibrated in "model" mode): ``raw`` equal
+    to the unsplit decode step rounded through bfloat16, ``packed``
+    launching the per-tensor quantizer once a step and never the pack
+    kernel or a histogram."""
+    from repro_torch.compression import split_runtime as SR
+    from repro_torch.configs import get_config
+    from repro_torch.core import CodecConfig, calibrate
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as S
+    from repro_torch.models import decode_step, init_cache, init_params
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), **overrides)
+    if params is None:
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+    half, tail = SR.stage_layout(cfg)
+    sp = SR.split_params(cfg, params, edge_device=dev, cloud_device=dev)
+    samples = S.warmup_samples(cfg, params, batches=WARMUP_BATCHES,
+                               seq_len=32, device=dev, split_after=half)
+    codec = calibrate(CodecConfig(n_levels=N_SERVE, clip_mode="model",
+                                  constrain_cmin_zero=False, backend="cuda"),
+                      samples=samples.reshape(-1))
+    prompt = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (EP_BATCH, FAMILY_PROMPT)), device=dev)
+    steps = FAMILY_PROMPT + FAMILY_NEW
+    max_seq = steps + 8
+
+    def unsplit_step(params_, tok, cache_, pos):
+        with torch.inference_mode():
+            logits, cache_, _ = decode_step(cfg, params_, tok, cache_, pos)
+        return logits.to(torch.bfloat16).to(torch.float32), cache_, 0.0
+
+    ref_logits, ref_tok, _, _ = split_decode(
+        unsplit_step, params, init_cache(cfg, EP_BATCH, max_seq, device=dev),
+        prompt, FAMILY_PROMPT, FAMILY_NEW)
+    out = {}
+    for transport in ("raw", "packed"):
+        step = SR.make_split_decode_step(
+            cfg, None if transport == "raw" else codec, transport=transport,
+            edge_device=dev, cloud_device=dev)
+        caches = SR.init_split_cache(cfg, EP_BATCH, max_seq, edge_device=dev,
+                                     cloud_device=dev)
+        _build.reset_launches()
+        logits, toks, rate, dt = split_decode(step, sp, caches, prompt,
+                                              FAMILY_PROMPT, FAMILY_NEW)
+        counts = dict(_build.LAUNCHES)
+        check(bool(torch.isfinite(logits).all()), f"(ab) {arch} {transport}:"
+              " logits not finite")
+        out[transport] = (logits, toks)
+        print(f"(ab) {arch} split {half} + {half + tail} {transport}: "
+              f"{steps} steps in {dt:.2f} s, rate {rate:.4f} bits/element, "
+              f"launches {json.dumps({k: v for k, v in counts.items() if v})}"
+              f", greedy tokens agree with the unsplit decode "
+              f"{float((toks == ref_tok).float().mean()):.3f}")
+        if transport == "packed":
+            check(counts["clip_quant"] == steps and counts["pack_bits"] == 0
+                  and counts["index_histogram"] == 0,
+                  f"(ab) {arch} packed: launches {counts} (want clip_quant "
+                  f"{steps}, pack_bits 0, index_histogram 0)")
+    diff = float((out["raw"][0] - ref_logits).abs().max())
+    check(diff == 0 and torch.equal(out["raw"][1], ref_tok),
+          f"(ab) {arch} raw differs from the unsplit decode step rounded "
+          f"through bfloat16 by {diff}")
+    print(f"(ab) {arch}: raw equals the unsplit decode step rounded through "
+          f"bfloat16 (largest logit difference {diff}); packed launched the "
+          f"per-tensor quantizer once a step, no pack, no histogram "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def train_cli_distributed() -> None:
+    """(ac): ``launch.train --distributed`` under torchrun, NCCL, a world of
+    one rank on the card."""
+    t0 = time.perf_counter()
+    ckpt = ROOT / "build" / "train_cli_distributed"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "repro_torch.launch.train",
+         "--distributed", "--arch", TRAIN_ARCH, "--steps", "2", "--device",
+         "cuda", "--ckpt-dir", str(ckpt)], capture_output=True, text=True,
+        timeout=600, env=env)
+    import shutil
+    shutil.rmtree(ckpt, ignore_errors=True)
+    check(res.returncode == 0, f"(ac) torchrun exited {res.returncode}:\n"
+          f"{res.stdout[-2000:]}\n{res.stderr[-3000:]}")
+    head = "distributed: rank 0 of 1, backend nccl, device cuda:0"
+    check(head in res.stdout and "final loss:" in res.stdout,
+          f"(ac) unexpected output:\n{res.stdout[-2000:]}")
+    final = res.stdout.strip().splitlines()[-1]
+    print(f"(ac) python -m torch.distributed.run --standalone "
+          f"--nproc_per_node 1 -m repro_torch.launch.train --distributed "
+          f"--arch {TRAIN_ARCH} --steps 2 --device cuda: {head}; {final} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+
+def distributed_phase(smi: str, dev) -> None:
+    """Phase 10: (aa) expert parallelism on two ranks on the one card,
+    (ab) the packed split runtime on qwen3-moe-235b-a22b and rwkv6-3b,
+    (ac) the training CLI under torchrun."""
+    import gc
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    from repro_torch.models import init_params
+
+    t0 = time.perf_counter()
+    cfg = ep_config()
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    inp = ep_inputs(cfg, dev)
+    one = ep_one_rank(cfg, params, inp, dev)
+    # (ab) on the same weights first, then the model is freed
+    family_split(*SPLIT_FAMILIES[0], dev, params=params)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (aa) two ranks on cuda:0 over gloo: NCCL refuses two ranks on one
+    # card ("Duplicate GPU detected"); gloo stages the card's tensors
+    # through the host, so the collective times are not a link's
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ctx = mp.start_processes(
+            ep_rank, args=(os.path.join(tmp, "pg"), tmp), nprocs=2,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + EP_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5):
+                check(time.monotonic() < deadline,
+                      f"(aa) the ranks did not finish in {EP_TIMEOUT_S} s")
+        finally:
+            for proc in ctx.processes:
+                if proc.is_alive():
+                    proc.kill()
+                proc.join(30)
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"ep_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+            ranks[-1].update(torch.load(os.path.join(tmp, f"ep_rank{r}.pt")))
+    a, b = ranks
+    print(f"(aa) {EP_ARCH} at published width, {EP_LAYERS} of 94 layers, "
+          f"bf16, expert-parallel over 2 ranks on one card, process group "
+          f"{a['backend']} (collectives staged through the host: not a "
+          f"link measurement); {smi}")
+    for r in ranks:
+        for side in ("prefill", "decode"):
+            err, scale = r[f"{side}_err"], r[f"{side}_scale"]
+            check(err <= EP_LAYER_TOL * scale, f"(aa) rank {r['rank']} "
+                  f"{side} boundary: layer output {err} from moe_local, "
+                  f"tolerance {EP_LAYER_TOL * scale}")
+        print(f"(aa) rank {r['rank']}: layer output on the prefill boundary "
+              f"({EP_BATCH}, {EP_PROMPT}), its chunk at capacity "
+              f"{r['prefill_cap']}: largest difference from moe_local "
+              f"{r['prefill_err']} (largest output {r['prefill_scale']}, "
+              f"{r['prefill_exact']:.4f} of elements equal); decode boundary "
+              f"({EP_BATCH}, 1): {r['decode_err']} (largest output "
+              f"{r['decode_scale']}); ms per EP layer: prefill "
+              f"{r['prefill_ms']:.3f}, decode {r['decode_ms']:.3f} (one rank, "
+              f"all 128 experts, moe_local: {one['prefill_ms']:.3f}, "
+              f"{one['decode_ms']:.3f})")
+    check(torch.equal(a["logits"], b["logits"])
+          and torch.equal(a["tokens"], b["tokens"]),
+          "(aa) the two ranks' engine logits or tokens differ")
+    check(a["logits"].shape[0] == 1 + EP_DECODES
+          and bool(torch.isfinite(a["logits"]).all()),
+          f"(aa) engine logits {tuple(a['logits'].shape)}")
+    diff = float((a["logits"] - one["logits"]).abs().max())
+    agree = float((a["tokens"] == one["tokens"]).float().mean())
+    print(f"(aa) ServeEngine(ctx=...): prefill + {EP_DECODES} greedy decode "
+          f"steps, logits identical in every bit on both ranks, tokens "
+          f"identical; against the one-rank model (capacity over the whole "
+          f"batch, not per chunk): largest logit difference {diff}, tokens "
+          f"agree {agree:.3f}; engine {a['engine_s']:.2f} s (one rank "
+          f"{one['s']:.2f} s)")
+    print(f"(aa) peak device memory (torch.cuda.max_memory_allocated) over "
+          f"the engine run: rank 0 {a['peak_bytes'] / 1e9:.2f} GB, rank 1 "
+          f"{b['peak_bytes'] / 1e9:.2f} GB (parameters "
+          f"{a['param_bytes'] / 1e9:.2f} GB a rank); one-rank model "
+          f"{one['peak_bytes'] / 1e9:.2f} GB (parameters "
+          f"{one['param_bytes'] / 1e9:.2f} GB)")
+    check(a["loss_bits"] == b["loss_bits"],
+          f"(aa) train step losses differ: {a['loss']} / {b['loss']}")
+    check(a["digests"] == b["digests"],
+          "(aa) replicated leaves differ between the ranks after the step: "
+          + ", ".join(k for k in a["digests"]
+                      if a["digests"][k] != b["digests"].get(k)))
+    for r in ranks:
+        rel = abs(r["grad_norm"] - r["gathered_norm"]) / r["gathered_norm"]
+        check(rel <= EP_GNORM_RTOL, f"(aa) rank {r['rank']}: step global "
+              f"norm {r['grad_norm']} against the gathered gradients' "
+              f"{r['gathered_norm']} (rel {rel})")
+    print(f"(aa) make_train_step(ctx=...) at {EP_TRAIN_BATCH} x "
+          f"{EP_TRAIN_SEQ}, the model cut further to {EP_TRAIN_CUT}: loss "
+          f"{a['loss']} identical on both ranks, {len(a['digests'])} "
+          f"replicated leaves identical in every bit after the step; global "
+          f"norm {a['grad_norm']} against {a['gathered_norm']} of the "
+          f"gradients gathered whole (rank 1: {b['grad_norm']} / "
+          f"{b['gathered_norm']}); step {a['step_s']:.2f} s; peak "
+          f"{a['train_peak_bytes'] / 1e9:.2f} / "
+          f"{b['train_peak_bytes'] / 1e9:.2f} GB")
+
+    # (ab) the recurrent arch at published width and depth
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_split(*SPLIT_FAMILIES[1], dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (ac)
+    train_cli_distributed()
+    print(f"distributed phase: {time.perf_counter() - t0:.1f} s wall")
+
+
 def port_status(replaces: str) -> str:
     """A kernel's port status from the "Port" column of the row of
     ``ROADMAP.md``'s queue B table that names its TPU kernel
@@ -3014,6 +3496,10 @@ def main() -> int:
 
     # 9. the dry run's predictions against the card's steps
     dryrun_phase(smi, dev)
+
+    # 10. the multi-device path: expert parallelism over two ranks on the
+    # card, the split runtime on MoE and RWKV-6, the CLI under torchrun
+    distributed_phase(smi, dev)
 
     # 7. launch counts of the serving and split runs and of (m): each
     # kernel's count is read from the first run named here, and every

@@ -78,3 +78,16 @@ def make_smoke_mesh(devices: int | None = None,
 
 def dp_axes_of(mesh: Mesh) -> tuple[str, ...]:
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def device_mesh(mesh: Mesh, device_type: str = "cuda"):
+    """``mesh`` as a ``torch.distributed`` ``DeviceMesh`` over the ranks of
+    the default process group (which must be initialised and hold
+    ``mesh.size`` ranks), with the same axis names and sizes: rank ``r``
+    sits at ``r``'s row-major coordinate.  A ``models.DistContext`` takes
+    it."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh(device_type,
+                      torch.arange(mesh.size).reshape(mesh.sizes),
+                      mesh_dim_names=mesh.axis_names)

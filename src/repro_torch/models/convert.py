@@ -12,6 +12,11 @@ tree (stage layers stacked (2, half, ...), tail layers (t, ...)).
 Each leaf takes the dtype the reference gives it: the model's dtype,
 except the leaves the reference keeps in float32 whatever the model's
 dtype (:data:`FLOAT32_LEAVES`).
+
+Under a :class:`~.context.DistContext` with a tp axis of M ranks, a
+rank keeps only its E/M experts of each MoE leaf (a copy of its slice:
+the whole stack is not held), as :func:`shard_experts` does for a tree
+already in the port's layout.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.backend import host_tensor
+from ..tree import leaves, rebuild
+from .context import expert_slice, is_expert_leaf
 from .transformer import build_groups, resolve_device, torch_dtype
 
 #: (block, leaf) names of the layer leaves that stay float32: the MoE
@@ -64,15 +71,31 @@ def _tree(node, fn, path=()):
     return fn(node, path)
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    for spec in cfg.layer_specs():
-        if spec.kind != "attn" or spec.moe:
-            raise NotImplementedError(
-                f"{cfg.name}: split_params_from_numpy converts dense "
-                "attention + MLP layers only: the reference's split "
-                "runtime runs MoE layers expert-parallel across chips "
-                "(moe_expert_parallel), and its MoE and recurrent layers "
-                "wait for the port's multi-chip slice (ROADMAP.md A6)")
+def _leaf_dtype(cfg: ModelConfig, path):
+    """The dtype the reference gives a parameter leaf at ``path``."""
+    return torch.float32 if tuple(path[-2:]) in FLOAT32_LEAVES \
+        else torch_dtype(cfg)
+
+
+def rank_part(a, path, ctx):
+    """A numpy leaf, or this rank's slice of it if it is an expert stack
+    (a copy: the stack is not kept alive by a view)."""
+    if ctx is None or ctx.tp_size == 1 or not is_expert_leaf(path):
+        return a
+    a = np.asarray(a)
+    return np.array(a[expert_slice(ctx, a.shape[0])], copy=True)
+
+
+def shard_experts(cfg: ModelConfig, tree, ctx):
+    """A port-layout tree (parameters, gradients, moments or error
+    feedback) with each expert stack cut to this rank's slice, copied so
+    the whole stack can be freed; the other leaves are the same
+    objects."""
+    if ctx is None or ctx.tp_size == 1:
+        return tree
+    return rebuild(tree, iter(
+        [t[expert_slice(ctx, t.shape[0])].clone() if is_expert_leaf(path)
+         else t for path, t in leaves(tree)]))
 
 
 def _layout(cfg: ModelConfig, tree, conv):
@@ -144,33 +167,36 @@ def unstack_layers(cfg: ModelConfig, tree):
     return _layout(cfg, tree, lambda a, path: a)
 
 
-def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
+def params_from_numpy(cfg: ModelConfig, tree, *, device="cuda", ctx=None):
     """JAX-layout parameter tree (numpy leaves) -> port parameter dict on
-    ``device`` (the card unless the CPU is asked for)."""
+    ``device`` (the card unless the CPU is asked for); under ``ctx`` with
+    this rank's experts only."""
     device = resolve_device(device)
-    dtype = torch_dtype(cfg)
 
     def conv(a, path):
-        keep = tuple(path[-2:]) in FLOAT32_LEAVES
-        return from_numpy(a, torch.float32 if keep else dtype, device)
+        return from_numpy(rank_part(a, path, ctx), _leaf_dtype(cfg, path),
+                          device)
 
     return _layout(cfg, tree, conv)
 
 
-def train_state_from_numpy(cfg: ModelConfig, tree, *, device="cuda"):
+def train_state_from_numpy(cfg: ModelConfig, tree, *, device="cuda",
+                           ctx=None):
     """The JAX package's training state ``{"params", "opt": {"mu", "nu",
     "step"}, "ef"}`` (numpy leaves, stacked layout, bfloat16 leaves as
     ``'<V2'`` bits or an extension dtype) -> the port's, on ``device``.
     Parameters take :func:`params_from_numpy`'s dtypes; moments and
-    error feedback stay float32, the step count int32."""
+    error feedback stay float32, the step count int32.  Under ``ctx``
+    every expert leaf is this rank's slice."""
     device = resolve_device(device)
 
     def f32(t):
-        return _layout(cfg, t, lambda a, path:
-                       from_numpy(a, torch.float32, device))
+        return _layout(cfg, t, lambda a, path: from_numpy(
+            rank_part(a, path, ctx), torch.float32, device))
 
     opt = tree["opt"]
-    return {"params": params_from_numpy(cfg, tree["params"], device=device),
+    return {"params": params_from_numpy(cfg, tree["params"], device=device,
+                                        ctx=ctx),
             "opt": {"mu": f32(opt["mu"]), "nu": f32(opt["nu"]),
                     "step": from_numpy(opt["step"], torch.int32, device)},
             "ef": f32(tree["ef"])}
@@ -195,15 +221,14 @@ def split_params_from_numpy(cfg: ModelConfig, tree, *, edge_device="cuda",
                             cloud_device="cuda"):
     """JAX split-runtime parameter tree (``init_split_params``, numpy
     leaves) -> the port's split parameters, each stage's tensors made on
-    its own device."""
+    its own device, each leaf in :func:`params_from_numpy`'s dtype."""
     from ..compression.split_runtime import split_params
-    _dense_only(cfg)
     edge = resolve_device(edge_device)
     cloud = resolve_device(cloud_device)
-    dtype = torch_dtype(cfg)
 
     def conv(device):
-        return lambda a, path=(): from_numpy(a, dtype, device)
+        return lambda a, path=(): from_numpy(a, _leaf_dtype(cfg, path),
+                                             device)
 
     def unstack(stacks, lead, device):
         """Layer dicts of a stacked tree (a one-entry list for the one
@@ -211,7 +236,7 @@ def split_params_from_numpy(cfg: ModelConfig, tree, *, edge_device="cuda",
         (stack,) = stacks
         n = np.asarray(stack["norm1"]["scale"]).shape[len(lead)]
         return [_tree(stack, lambda a, path, i=i: conv(device)(
-            np.asarray(a)[lead + (i,)])) for i in range(n)]
+            np.asarray(a)[lead + (i,)], path)) for i in range(n)]
 
     layers = unstack(tree["stages"], (0,), edge) \
         + unstack(tree["stages"], (1,), cloud)

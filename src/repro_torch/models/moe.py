@@ -1,18 +1,33 @@
 """Top-k routed Mixture-of-Experts with capacity-based dispatch.
 
-Two execution paths sharing the same routing math:
+Three execution paths sharing the same routing math:
 
-  * ``_moe_dense_ref`` -- every expert on every token (oracle for tests);
-  * ``moe_local``      -- sort/scatter dispatch on one device.
+  * ``_moe_dense_ref``      -- every expert on every token (oracle for
+                               tests);
+  * ``moe_local``           -- sort/scatter dispatch, no collectives
+                               (single device or pure data parallelism);
+  * ``moe_expert_parallel`` -- across the tp ranks of a
+                               :class:`~.context.DistContext`, each
+                               holding E/M experts:
+      - train/prefill: tokens are *sequence-split* across the expert
+        axis, dispatched locally to (E, C, d) slots, exchanged with
+        all_to_all so each rank runs only its E/M local experts, and
+        combined after the reverse all_to_all (the standard EP
+        pipeline); the chunks are then all-gathered along the sequence;
+      - decode (or S not divisible): every rank routes every token,
+        computes its local experts' contributions, and the partial
+        outputs are summed across the ranks (TP-style, cheap at small T).
 
 Dropped-token semantics: assignments beyond an expert's capacity
 C = ceil(T*k/E * capacity_factor) are dropped (standard capacity MoE;
-dbrx/qwen3 are dropless -- noted in DESIGN.md §Arch-applicability).
+dbrx/qwen3 are dropless -- noted in DESIGN.md §Arch-applicability).  The
+expert-parallel sequence path sizes C from a rank's chunk of T*/M tokens
+(T* its dp rows' tokens) and dispatches each chunk on its own, the
+decode path from all T* tokens: where assignments are dropped, the
+sequence path equals ``moe_local`` chunk by chunk, not over the whole
+batch.
 
-The JAX package's expert-parallel path (``moe_expert_parallel``, a
-shard_map over the mesh's model axis) exists only across devices and is
-not part of this module: :func:`moe_apply` takes the ``moe_local`` route,
-the one the reference takes without a mesh.
+Every shape is independent of the routing, so a step runs on ``meta``.
 """
 
 from __future__ import annotations
@@ -21,6 +36,7 @@ import math
 
 import torch
 
+from . import context as C
 from .layers import _act, _normal
 
 
@@ -93,6 +109,17 @@ def _moe_dense_ref(x2d, p, cfg):
                         stacked.to(w.dtype)).to(x2d.dtype)
 
 
+def _combine(y, slot, keep, tok_sorted, order, w, t: int, n_slots: int):
+    """Weighted sum of each token's kept expert outputs, in float32.
+    ``y`` (n_slots, d) holds the outputs of the dispatch slots; dropped
+    assignments gather a clamped slot with weight 0."""
+    contrib = y[slot.clamp_max(n_slots - 1)].to(torch.float32)
+    w_sorted = w.reshape(-1)[order] * keep
+    out = torch.zeros((t, y.shape[-1]), dtype=torch.float32, device=y.device)
+    out.index_add_(0, tok_sorted, contrib * w_sorted[:, None])
+    return out
+
+
 def moe_local(x2d, p, cfg, cap: int | None = None):
     """Capacity dispatch on one device. x2d: (T, d)."""
     act_fn = _act(cfg.act)
@@ -109,14 +136,78 @@ def moe_local(x2d, p, cfg, cap: int | None = None):
     buf[slot] = x2d[tok_sorted]
     y = _expert_ffn(buf[:e * cap].reshape(e, cap, d), p, act_fn) \
         .reshape(e * cap, d)
-    contrib = y[slot.clamp_max(e * cap - 1)].to(torch.float32)
-    w_sorted = w.reshape(-1)[order] * keep
-    out = torch.zeros((t, d), dtype=torch.float32, device=x2d.device)
-    out.index_add_(0, tok_sorted, contrib * w_sorted[:, None])
-    return out.to(x2d.dtype)
+    return _combine(y, slot, keep, tok_sorted, order, w, t,
+                    e * cap).to(x2d.dtype)
 
 
-def moe_apply(x, p, cfg):
-    """Entry point: (B, S, d) -> (B, S, d) through :func:`moe_local`."""
+def moe_expert_parallel(x, p, cfg, ctx):
+    """x: (B*, S, d), this rank's dp rows (the same on every rank of its
+    tp group); ``p`` holds this rank's E/M experts (leading-axis slices
+    of w1, w3, w2) and the whole router.  Returns (B*, S, d), the same on
+    every rank of the tp group.  See the module docstring."""
     b, s, d = x.shape
-    return moe_local(x.reshape(b * s, d), p, cfg).reshape(b, s, d)
+    m = ctx.tp_size
+    e, k = cfg.num_experts, cfg.experts_per_token
+    act_fn = _act(cfg.act)
+    if e % m != 0:
+        raise ValueError(f"{e} experts not divisible by axis "
+                         f"{ctx.tp_axis}={m}")
+    e_loc = e // m
+    # each rank routes part of the tokens (its chunk, or its experts'
+    # share): the replicated router's gradient is the ranks' sum
+    router = C.replica_grad(p["router"], ctx)
+
+    if s % m == 0 and s >= m:
+        # ---- sequence-split dispatch + all_to_all ---------------------------
+        xl = C.take_chunk(x, ctx, dim=1)                # (B*, S/M, d)
+        t = b * (s // m)
+        x2d = xl.reshape(t, d)
+        # per-chunk capacity, as the reference's shard_map body sizes it
+        cap = _capacity(t, k, e, cfg.capacity_factor)
+        w, i = _route(x2d, router, k)
+        slot, keep, tok_sorted, order = _dispatch_indices(i, k, e, cap)
+        buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
+        buf[slot] = x2d[tok_sorted]
+        # exchange: each rank keeps its E/M experts, all peers' slots
+        h = C.to_experts(buf[:e * cap].reshape(e, cap, d), ctx)
+        y = _expert_ffn(h, p, act_fn)                   # (E/M, M*cap, d)
+        y = C.to_tokens(y, ctx).reshape(e * cap, d)     # back to (E*cap, d)
+        out = _combine(y, slot, keep, tok_sorted, order, w, t, e * cap)
+        return C.gather_chunks(out.reshape(b, s // m, d).to(x.dtype), ctx,
+                               dim=1)
+
+    # ---- every token on every rank, local experts, summed (decode) ----------
+    xr = C.replica_grad(x, ctx)
+    t = b * s
+    x2d = xr.reshape(t, d)
+    # capacity from all of the rank's tokens
+    cap = _capacity(t, k, e, cfg.capacity_factor)
+    w, i = _route(x2d, router, k)
+    # shift ids so local experts live in [0, e_loc); the others share one
+    # extra bin, whose slots are dropped with the over-capacity ones
+    i_loc = i - ctx.tp_rank * e_loc
+    i_loc = torch.where((i_loc >= 0) & (i_loc < e_loc), i_loc,
+                        torch.full_like(i_loc, e_loc))
+    slot, keep, tok_sorted, order = _dispatch_indices(i_loc, k, e_loc + 1,
+                                                      cap)
+    keep = keep & (slot < e_loc * cap)
+    slot = torch.where(keep, slot, torch.full_like(slot, e_loc * cap))
+    buf = torch.zeros((e_loc * cap + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = x2d[tok_sorted]
+    y = _expert_ffn(buf[:e_loc * cap].reshape(e_loc, cap, d), p, act_fn) \
+        .reshape(e_loc * cap, d)
+    out = _combine(y, slot, keep, tok_sorted, order, w, t, e_loc * cap)
+    # float32 partials summed per rank, then across ranks: another order
+    # of the sum than moe_local's, so not bit-equal to it
+    return C.sum_partials(out, ctx).reshape(b, s, d).to(x.dtype)
+
+
+def moe_apply(x, p, cfg, ctx=None):
+    """Entry point: (B, S, d) -> (B, S, d); picks the execution path as the
+    reference does: local without a context, a mesh, a tp axis of more
+    than one rank, or an expert count that axis divides."""
+    if ctx is None or ctx.mesh is None or ctx.tp_size == 1 \
+            or cfg.num_experts % ctx.tp_size != 0:
+        b, s, d = x.shape
+        return moe_local(x.reshape(b * s, d), p, cfg).reshape(b, s, d)
+    return moe_expert_parallel(x, p, cfg, ctx)

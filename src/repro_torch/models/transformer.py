@@ -16,6 +16,11 @@ dicts: ``{"k", "v"}`` (B, S, K, hd) for attention, ``{"h", "conv"}`` for
 RG-LRU, ``{"tmix": {"state", "shift"}, "cmix": {"shift"}}`` for RWKV.
 Caches are updated in place: a decode or prefill writes into the cache
 tensors it was given and returns the same objects.
+
+The entry points take an optional ``ctx`` (:class:`.context.DistContext`)
+for expert parallelism: under it the rows are this rank's and each MoE
+layer holds this rank's experts; only the MoE's values depend on it
+(the reference's other uses of ``ctx`` are placement hints).
 """
 
 from __future__ import annotations
@@ -251,9 +256,10 @@ def _write(cache, new) -> None:
 
 
 def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, *, pos: int,
-                 cache, positions):
+                 cache, positions, ctx=None):
     """x: (B,S,d). cache: this layer's cache dict or None (written in
-    place). pos: absolute position of x[:, 0]."""
+    place). pos: absolute position of x[:, 0].  ``ctx`` reaches only the
+    MoE (the reference's other uses are placement hints)."""
     h = L.apply_norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
     if spec.kind == "attn":
         x = x + L.attention_out(_attention(h, p["attn"], spec, cfg, pos=pos,
@@ -272,7 +278,7 @@ def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, *, pos: int,
             _write(cache["tmix"], new)
     h2 = L.apply_norm(x, p["norm2"], cfg.norm, cfg.norm_eps)
     if spec.moe:
-        return x + MOE.moe_apply(h2, p["moe"], cfg)
+        return x + MOE.moe_apply(h2, p["moe"], cfg, ctx)
     if spec.kind == "rwkv":
         out, new = RW.channel_mix_apply(h2, p["cmix"],
                                         cache["cmix"] if cache else None)
@@ -293,15 +299,17 @@ def _remat_group_size(n: int) -> int:
     return 1
 
 
-def _run_layers(x, params, members, cfg: ModelConfig, pos: int, positions):
+def _run_layers(x, params, members, cfg: ModelConfig, pos: int, positions,
+                ctx=None):
     for spec, li in members:
         x = _apply_layer(x, params["layers"][li], spec, cfg, pos=pos,
-                         cache=None, positions=positions)
+                         cache=None, positions=positions, ctx=ctx)
     return x
 
 
 def _apply_group(x, params, members, cfg: ModelConfig, *, pos: int,
-                 gcache, positions, remat: bool = False, period: int = 1):
+                 gcache, positions, remat: bool = False, period: int = 1,
+                 ctx=None):
     """Run one group's layers (``period`` of them a period).  ``remat``
     (no cache) recomputes each period's activations in the backward pass,
     as the reference's ``jax.checkpoint`` of its scan body; a group of 64
@@ -315,12 +323,12 @@ def _apply_group(x, params, members, cfg: ModelConfig, *, pos: int,
         for s in range(0, len(members), size):
             x = torch.utils.checkpoint.checkpoint(
                 _run_layers, x, params, members[s:s + size], cfg, pos,
-                positions, use_reentrant=False)
+                positions, ctx, use_reentrant=False)
         return x
     for j, (spec, li) in enumerate(members):
         x = _apply_layer(x, params["layers"][li], spec, cfg, pos=pos,
                          cache=gcache[j] if gcache is not None else None,
-                         positions=positions)
+                         positions=positions, ctx=ctx)
     return x
 
 
@@ -373,7 +381,7 @@ def _need_boundary(cfg, boundary):
 
 
 def _hidden_forward(cfg: ModelConfig, params, batch_in, *, codec_fn,
-                    split: bool, remat: bool):
+                    split: bool, remat: bool, ctx=None):
     """Backbone only: returns final hidden states (B, S, d) + aux."""
     groups, boundary = build_groups(cfg, split or codec_fn is not None)
     x = _embed_in(cfg, params, batch_in)
@@ -382,19 +390,19 @@ def _hidden_forward(cfg: ModelConfig, params, batch_in, *, codec_fn,
     for gi, members in enumerate(_group_layers(groups)):
         x = _apply_group(x, params, members, cfg, pos=0, gcache=None,
                          positions=positions, remat=remat,
-                         period=len(groups[gi].specs))
+                         period=len(groups[gi].specs), ctx=ctx)
         if codec_fn is not None and boundary and gi == boundary - 1:
             x, rate = codec_fn(x)
             aux["codec_rate_bits"] = rate
     return x, aux
 
 
-def forward(cfg: ModelConfig, params, batch_in, *,
+def forward(cfg: ModelConfig, params, batch_in, *, ctx=None,
             codec_fn: Callable | None = None, split: bool = False,
             remat: bool = False):
     """Training/scoring forward pass (no cache).  Returns (logits, aux)."""
     x, aux = _hidden_forward(cfg, params, batch_in, codec_fn=codec_fn,
-                             split=split, remat=remat)
+                             split=split, remat=remat, ctx=ctx)
     return _logits_out(cfg, params, x), aux
 
 
@@ -437,20 +445,21 @@ def loss_and_grads(cfg: ModelConfig, params, tokens, **loss_kw):
     return (loss.detach(), aux), rebuild(params, iter(grads))
 
 
-def loss_fn(cfg: ModelConfig, params, tokens, *, codec_fn=None,
+def loss_fn(cfg: ModelConfig, params, tokens, *, ctx=None, codec_fn=None,
             split: bool = False, remat: bool = True, inputs=None):
     """Next-token cross entropy.  ``inputs`` overrides the embedded input
     stream (audio/vlm stubs); labels always come from ``tokens``.
-    Returns (loss, aux)."""
+    Returns (loss, aux).  Under a ``ctx`` the rows are this rank's and
+    the loss is theirs."""
     batch_in = inputs if inputs is not None else tokens
     x, aux = _hidden_forward(cfg, params, batch_in, codec_fn=codec_fn,
-                             split=split, remat=remat)
+                             split=split, remat=remat, ctx=ctx)
     loss = sharded_xent(cfg, params, x[:, :-1], tokens[:, 1:])
     return loss, aux
 
 
 def forward_head(cfg: ModelConfig, params, batch_in, *,
-                 split_after: int | None = None):
+                 split_after: int | None = None, ctx=None):
     """Edge half of the split forward: embed + the groups before the
     boundary.  Returns the raw split-layer activations (B, S, d)."""
     groups, boundary = _setup(cfg, True, split_after)
@@ -459,12 +468,12 @@ def forward_head(cfg: ModelConfig, params, batch_in, *,
     positions = _positions(x)
     for gi in range(boundary):
         x = _apply_group(x, params, groups[gi], cfg, pos=0, gcache=None,
-                         positions=positions)
+                         positions=positions, ctx=ctx)
     return x
 
 
 def forward_from_boundary(cfg: ModelConfig, params, x, *,
-                          split_after: int | None = None):
+                          split_after: int | None = None, ctx=None):
     """Cloud half: the groups after the boundary + final norm/head.
     Returns logits (B, S, V)."""
     groups, boundary = _setup(cfg, True, split_after)
@@ -473,26 +482,27 @@ def forward_from_boundary(cfg: ModelConfig, params, x, *,
     positions = _positions(x)
     for gi in range(boundary, len(groups)):
         x = _apply_group(x, params, groups[gi], cfg, pos=0, gcache=None,
-                         positions=positions)
+                         positions=positions, ctx=ctx)
     return _logits_out(cfg, params, x)
 
 
-def prefill(cfg: ModelConfig, params, batch_in, cache, *, codec_fn=None,
-            split: bool = False):
+def prefill(cfg: ModelConfig, params, batch_in, cache, *, ctx=None,
+            codec_fn=None, split: bool = False):
     """Process a prompt, filling the cache.  Returns (last_logits, cache)."""
     groups, boundary = _setup(cfg, split or codec_fn is not None)
     x = _embed_in(cfg, params, batch_in)
     positions = _positions(x)
     for gi, members in enumerate(groups):
         x = _apply_group(x, params, members, cfg, pos=0, gcache=cache[gi],
-                         positions=positions)
+                         positions=positions, ctx=ctx)
         if codec_fn is not None and boundary and gi == boundary - 1:
             x, _ = codec_fn(x)
     logits = _logits_out(cfg, params, x[:, -1:])
     return logits[:, 0], cache
 
 
-def prefill_to_boundary(cfg: ModelConfig, params, batch_in, cache):
+def prefill_to_boundary(cfg: ModelConfig, params, batch_in, cache, *,
+                        ctx=None):
     """Edge half of a split prefill: embed + the pre-boundary groups.
 
     Returns (split-layer activations (B, S, d), pre-boundary caches), so
@@ -503,11 +513,12 @@ def prefill_to_boundary(cfg: ModelConfig, params, batch_in, cache):
     positions = _positions(x)
     for gi in range(boundary):
         x = _apply_group(x, params, groups[gi], cfg, pos=0,
-                         gcache=cache[gi], positions=positions)
+                         gcache=cache[gi], positions=positions, ctx=ctx)
     return x, cache[:boundary]
 
 
-def prefill_from_boundary(cfg: ModelConfig, params, x, cache):
+def prefill_from_boundary(cfg: ModelConfig, params, x, cache, *,
+                          ctx=None):
     """Cloud half of a split prefill: post-boundary groups + head.
     ``cache`` is the full per-group cache list (only the post-boundary
     entries are touched).  Returns (last-token logits (B, V),
@@ -517,7 +528,7 @@ def prefill_from_boundary(cfg: ModelConfig, params, x, cache):
     positions = _positions(x)
     for gi in range(boundary, len(groups)):
         x = _apply_group(x, params, groups[gi], cfg, pos=0,
-                         gcache=cache[gi], positions=positions)
+                         gcache=cache[gi], positions=positions, ctx=ctx)
     logits = _logits_out(cfg, params, x[:, -1:])
     return logits[:, 0], cache[boundary:]
 
@@ -526,7 +537,8 @@ def _token_batch(token_in):
     return token_in[:, None] if token_in.dim() == 1 else token_in
 
 
-def decode_to_boundary(cfg: ModelConfig, params, token_in, cache, pos: int):
+def decode_to_boundary(cfg: ModelConfig, params, token_in, cache, pos: int,
+                       *, ctx=None):
     """Edge half of a split decode step.
     Returns (boundary activations (B, 1, d), pre-boundary caches)."""
     groups, boundary = _setup(cfg, True)
@@ -535,11 +547,12 @@ def decode_to_boundary(cfg: ModelConfig, params, token_in, cache, pos: int):
     positions = _positions(x, pos)
     for gi in range(boundary):
         x = _apply_group(x, params, groups[gi], cfg, pos=pos,
-                         gcache=cache[gi], positions=positions)
+                         gcache=cache[gi], positions=positions, ctx=ctx)
     return x, cache[:boundary]
 
 
-def decode_from_boundary(cfg: ModelConfig, params, x, cache, pos: int):
+def decode_from_boundary(cfg: ModelConfig, params, x, cache, pos: int, *,
+                         ctx=None):
     """Cloud half of a split decode step: post-boundary groups + head.
     Returns (logits (B, V), post-boundary caches)."""
     groups, boundary = _setup(cfg, True)
@@ -547,13 +560,13 @@ def decode_from_boundary(cfg: ModelConfig, params, x, cache, pos: int):
     positions = _positions(x, pos)
     for gi in range(boundary, len(groups)):
         x = _apply_group(x, params, groups[gi], cfg, pos=pos,
-                         gcache=cache[gi], positions=positions)
+                         gcache=cache[gi], positions=positions, ctx=ctx)
     logits = _logits_out(cfg, params, x)
     return logits[:, 0], cache[boundary:]
 
 
 def decode_step(cfg: ModelConfig, params, token_in, cache, pos: int, *,
-                codec_fn=None, split: bool = False):
+                ctx=None, codec_fn=None, split: bool = False):
     """One decode step.  token_in: (B,) tokens or (B,1,d) embeddings;
     pos: absolute position.  Returns (logits (B,V), cache, aux)."""
     groups, boundary = _setup(cfg, split or codec_fn is not None)
@@ -562,7 +575,7 @@ def decode_step(cfg: ModelConfig, params, token_in, cache, pos: int, *,
     aux = {}
     for gi, members in enumerate(groups):
         x = _apply_group(x, params, members, cfg, pos=pos,
-                         gcache=cache[gi], positions=positions)
+                         gcache=cache[gi], positions=positions, ctx=ctx)
         if codec_fn is not None and boundary and gi == boundary - 1:
             x, rate = codec_fn(x)
             aux["codec_rate_bits"] = rate

@@ -6,6 +6,12 @@ the JAX package's formula (``repro.optim.adamw``) operation by
 operation; every divide is tensor by tensor, since torch turns a
 division by a python number into a reciprocal multiply on the card.
 
+Under a :class:`~repro_torch.models.context.DistContext` whose tp ranks
+hold slices of the expert stacks, the global norm adds the expert
+leaves' sums of squares over the tp group and counts every replicated
+leaf once, so every rank clips by the one-device norm (ranks that
+clipped by their own norms would drift apart).
+
 Weight decay follows the rank a leaf has in the JAX package's layout,
 where a layer's leaves are stacked over the periods of its group: a leaf
 under ``params["layers"]`` counts one axis more than it has here, so
@@ -19,6 +25,7 @@ import dataclasses
 
 import torch
 
+from ..models.context import is_expert_leaf, tp_sum
 from ..tree import leaves, rebuild, tree_map
 
 
@@ -43,10 +50,21 @@ def init_opt_state(params):
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, ctx=None) -> torch.Tensor:
     sums = [torch.sum(torch.square(leaf.to(torch.float32)))
             for _, leaf in leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sums)))
+    if ctx is None or ctx.tp_size == 1:
+        return torch.sqrt(torch.sum(torch.stack(sums)))
+    # a tp rank holds a slice of each expert stack and the whole of every
+    # other leaf
+    paths = [path for path, _ in leaves(tree)]
+    experts = [s for path, s in zip(paths, sums) if is_expert_leaf(path)]
+    rest = [s for path, s in zip(paths, sums) if not is_expert_leaf(path)]
+    total = torch.sum(torch.stack(rest)) if rest else \
+        torch.zeros((), device=sums[0].device)
+    if experts:
+        total = total + tp_sum(torch.sum(torch.stack(experts)), ctx)
+    return torch.sqrt(total)
 
 
 def reference_rank(path, p: torch.Tensor) -> int:
@@ -55,11 +73,13 @@ def reference_rank(path, p: torch.Tensor) -> int:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, state, lr_scale=1.0):
-    """Returns (new_params, new_state, metrics)."""
+def adamw_update(cfg: AdamWConfig, params, grads, state, lr_scale=1.0,
+                 ctx=None):
+    """Returns (new_params, new_state, metrics).  ``ctx``: the context
+    whose tp ranks hold slices of the expert leaves (for the norm)."""
     step = state["step"] + 1
     dev = step.device
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, ctx)
     clip = torch.minimum(
         torch.ones((), device=dev),
         torch.full((), cfg.grad_clip_norm, device=dev) / (gnorm + 1e-9))

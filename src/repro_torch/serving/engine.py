@@ -54,7 +54,7 @@ class Request:
 
 class ServeEngine:
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 4,
-                 max_seq: int = 256, codec_fn=None,
+                 max_seq: int = 256, ctx=None, codec_fn=None,
                  codec: FeatureCodec | None = None, codec_host_fn=None,
                  refill_align: int = 1,
                  metrics: MetricsRegistry | None = None,
@@ -80,8 +80,14 @@ class ServeEngine:
         buffer.
 
         ``device``: where the model runs (``params`` must live there);
-        the default CUDA device raises where none exists."""
-        self.cfg, self.params = cfg, params
+        the default CUDA device raises where none exists.
+
+        ``ctx``: a ``DistContext`` passed to every prefill and decode, as
+        the reference does: each rank runs the engine on the same
+        requests, its MoE layers expert-parallel over the tp ranks
+        (``params`` holding this rank's experts).  The batch is not split
+        over dp ranks: each serves all of it."""
+        self.cfg, self.params, self.ctx = cfg, params, ctx
         self.device = resolve_device(device)
         if sum(x is not None for x in (codec, codec_fn, codec_host_fn)) > 1:
             raise ValueError("pass at most one of codec, codec_fn, "
@@ -132,10 +138,10 @@ class ServeEngine:
             self._prefill = self._split_prefill
             self._decode = self._split_decode
         else:
-            self._prefill = lambda p, t, c: prefill(cfg, p, t, c,
+            self._prefill = lambda p, t, c: prefill(cfg, p, t, c, ctx=ctx,
                                                     codec_fn=codec_fn)
             self._decode = lambda p, t, c, pos: decode_step(
-                cfg, p, t, c, pos, codec_fn=codec_fn)
+                cfg, p, t, c, pos, ctx=ctx, codec_fn=codec_fn)
 
     def _host_roundtrip(self, x: torch.Tensor):
         recon, rate = self.codec_host_fn(
@@ -146,15 +152,18 @@ class ServeEngine:
     def _split_prefill(self, p, toks, cache):
         """Prefill as two halves with the host codec round-trip run in
         between (``codec_host_fn`` mode)."""
-        x, pre = prefill_to_boundary(self.cfg, p, toks, cache)
+        x, pre = prefill_to_boundary(self.cfg, p, toks, cache, ctx=self.ctx)
         recon, _ = self._host_roundtrip(x)
-        logits, post = prefill_from_boundary(self.cfg, p, recon, cache)
+        logits, post = prefill_from_boundary(self.cfg, p, recon, cache,
+                                             ctx=self.ctx)
         return logits, list(pre) + list(post)
 
     def _split_decode(self, p, cur, cache, pos):
-        x, pre = decode_to_boundary(self.cfg, p, cur, cache, pos)
+        x, pre = decode_to_boundary(self.cfg, p, cur, cache, pos,
+                                    ctx=self.ctx)
         recon, rate = self._host_roundtrip(x)
-        logits, post = decode_from_boundary(self.cfg, p, recon, cache, pos)
+        logits, post = decode_from_boundary(self.cfg, p, recon, cache, pos,
+                                            ctx=self.ctx)
         return logits, list(pre) + list(post), \
             {"codec_rate_bits": np.float32(rate)}
 

@@ -86,13 +86,15 @@ def _arrays(ckpt_dir: str, step: int):
     return np.load(os.path.join(ckpt_dir, f"step_{step:08d}", "arrays.npz"))
 
 
-def restore(ckpt_dir: str, step: int, target_tree):
+def restore(ckpt_dir: str, step: int, target_tree, *, select=None):
     """Restore into the structure of ``target_tree`` (tensors): each leaf
-    takes its target's dtype and device."""
+    takes its target's dtype and device.  ``select(key, array)``, where
+    given, picks the part of a stored array the target holds (a rank's
+    slice of an expert stack)."""
     out = []
     with _arrays(ckpt_dir, step) as data:
         for k, ref in _flat_with_paths(target_tree):
-            arr = data[k]
+            arr = data[k] if select is None else select(k, data[k])
             if tuple(arr.shape) != tuple(ref.shape):
                 raise ValueError(f"{k}: ckpt shape {arr.shape} != target "
                                  f"{tuple(ref.shape)}")

@@ -12,10 +12,17 @@
   * straggler watchdog: steps whose wall time exceeds
     ``straggler_factor`` x the running median are recorded.
 
-The step is eager and plain (no ``DistContext``: one device).  Gradient
+The step is eager.  Under a ``DistContext`` (``ctx``) each rank trains
+on its dp rows of every batch with its experts of each MoE layer, as
+``launch.steps.make_train_step`` does: gradients averaged over the mesh,
+the global norm reduced over the tp group.  A checkpoint keeps the
+one-device layout (whole expert stacks): every rank gathers, the mesh's
+rank 0 writes; a restore gives each rank its slice, so a checkpoint
+crosses between tp sizes and to and from the JAX package.  Gradient
 compression runs in the JAX package's stacked layout, so each of its
 leaves (a layer leaf over all periods of its group) gets one clip range,
-as the reference's does.
+as the reference's does; a clip range over expert stacks split across
+tp ranks is not computed, so it needs a tp axis of one rank.
 """
 
 from __future__ import annotations
@@ -27,14 +34,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..compression import (GradCompressionConfig, compress_grads,
                            init_error_feedback)
 from ..configs.base import ModelConfig
 from ..data.pipeline import DataConfig, stream
 from ..models import init_params, loss_and_grads, resolve_device
-from ..models.convert import (stack_layers, train_state_from_numpy,
-                              unstack_layers)
+from ..models.context import (average_grads, dp_rows, gather_experts,
+                              mesh_mean, sharded)
+from ..models.convert import (rank_part, shard_experts, stack_layers,
+                              train_state_from_numpy, unstack_layers)
 from ..optim import AdamWConfig, adamw_update, init_opt_state, warmup_cosine
 from . import checkpoint as ckpt
 
@@ -56,10 +66,17 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: ModelConfig, tcfg: TrainerConfig,
                  data_cfg: DataConfig, opt_cfg: AdamWConfig | None = None,
-                 codec_fn=None, fail_at_step: int | None = None,
+                 ctx=None, codec_fn=None, fail_at_step: int | None = None,
                  device="cuda"):
+        gc = tcfg.grad_compression
+        if gc is not None and gc.enabled and ctx is not None \
+                and ctx.tp_size > 1:
+            raise ValueError("gradient compression needs a tp axis of one "
+                             "rank: its clip range spans a whole expert "
+                             "stack")
         self.cfg, self.tcfg, self.data_cfg = cfg, tcfg, data_cfg
         self.opt_cfg = opt_cfg or AdamWConfig()
+        self.ctx = ctx
         self.codec_fn = codec_fn
         self.fail_at_step = fail_at_step  # test hook
         self.device = resolve_device(device)
@@ -71,13 +88,15 @@ class Trainer:
         """One training step on ``batch`` (numpy or tensors) at ``step``:
         returns (params, opt_state, ef, metrics)."""
         def dev(a):
-            return None if a is None else torch.as_tensor(a,
-                                                          device=self.device)
+            # this rank's rows of the global batch
+            return None if a is None else dp_rows(
+                torch.as_tensor(a, device=self.device), self.ctx)
 
         (loss, _), grads = loss_and_grads(
             self.cfg, params, dev(batch["tokens"]),
             inputs=dev(batch.get("inputs")), codec_fn=self.codec_fn,
-            remat=False)
+            remat=False, ctx=self.ctx)
+        grads = average_grads(grads, self.ctx)
         gc = self.tcfg.grad_compression
         if gc is not None and gc.enabled:
             cg, ne, cmetrics = compress_grads(
@@ -90,31 +109,43 @@ class Trainer:
                                  warmup_steps=self.tcfg.warmup_steps,
                                  total_steps=self.tcfg.steps)
         params, opt_state, m = adamw_update(self.opt_cfg, params, grads,
-                                            opt_state, lr_scale)
-        return params, opt_state, ef, {"loss": loss, **m, **cmetrics}
+                                            opt_state, lr_scale,
+                                            ctx=self.ctx)
+        return params, opt_state, ef, {"loss": mesh_mean(loss, self.ctx),
+                                       **m, **cmetrics}
 
     # -- state ------------------------------------------------------------------
 
     def init_state(self):
+        """The initial state from the seed (every rank draws the whole
+        model, then keeps its experts)."""
         gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-        params = init_params(self.cfg, gen, device=self.device)
+        params = shard_experts(self.cfg, init_params(self.cfg, gen,
+                                                     device=self.device),
+                               self.ctx)
         return {"params": params, "opt": init_opt_state(params),
                 "ef": init_error_feedback(params)}
 
     def _restore(self, step: int, state):
-        """Checkpoint ``step`` as the port's state; one the JAX package
-        wrote (its layers stacked) is converted."""
+        """Checkpoint ``step`` as the port's state (this rank's experts
+        under a context); one the JAX package wrote (its layers stacked)
+        is converted."""
         keys = ckpt.manifest(self.tcfg.ckpt_dir, step)["keys"]
         if any(k.startswith("params/groups/") for k in keys):
             return train_state_from_numpy(
                 self.cfg, ckpt.load_tree(self.tcfg.ckpt_dir, step),
-                device=self.device)
-        return ckpt.restore(self.tcfg.ckpt_dir, step, state)
+                device=self.device, ctx=self.ctx)
+        return ckpt.restore(
+            self.tcfg.ckpt_dir, step, state,
+            select=lambda key, a: rank_part(a, key.split("/"), self.ctx))
 
     def _save(self, step: int, state) -> None:
         self.wait_for_checkpoint()
-        self._writer = ckpt.save(self.tcfg.ckpt_dir, step, state,
-                                 async_=self.tcfg.ckpt_async)
+        whole = gather_experts(state, self.ctx)
+        # the mesh's rank 0 writes
+        if not sharded(self.ctx) or dist.get_rank() == 0:
+            self._writer = ckpt.save(self.tcfg.ckpt_dir, step, whole,
+                                     async_=self.tcfg.ckpt_async)
 
     def wait_for_checkpoint(self) -> None:
         """Wait for an async checkpoint write still in flight."""
@@ -154,4 +185,7 @@ class Trainer:
                     self._save(step + 1, state)
         finally:
             self.wait_for_checkpoint()
+        if sharded(self.ctx):
+            # every rank returns once rank 0's last checkpoint is on disk
+            dist.barrier()
         return state

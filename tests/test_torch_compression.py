@@ -48,6 +48,10 @@ from repro_torch.models import split_params_from_numpy
 from repro_torch.models import transformer as T
 
 LAYERS = (4, 5)          # 5: the odd layer count puts a tail on the cloud
+# period-1 MoE and RWKV-6 archs at the reduced size (2 layers, split 1 + 1)
+# and the cases run on them
+FAMILIES = ("qwen3-moe-235b-a22b", "rwkv6-3b")
+FAMILY_CASES = ("raw", "packed-4")
 VOCAB, BATCH, MAX_SEQ, STEPS = 64, 4, 16, 3
 LOGIT_ATOL = 1e-3
 RATE_ATOL = 1e-6
@@ -90,14 +94,14 @@ _SCRIPT = textwrap.dedent("""
     samples = np.load(spec["samples"])
     out = {"samples": samples}
     runs = []
-    for layers in spec["layers"]:
-        cfg = dataclasses.replace(reduced(get_config("codeqwen1.5-7b"),
-                                          layers=layers), vocab_size=v)
+    for tag, arch, layers, cases in spec["models"]:
+        cfg = dataclasses.replace(reduced(get_config(arch), layers=layers),
+                                  vocab_size=v)
         sp = SR.init_split_params(cfg, jax.random.PRNGKey(0))
         for path, leaf in jax.tree_util.tree_flatten_with_path(sp)[0]:
             key = "/".join(str(getattr(k, "key", getattr(k, "idx", k)))
                            for k in path)
-            out[f"L{layers}/params/{key}"] = np.asarray(leaf)
+            out[f"{tag}/params/{key}"] = np.asarray(leaf)
 
         def edge(sp, tok, cache, pos, cfg=cfg):
             # the reference's own edge stage, outside the shard_map
@@ -107,15 +111,16 @@ _SCRIPT = textwrap.dedent("""
                                    jnp.full((1,), pos, dtype=jnp.int32),
                                    None)
 
-        for case, (transport, kw) in spec["cases"].items():
+        for case in cases:
+            transport, kw = spec["cases"][case]
             data = samples if kw.get("granularity") == "channel" else None
             codec = calibrate(CodecConfig(backend="kernel_interpret", **kw),
                               samples=data)
-            runs.append((layers, case, transport, cfg, sp, codec,
+            runs.append((tag, case, transport, cfg, sp, codec,
                          jax.jit(edge)))
 
     def compiled(run):
-        layers, case, transport, cfg, sp, codec, _ = run
+        tag, case, transport, cfg, sp, codec, _ = run
         step = jax.jit(SR.make_split_decode_step(cfg, mesh, codec,
                                                  transport=transport))
         caches = SR.init_split_cache(cfg, b, max_seq)
@@ -124,7 +129,7 @@ _SCRIPT = textwrap.dedent("""
 
     with ThreadPoolExecutor(4) as pool:     # XLA compiles off the GIL
         steps_of = list(pool.map(compiled, runs))
-    for (layers, case, transport, cfg, sp, codec, edge_fn), step in zip(
+    for (tag, case, transport, cfg, sp, codec, edge_fn), step in zip(
             runs, steps_of):
         caches = SR.init_split_cache(cfg, b, max_seq)
         edge_cache = jax.tree.map(lambda a: a[0], caches[0])
@@ -146,7 +151,7 @@ _SCRIPT = textwrap.dedent("""
             tok = jnp.argmax(logits, -1).astype(jnp.int32)
         for k, vals in rec.items():
             if vals:
-                out[f"L{layers}/{case}/{k}"] = np.stack(vals)
+                out[f"{tag}/{case}/{k}"] = np.stack(vals)
     np.savez(out_path, **out)
     print("REFERENCE_SPLIT_OK")
 """)
@@ -169,7 +174,9 @@ def reference(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("split")
     np.save(tmp / "samples.npy", _samples())
     path = tmp / "reference.npz"
-    spec = dict(layers=LAYERS, vocab=VOCAB, batch=BATCH, max_seq=MAX_SEQ,
+    models = [(f"L{n}", "codeqwen1.5-7b", n, list(CASES)) for n in LAYERS] \
+        + [(arch, arch, 2, list(FAMILY_CASES)) for arch in FAMILIES]
+    spec = dict(models=models, vocab=VOCAB, batch=BATCH, max_seq=MAX_SEQ,
                 steps=STEPS, samples=str(tmp / "samples.npy"),
                 cases={k: (t, _codec_kw(kw)) for k, (t, kw) in CASES.items()})
     out = subprocess.run([sys.executable, "-c", _SCRIPT, str(path),
@@ -179,15 +186,15 @@ def reference(tmp_path_factory):
     return dict(np.load(path))
 
 
-def _cfg(layers: int):
-    return dataclasses.replace(reduced(get_config("codeqwen1.5-7b"),
-                                       layers=layers), vocab_size=VOCAB)
+def _cfg(layers: int, arch: str = "codeqwen1.5-7b"):
+    return dataclasses.replace(reduced(get_config(arch), layers=layers),
+                               vocab_size=VOCAB)
 
 
-def _tree(ref: dict, layers: int) -> dict:
-    """The reference's split parameter tree from the npz's ``L{n}/params/
+def _tree(ref: dict, tag: str) -> dict:
+    """The reference's split parameter tree from the npz's ``{tag}/params/
     a/0/b`` keys (numeric parts are list positions)."""
-    prefix = f"L{layers}/params/"
+    prefix = f"{tag}/params/"
     tree: dict = {"tail": None}
     for key, arr in ref.items():
         if not key.startswith(prefix):
@@ -281,7 +288,20 @@ def _bf16_rounding_apart(got, want, unrounded) -> np.ndarray:
 @pytest.mark.parametrize("case", list(CASES))
 def test_split_runtime_matches_reference(reference, monkeypatch, layers,
                                          case):
-    cfg = _cfg(layers)
+    _check_split(reference, monkeypatch, f"L{layers}", _cfg(layers), case)
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+@pytest.mark.parametrize("case", FAMILY_CASES)
+def test_split_runtime_on_moe_and_rwkv6_matches_reference(
+        reference, monkeypatch, arch, case):
+    """The archs whose MoE and recurrent layers the split conversion used
+    to refuse: reduced qwen3-moe-235b-a22b (MoE, local dispatch on the
+    mesh's model axis of one device) and rwkv6-3b, split 1 + 1."""
+    _check_split(reference, monkeypatch, arch, _cfg(2, arch), case)
+
+
+def _check_split(reference, monkeypatch, tag: str, cfg, case: str):
     transport, kw = CASES[case]
     data = reference["samples"] if kw.get("granularity") == "channel" \
         else None
@@ -289,7 +309,7 @@ def test_split_runtime_matches_reference(reference, monkeypatch, layers,
                      samples=data)
     codec = RecordingCodec(**{f.name: getattr(base, f.name)
                               for f in dataclasses.fields(base)})
-    params = split_params_from_numpy(cfg, _tree(reference, layers),
+    params = split_params_from_numpy(cfg, _tree(reference, tag),
                                      edge_device="cpu", cloud_device="cpu")
     step = split_runtime.make_split_decode_step(
         cfg, codec, transport=transport, edge_device="cpu",
@@ -301,7 +321,7 @@ def test_split_runtime_matches_reference(reference, monkeypatch, layers,
     monkeypatch.setattr(T, "_logits_out", lambda *a: unrounded.append(
         logits_out(*a)) or unrounded[-1])
     ref = {k.split("/")[-1]: v for k, v in reference.items()
-           if k.startswith(f"L{layers}/{case}/")}
+           if k.startswith(f"{tag}/{case}/")}
     for pos in range(STEPS):
         logits, caches, rate = step(params, torch.from_numpy(
             ref["tokens"][pos]), caches, pos)
@@ -346,6 +366,38 @@ def test_split_params_share_unsplit_tensors():
     caches = split_runtime.init_split_cache(cfg, 2, 8, edge_device="cpu",
                                             cloud_device="cpu")
     assert [len(c) for c in caches] == [2, 3]
+
+
+@pytest.mark.parametrize("arch,kept", [
+    ("qwen3-moe-235b-a22b", [("moe", "router")]),
+    ("rwkv6-3b", [("tmix", "w0"), ("tmix", "u")])])
+def test_split_params_keep_the_reference_float32_leaves(arch, kept):
+    """A bfloat16 split tree of the reference (``init_split_params``): the
+    leaves it keeps in float32 come out float32 with its values, as
+    ``params_from_numpy`` gives them; the others bfloat16 with its bits."""
+    from repro.compression import split_runtime as jsr
+    from repro.configs import get_config as jget_config
+    from repro.configs import reduced as jreduced
+    jcfg = dataclasses.replace(jreduced(jget_config(arch), layers=2),
+                               vocab_size=VOCAB, dtype="bfloat16")
+    cfg = dataclasses.replace(_cfg(2, arch), dtype="bfloat16")
+    tree = jax.tree.map(np.asarray,
+                        jsr.init_split_params(jcfg, jax.random.PRNGKey(0)))
+    params = split_params_from_numpy(cfg, tree, edge_device="cpu",
+                                     cloud_device="cpu")
+    (stack,) = tree["stages"]
+    for i, stage in enumerate(("edge", "cloud")):
+        layer = params[stage]["layers"][0]
+        for block, leaf in kept:
+            want = stack[block][leaf][i, 0]
+            assert want.dtype == np.float32
+            assert layer[block][leaf].dtype == torch.float32
+            np.testing.assert_array_equal(layer[block][leaf].numpy(), want)
+        scale = layer["norm1"]["scale"]
+        assert scale.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            scale.view(torch.int16).numpy(),
+            stack["norm1"]["scale"][i, 0].view(np.int16))
 
 
 @pytest.mark.parametrize("arch", ["gemma3-1b", "codeqwen1.5-7b"])

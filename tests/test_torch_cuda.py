@@ -1396,3 +1396,62 @@ def _flat(tree):
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in _flat(v)]
     return [tree]
+
+
+# -- expert parallelism on the card ---------------------------------------------------
+
+def _ep_card_rank(rank, out_dir):
+    """One of two ranks on cuda:0 (gloo: NCCL refuses two ranks on one
+    card): reduced qwen3-moe at capacity factor 0.5 (assignments
+    dropped), this rank's 4 of 8 experts."""
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models import DistContext
+    from repro_torch.models import context as C
+    from repro_torch.models import moe as MOE
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = DistContext(device_mesh(Mesh((1, 2), ("data", "model")), "cuda"))
+    cfg = dataclasses.replace(reduced(get_config("qwen3-moe-235b-a22b")),
+                              capacity_factor=0.5)
+    whole = MOE.init_moe(torch.Generator(device=dev).manual_seed(0), cfg,
+                         torch.float32, dev)
+    sl = C.expert_slice(ctx, cfg.num_experts)
+    mine = {k: (v if k == "router" else v[sl].clone()).requires_grad_()
+            for k, v in whole.items()}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    res = {}
+    for s in (8, 1):
+        x = torch.randn((32, s, cfg.d_model), generator=gen, device=dev) \
+            .requires_grad_()
+        r = torch.randn(x.shape, generator=gen, device=dev)
+        out = MOE.moe_apply(x, mine, cfg, ctx)
+        gx, gw1 = torch.autograd.grad((out * r).sum(), [x, mine["w1"]])
+        # moe_local over what the path dispatches at once: this rank's
+        # chunk of the sequence, or every token
+        m = s // 2 if s == 8 else s
+        lo = ctx.tp_rank * m if s == 8 else 0
+        xl = x.detach()[:, lo:lo + m].requires_grad_()
+        ref = MOE.moe_local(xl.reshape(-1, cfg.d_model), whole, cfg
+                            ).reshape(xl.shape)
+        res[f"S{s}/out"] = (out[:, lo:lo + m] - ref).abs().max().item()
+        if s == 1:
+            want = torch.autograd.grad((ref * r).sum(), xl)[0]
+            res["S1/g_x"] = (gx - want).abs().max().item()
+        res[f"S{s}/g_w1_finite"] = bool(torch.isfinite(gw1).all())
+    np.save(out_dir / f"card{rank}.npy", res, allow_pickle=True)
+
+
+@pytest.mark.timeout(300)
+def test_expert_parallel_on_two_ranks_on_the_card(dev, tmp_path):
+    """moe_apply under a two-rank context on the card: each rank's chunk of
+    the sequence path and the decode path's output within 1e-5 of
+    ``moe_local`` (float32) over what the path dispatches at once, the
+    decode path's input gradient within 1e-4 of ``moe_local``'s."""
+    from test_torch_context import spawn
+    spawn(_ep_card_rank, 2, tmp_path, tmp_path)
+    for rank in range(2):
+        res = np.load(tmp_path / f"card{rank}.npy", allow_pickle=True).item()
+        assert res["S8/out"] <= 1e-5 and res["S1/out"] <= 1e-5, res
+        assert res["S1/g_x"] <= 1e-4, res
+        assert res["S8/g_w1_finite"] and res["S1/g_w1_finite"]

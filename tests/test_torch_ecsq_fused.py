@@ -306,7 +306,7 @@ def test_packed_ecsq_split_step_matches_reference(split_reference):
     codec = RecordingCodec(**{f.name: getattr(base, f.name)
                               for f in dataclasses.fields(base)})
     assert codec.packs_in_quantizer()
-    params = split_params_from_numpy(cfg, _tree(ref, LAYERS),
+    params = split_params_from_numpy(cfg, _tree(ref, f"L{LAYERS}"),
                                      edge_device="cpu", cloud_device="cpu")
     step = split_runtime.make_split_decode_step(
         cfg, codec, transport="packed", edge_device="cpu",

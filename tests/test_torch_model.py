@@ -155,11 +155,17 @@ def test_init_params_shapes_and_dense_only():
             assert jax.tree.map(lambda t: tuple(t.shape), layer) == shapes
         assert sum(map(len, tm.init_cache(cfg, 1, 8, device="cpu"))) == \
             cfg.num_layers
-    # the split runtime's tree stays dense-only (its MoE path is the
-    # multi-chip one)
-    with pytest.raises(NotImplementedError, match="dense"):
-        tm.split_params_from_numpy(reduced(get_config("dbrx-132b")), {},
-                                   edge_device="cpu", cloud_device="cpu")
+    # the split runtime's tree is no longer dense-only: a MoE one converts,
+    # its router kept float32 as the reference keeps it
+    from repro.compression import split_runtime as jsr
+    tree = jax.tree.map(np.asarray, jsr.init_split_params(
+        jreduced(jget_config("dbrx-132b")), jax.random.PRNGKey(0)))
+    sp = tm.split_params_from_numpy(reduced(get_config("dbrx-132b")), tree,
+                                    edge_device="cpu", cloud_device="cpu")
+    router = sp["cloud"]["layers"][0]["moe"]["router"]
+    assert router.dtype == torch.float32
+    np.testing.assert_array_equal(router.numpy(),
+                                  tree["stages"][0]["moe"]["router"][1, 0])
 
 
 def test_model_entry_points_default_to_the_card():
