@@ -196,11 +196,35 @@ Phases, in order; any failure raises and exits non-zero:
    torch.distributed.run --standalone --nproc_per_node 1 -m
    repro_torch.launch.train --distributed --arch gemma3-1b --steps 2
    --device cuda`` in a subprocess: NCCL, a world of one.
+11. split across ranks -- the split runtime as processes of a (pod,
+   data, model) mesh (``make_split_decode_step(..., ctx=...)``), each
+   rank on this card over gloo, the crossing staged through host buffers
+   (NCCL refuses two ranks on one card), each rank drawing the whole
+   model from seed 0 and keeping its stage.  (ad) codeqwen1.5-7b at
+   published width and depth, split 16 + 16, (2, 1, 1): ``raw`` on (g)'s
+   tokens and ``packed`` with (h)'s codec on (h)'s, 4 sequences, 16
+   steps; every rank's logits identical in every bit to (g)'s and (h)'s,
+   the packed payload bytes and rates to (h)'s; the edge rank launches
+   the per-tensor quantizer (packing in its launch) once a packed step
+   and no other kernel (no pack, no histogram), the cloud rank no
+   kernel.  (ae) qwen3-moe-235b-a22b at published width cut to 2 of its
+   94 layers (1 + 1), (2, 1, 2), 64 experts a rank in each stage, the
+   four ranks drawing in turn: ``packed`` with (ab)'s codec on (ab)'s
+   tokens, 2 sequences, 8 steps; the two ``model`` ranks of each stage
+   identical in every bit (payloads, logits), the logits within 2^-5 of
+   the largest of (ab)'s one-process run's, the launches as in (ad).
+   Printed: ms per step (median) split into edge stage, crossing (the
+   edge's stage done until the cloud holds the payload on the card, host
+   staging included), cloud stage and return path, from the step's
+   tracing spans (a device sync at each span's ends, then the host
+   clock, which the processes share), beside (h)'s one-process ms per
+   step; link bytes per step each way; peak device memory per rank.
 
 The line before the last is the per-kernel JSON record (each kernel's
 numbers per size under ``sizes``, with its launches per run at that
-size, its launches in phase 6 under ``eval_launches`` and in (w)
-under ``train_launches``, and its port status); the last line is
+size, its launches in phase 6 under ``eval_launches``, in (w) under
+``train_launches`` and on each rank of phase 11's runs under
+``split_ranks_launches``, and its port status); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -1628,7 +1652,7 @@ def codec_calls(boundary, codecs, dev) -> dict:
     check(torch.equal(bits_2d, want), "(m) tile_rate_bits")
     check(torch.equal(packed, pack_bits.pack_bits_plain(
         idx.reshape(-1), ecsq.bits_per_index())), "(m) pack")
-    check(float(rate_t) == float(ecsq_t._rate_from_counts(
+    check(float(rate_t) == float(ecsq_t.rate_from_counts(
         rate_hist.index_histogram_plain(idx_t, N_SERVE), tuple(dec.shape))),
         "(m) rate_from_indices")
     print(f"codec calls (m): tile_rate_bits of a 2-D tile codec "
@@ -1678,18 +1702,18 @@ def link_counted(codec, sent: list, rated: list, payloads: list):
     import dataclasses
 
     class Counted(type(codec)):
-        def quantize_with_rate(self, x, want_deq=False):
-            idx, deq, rate = super().quantize_with_rate(x, want_deq)
+        def quantize_with_counts(self, x, want_deq=False):
+            idx, deq, hist = super().quantize_with_counts(x, want_deq)
             sent.append(idx.numel() * idx.element_size())
-            rated.append((x.clone(), rate))
-            return idx, deq, rate
+            rated.append((x.clone(), self.rate_from_counts(hist, x.shape)))
+            return idx, deq, hist
 
-        def quantize_packed_with_rate(self, x):
-            packed, rate = super().quantize_packed_with_rate(x)
+        def quantize_packed_with_counts(self, x):
+            packed, hist = super().quantize_packed_with_counts(x)
             sent.append(packed.numel() * packed.element_size())
-            rated.append((x.clone(), rate))
+            rated.append((x.clone(), self.rate_from_counts(hist, x.shape)))
             payloads.append(packed.clone())
-            return packed, rate
+            return packed, hist
 
         def pack(self, idx):
             out = super().pack(idx)
@@ -1723,9 +1747,59 @@ def split_decode(step, params, caches, prompt, n_prompt=SPLIT_PROMPT,
             float(np.mean([float(r) for r in rates])), dt)
 
 
-def split_phase(cfg, params, dev) -> dict:
+def one_process_parts(cfg, codec, sp, inputs, dev) -> dict:
+    """Median ms of the parts of (h)'s one-process packed step from its
+    spans (:func:`traced_steps`), as phase 11 times its ranks: edge
+    stage, crossing (the payload's ``.to`` on the same card), cloud stage
+    and the whole step."""
+    from repro_torch.compression import split_runtime as SR
+    step = SR.make_split_decode_step(cfg, codec, transport="packed",
+                                     edge_device=dev, cloud_device=dev)
+    caches = SR.init_split_cache(cfg, inputs.shape[1], SPLIT_MAX_SEQ,
+                                 edge_device=dev, cloud_device=dev)
+    spans = traced_steps(inputs.shape[0],
+                         lambda pos: step(sp, inputs[pos], caches, pos))
+    return step_parts(spans, spans, ONE_PROCESS_PARTS)
+
+
+def traced_steps(steps: int, run) -> list[dict]:
+    """Calls ``run(i)`` of a split step for each of ``steps`` steps,
+    traced: the tracer on with a device sync at each span's ends (the
+    host clock then reads when the work issued inside the span is done),
+    each call inside a ``split_step`` span.  Returns each step's spans,
+    ``{stage: (start, end)}`` in seconds of the host clock, which the
+    processes share."""
+    from repro_torch.obs.tracing import span, tracer
+    tr = tracer()
+    tr.configure(enabled=True, sync=torch.cuda.synchronize)
+    tr.reset()
+    try:
+        for i in range(steps):
+            with span("split_step"):
+                run(i)
+        events = tr.snapshot_events()
+    finally:
+        tr.configure(enabled=False, sync=None)
+        tr.reset()
+    per = {e["span_id"]: {} for e in events if e["stage"] == "split_step"}
+    for e in events:
+        if e["parent_id"] in per:
+            per[e["parent_id"]][e["stage"]] = (e["t_start"],
+                                              e["t_start"] + e["dur_s"])
+    return [per[k] for k in sorted(per)]
+
+
+def fed_tokens(prompt, generated) -> torch.Tensor:
+    """The (steps, B) tokens ``split_decode`` fed: the prompt, then the
+    greedy tokens."""
+    return torch.cat([prompt, generated], 1).t().contiguous()
+
+
+def split_phase(cfg, params, dev) -> tuple[dict, dict]:
     """Runs (g)-(l) and (n) of the packed split runtime; returns their
-    launch counts."""
+    launch counts, and what phase 11 holds its ranks to: (g)'s and (h)'s
+    tokens fed, logits, (h)'s payloads, rates and codec, and the median
+    ms of the parts of (h)'s step."""
     from repro_torch.compression import split_runtime as SR
     from repro_torch.kernels import _build
     from repro_torch.models import decode_step, init_cache
@@ -1754,7 +1828,7 @@ def split_phase(cfg, params, dev) -> dict:
                                                  prompt)
     print(f"split: unsplit decode_step, {steps} steps in {ref_s:.2f} s")
 
-    counts, out = {}, {}
+    counts, out, ranks_ref = {}, {}, {}
     for run_id, (transport, kind) in SPLIT_RUNS.items():
         sent: list = []
         rated: list = []
@@ -1803,11 +1877,24 @@ def split_phase(cfg, params, dev) -> dict:
             two = codecs[kind].pack(codecs[kind].quantize(x).reshape(-1))
             check(torch.equal(packed, two), f"({run_id}) the quantizer's "
                   "packed payload differs from quantize, then pack")
+        if run_id in "gh":
+            ranks_ref[run_id] = {
+                "inputs": fed_tokens(prompt, toks).cpu(),
+                "logits": logits.cpu(),
+                "payloads": [p.cpu() for p in payloads],
+                "rates": [float(r) for _, r in rated],
+                "codec": None if kind is None else codecs[kind]}
         if run_id == "h":
             profiled("(h)", lambda: split_decode(
                 step, sp, SR.init_split_cache(cfg, b, SPLIT_MAX_SEQ,
                                               edge_device=dev,
                                               cloud_device=dev), prompt))
+            ranks_ref["h"]["parts"] = one_process_parts(
+                cfg, codecs[kind], sp, ranks_ref["h"]["inputs"].to(dev), dev)
+            print("split (h), ms per step (median) with a device sync "
+                  "ending each part, as phase 11 times its ranks: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in
+                              ranks_ref["h"]["parts"].items()))
 
     diff = float((out["g"][0] - ref_logits).abs().max())
     print(f"split (g) vs the unsplit decode_step rounded through bfloat16: "
@@ -1823,7 +1910,7 @@ def split_phase(cfg, params, dev) -> dict:
           "identical; (h), (j), (k), (l) and (n) pack in the quantizer's "
           "launch, each payload the bytes of quantize, then pack; pack_bits "
           "never launched in (g)-(l), (n)")
-    return counts
+    return counts, ranks_ref
 
 
 # -- phase 5b: the socket transport ------------------------------------------
@@ -3006,13 +3093,14 @@ def ep_one_rank(cfg, params, inp, dev) -> dict:
             "prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
-def family_split(arch: str, overrides: dict, dev, params=None) -> None:
+def family_split(arch: str, overrides: dict, dev, params=None) -> dict:
     """(ab) on one arch at published width: the packed split runtime, split
     half + half, 8 decode steps of EP_BATCH sequences each in ``raw`` and
     ``packed`` (per-tensor N=4, calibrated in "model" mode): ``raw`` equal
     to the unsplit decode step rounded through bfloat16, ``packed``
     launching the per-tensor quantizer once a step and never the pack
-    kernel or a histogram."""
+    kernel or a histogram.  Returns the packed run's tokens fed, logits
+    and codec (what (ae) holds its ranks to)."""
     from repro_torch.compression import split_runtime as SR
     from repro_torch.configs import get_config
     from repro_torch.core import CodecConfig, calibrate
@@ -3059,6 +3147,9 @@ def family_split(arch: str, overrides: dict, dev, params=None) -> None:
         check(bool(torch.isfinite(logits).all()), f"(ab) {arch} {transport}:"
               " logits not finite")
         out[transport] = (logits, toks)
+        if transport == "packed":
+            packed = {"inputs": fed_tokens(prompt, toks).cpu(),
+                      "logits": logits.cpu(), "codec": codec}
         print(f"(ab) {arch} split {half} + {half + tail} {transport}: "
               f"{steps} steps in {dt:.2f} s, rate {rate:.4f} bits/element, "
               f"launches {json.dumps({k: v for k, v in counts.items() if v})}"
@@ -3077,6 +3168,7 @@ def family_split(arch: str, overrides: dict, dev, params=None) -> None:
           f"bfloat16 (largest logit difference {diff}); packed launched the "
           f"per-tensor quantizer once a step, no pack, no histogram "
           f"({time.perf_counter() - t0:.1f} s)")
+    return packed
 
 
 def train_cli_distributed() -> None:
@@ -3105,10 +3197,11 @@ def train_cli_distributed() -> None:
           f"({time.perf_counter() - t0:.1f} s)")
 
 
-def distributed_phase(smi: str, dev) -> None:
+def distributed_phase(smi: str, dev) -> dict:
     """Phase 10: (aa) expert parallelism on two ranks on the one card,
     (ab) the packed split runtime on qwen3-moe-235b-a22b and rwkv6-3b,
-    (ac) the training CLI under torchrun."""
+    (ac) the training CLI under torchrun.  Returns (ab)'s packed run on
+    qwen3-moe-235b-a22b."""
     import gc
     import tempfile
 
@@ -3125,7 +3218,7 @@ def distributed_phase(smi: str, dev) -> None:
     inp = ep_inputs(cfg, dev)
     one = ep_one_rank(cfg, params, inp, dev)
     # (ab) on the same weights first, then the model is freed
-    family_split(*SPLIT_FAMILIES[0], dev, params=params)
+    moe_split = family_split(*SPLIT_FAMILIES[0], dev, params=params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3223,6 +3316,308 @@ def distributed_phase(smi: str, dev) -> None:
     # (ac)
     train_cli_distributed()
     print(f"distributed phase: {time.perf_counter() - t0:.1f} s wall")
+    return moe_split
+
+
+# -- phase 11: the split runtime across ranks ------------------------------------
+
+RANKS_TIMEOUT_S = 600
+# the parts of a step across ranks, each between two ends of make_split_
+# decode_step's spans: (name, (rank, span, 0 start or 1 end) where it
+# begins, the same where it ends)
+STEP_PARTS = (("edge stage", ("edge", "edge_stage", 0),
+               ("edge", "edge_stage", 1)),
+              ("crossing", ("edge", "edge_stage", 1),
+               ("cloud", "payload_recv", 1)),
+              ("cloud stage", ("cloud", "cloud_stage", 0),
+               ("cloud", "cloud_stage", 1)),
+              ("return path", ("cloud", "cloud_stage", 1),
+               ("edge", "logits_recv", 1)),
+              ("step", ("edge", "edge_stage", 0), ("edge", "logits_recv", 1)))
+# the same parts of the one-process step, which has no return path
+ONE_PROCESS_PARTS = (STEP_PARTS[0],
+                     ("crossing", ("edge", "edge_stage", 1),
+                      ("edge", "crossing", 1)),
+                     STEP_PARTS[2],
+                     ("step", ("edge", "edge_stage", 0),
+                      ("edge", "cloud_stage", 1)))
+
+
+def split_rank(rank: int, world: int, init: str, out_dir: str,
+               job: dict) -> None:
+    """One rank of (ad) or (ae): a gloo process on cuda:0 in the (pod,
+    data, model) mesh ``job["mesh"]``, holding its stage of the model.
+    Runs each of ``job["runs"]`` through ``make_split_decode_step(...,
+    ctx=...)`` on the tokens given and writes its logits, payloads and
+    rates, each step's spans (:func:`traced_steps`), its launch counts
+    and peak device memory."""
+    import datetime
+    import gc
+
+    import torch.distributed as dist
+
+    from repro_torch.compression import split_runtime as SR
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models import DistContext
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=300))
+    out = {"rank": rank}
+    try:
+        ctx = DistContext(device_mesh(Mesh(job["mesh"], ("pod", "data",
+                                                         "model")),
+                                      "cuda"), ("data",))
+        cfg = dataclasses.replace(get_config(job["arch"]), **job["overrides"])
+        kw = dict(edge_device=dev, cloud_device=dev, ctx=ctx)
+        # the one-process runs' weights: every rank draws the whole model
+        # from seed 0 and keeps its stage -- one rank at a time where the
+        # card cannot hold every rank's draw at once
+        for turn in range(world) if job["in_turn"] else [rank]:
+            if turn == rank:
+                params = SR.init_split_params(
+                    cfg, torch.Generator(device=dev).manual_seed(0), **kw)
+                gc.collect()
+                torch.cuda.empty_cache()
+            if job["in_turn"]:
+                dist.barrier()
+        (out["stage"],) = params
+        out["param_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in _leaves(params))
+        for label, transport, codec, inputs in job["runs"]:
+            sent: list = []         # the packed payloads the edge makes
+            step = SR.make_split_decode_step(
+                cfg, None if codec is None else link_counted(codec, [], [],
+                                                             sent),
+                transport=transport, **kw)
+            caches = SR.init_split_cache(cfg, inputs.shape[1],
+                                         job["max_seq"], **kw)
+            toks = inputs.to(dev)
+            logits_all, rates = [], []
+
+            def run(pos, step=step, caches=caches, toks=toks,
+                    logits_all=logits_all, rates=rates):
+                logits, _, rate = step(params, toks[pos], caches, pos)
+                logits_all.append(logits)
+                rates.append(rate)
+
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            spans = traced_steps(inputs.shape[0], run)
+            torch.cuda.synchronize()
+            out[label] = {"steps": spans, "launches": dict(_build.LAUNCHES),
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "rates": [float(r) for r in rates]}
+            torch.save({"logits": torch.stack(logits_all).cpu(),
+                        "payloads": [t.cpu() for t in sent]},
+                       os.path.join(out_dir, f"{label}_rank{rank}.pt"))
+            del caches, step
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"{job['runs'][0][0]}_rank{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+def spawn_split_ranks(world: int, job: dict, tmp: str) -> list[dict]:
+    """Run ``job`` on ``world`` ranks (:func:`split_rank`) with a deadline;
+    each rank's record, with each run's logits and payloads."""
+    import torch.multiprocessing as mp
+
+    first = job["runs"][0][0]
+    pc = mp.start_processes(
+        split_rank, args=(world, os.path.join(tmp, f"pg-{first}"), tmp, job),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    try:
+        while not pc.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"({first}) the ranks did not finish in {RANKS_TIMEOUT_S} s")
+    finally:
+        for proc in pc.processes:
+            if proc.is_alive():
+                proc.kill()
+            proc.join(30)
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tmp, f"{first}_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+        for label, *_ in job["runs"]:
+            ranks[-1][label].update(torch.load(
+                os.path.join(tmp, f"{label}_rank{r}.pt")))
+    return ranks
+
+
+def step_parts(edge: list, cloud: list, parts=STEP_PARTS) -> dict:
+    """Median ms of each part of a step across ranks (``parts``), from
+    the edge rank's and its cloud peer's spans (:func:`traced_steps`) on
+    one host clock."""
+    per = {"edge": edge, "cloud": cloud}
+    return {name: statistics.median(
+        (per[r1][i][s1][x1] - per[r0][i][s0][x0]) * 1e3
+        for i in range(len(edge)))
+        for name, (r0, s0, x0), (r1, s1, x1) in parts}
+
+
+def link_bytes(cfg, codec, transport: str, batch: int) -> tuple[int, int]:
+    """Bytes a step sends each way: the payload (and its rate) edge to
+    cloud, the bf16 logits back."""
+    from repro_torch.compression.split_runtime import payload_bytes
+    return (payload_bytes(cfg, codec, transport, batch),
+            2 * batch * cfg.vocab_size)
+
+
+def ranked_launches(label: str, ranks: list, steps: int, quantizes: bool):
+    """Gate: each edge rank launches the per-tensor quantizer (packing in
+    its launch) once a step when ``quantizes`` and no other kernel; each
+    cloud rank no kernel at all."""
+    for r in ranks:
+        got = {k: v for k, v in r[label]["launches"].items() if v}
+        want = {"clip_quant": steps} if quantizes and r["stage"] == "edge" \
+            else {}
+        check(got == want, f"({label}) rank {r['rank']} ({r['stage']}) "
+              f"launched {got}, want {want}")
+
+
+def ranks_phase(smi: str, dev, ranks_ref: dict, moe_split: dict) -> dict:
+    """Phase 11: the split runtime across ranks on this card, over gloo.
+    (ad) codeqwen1.5-7b, (pod, data, model) = (2, 1, 1): ``raw`` against
+    (g) and ``packed`` against (h), in every bit; (ae) qwen3-moe-235b-a22b
+    cut to 2 layers, (2, 1, 2), ``packed`` against (ab).  Returns each
+    run's launch counts per rank."""
+    import gc
+    import tempfile
+
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ad_cfg = get_config("codeqwen1.5-7b")
+    ae_cfg = ep_config()
+    h, g = ranks_ref["h"], ranks_ref["g"]
+    steps_ad = h["inputs"].shape[0]
+    steps_ae = moe_split["inputs"].shape[0]
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ad = spawn_split_ranks(2, {
+            "arch": "codeqwen1.5-7b", "overrides": {}, "mesh": (2, 1, 1),
+            "in_turn": False, "max_seq": SPLIT_MAX_SEQ,
+            "runs": [("ad-raw", "raw", None, g["inputs"]),
+                     ("ad-packed", "packed", h["codec"], h["inputs"])]}, tmp)
+        ae = spawn_split_ranks(4, {
+            "arch": EP_ARCH, "overrides": {"num_layers": EP_LAYERS},
+            "mesh": (2, 1, 2), "in_turn": True,
+            "max_seq": FAMILY_PROMPT + FAMILY_NEW + 8,
+            "runs": [("ae-packed", "packed", moe_split["codec"],
+                      moe_split["inputs"])]}, tmp)
+    print(f"split across ranks: gloo processes on one card, the crossing "
+          f"staged through host buffers (a price of that staging, not of a "
+          f"link); {smi}")
+
+    # (ad): every bit of phase 5's one-process runs
+    check([r["stage"] for r in ad] == ["edge", "cloud"], "(ad) stages")
+    for label, want, quantizes in (("ad-raw", g, False),
+                                   ("ad-packed", h, True)):
+        for r in ad:
+            check(torch.equal(r[label]["logits"], want["logits"]),
+                  f"({label}) rank {r['rank']}: logits differ from the "
+                  "one-process run's")
+            check(r[label]["rates"] == ad[0][label]["rates"],
+                  f"({label}) rank {r['rank']}: rates differ from the edge's")
+        if quantizes:
+            sent = ad[0][label]["payloads"]
+            check(len(sent) == steps_ad and all(
+                torch.equal(a, b) for a, b in zip(sent, want["payloads"])),
+                f"({label}) payload bytes differ from (h)'s")
+            check(ad[0][label]["rates"] == want["rates"],
+                  f"({label}) rates differ from (h)'s")
+        ranked_launches(label, ad, steps_ad, quantizes)
+        parts = step_parts(ad[0][label]["steps"], ad[1][label]["steps"])
+        fwd, back = link_bytes(ad_cfg, want["codec"], label[3:], REQUESTS)
+        print(f"({label}) codeqwen1.5-7b 16 + 16 layers on (pod, data, "
+              f"model) = (2, 1, 1), {REQUESTS} sequences, {steps_ad} steps: "
+              f"logits identical in every bit to "
+              f"({'g' if label == 'ad-raw' else 'h'})"
+              + (", payload bytes and rates identical to (h)'s"
+                 if quantizes else "")
+              + "; ms per step (median): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in parts.items())
+              + " (one process, (h): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in h["parts"].items())
+              + f"); link bytes per "
+              f"step {fwd} edge to cloud, {back} back ({back / fwd:.1f}x); "
+              f"peak device memory edge {ad[0][label]['peak_bytes'] / 1e9:.2f}"
+              f" GB, cloud {ad[1][label]['peak_bytes'] / 1e9:.2f} GB "
+              f"(parameters {ad[0]['param_bytes'] / 1e9:.2f} / "
+              f"{ad[1]['param_bytes'] / 1e9:.2f} GB)")
+
+    # (ae): expert-parallel stages against (ab)'s one-process run
+    label = "ae-packed"
+    check([r["stage"] for r in ae] == ["edge", "edge", "cloud", "cloud"],
+          "(ae) stages")
+    for r in ae[1:]:
+        check(torch.equal(r[label]["logits"], ae[0][label]["logits"]),
+              f"(ae) rank {r['rank']}: logits differ from rank 0's")
+    check(len(ae[0][label]["payloads"]) == steps_ae and all(
+        torch.equal(a, b) for a, b in zip(ae[0][label]["payloads"],
+                                           ae[1][label]["payloads"])),
+        "(ae) the edge's two model ranks sent different payloads")
+    ranked_launches(label, ae, steps_ae, True)
+    want = moe_split["logits"]
+    got = ae[0][label]["logits"]
+    diff = float((got - want).abs().max())
+    tol = EP_LAYER_TOL * float(want.abs().max())
+    check(diff <= tol, f"(ae) logits {diff} from (ab)'s, tolerance {tol}")
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    parts = step_parts(ae[0][label]["steps"], ae[2][label]["steps"])
+    fwd, back = link_bytes(ae_cfg, moe_split["codec"], "packed", EP_BATCH)
+    print(f"(ae) {EP_ARCH} at published width, {EP_LAYERS} of 94 layers "
+          f"(1 + 1) on (pod, data, model) = (2, 1, 2), "
+          f"{ae_cfg.num_experts // 2} experts a rank, packed, {EP_BATCH} "
+          f"sequences, {steps_ae} steps: the model ranks of each stage "
+          f"identical in every bit (payloads, logits); largest logit "
+          f"difference from (ab)'s one-process run {diff} (tolerance "
+          f"{tol}), greedy tokens agree {agree:.3f}; ms per step (median): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
+          + f"; link bytes per step {fwd} edge to cloud, {back} back; peak "
+          "device memory per rank " + ", ".join(
+              f"{r['peak_bytes'] / 1e9:.2f}" for r in
+              (x[label] for x in ae)) + " GB (parameters " + ", ".join(
+              f"{r['param_bytes'] / 1e9:.2f}" for r in ae) + " GB)")
+    print(f"split-across-ranks phase: {time.perf_counter() - t0:.1f} s wall")
+    return {lbl: [r[lbl]["launches"] for r in ranks]
+            for ranks, lbls in ((ad, ("ad-raw", "ad-packed")),
+                                (ae, ("ae-packed",))) for lbl in lbls}
+
+
+def split_ranks_alone(smi: str, dev) -> None:
+    """Phase 11 alone, with the one-process runs it is held to: phase 5's
+    on the serve phase's model and (ab)'s on qwen3-moe-235b-a22b."""
+    import gc
+
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as S
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.library()        # built before phase 5's timed runs
+    cfg, params = S.make_model("codeqwen1.5-7b", True, dev)
+    _, ranks_ref = split_phase(cfg, params, dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_split = family_split(*SPLIT_FAMILIES[0], dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks_phase(smi, dev, ranks_ref, moe_split)
 
 
 def port_status(replaces: str) -> str:
@@ -3303,7 +3698,6 @@ def crossing_ops(boundary, dev) -> dict:
     the quantizer, histogram and pack stage, and the whole call.  Counted
     before the serving runs: on torch 2.11 a profiler session after their
     long profiles recorded none of this library's kernels (PERF.md)."""
-    import inspect
     from repro_torch.compression import split_runtime as SR
     from repro_torch.configs import get_config
     from repro_torch.core import CodecConfig, calibrate
@@ -3336,11 +3730,17 @@ def crossing_ops(boundary, dev) -> dict:
         for (hookup, split), codec in (("ah", tensor), ("cl", channel),
                                        ("en", ecsq)):
             spec = codec.spec()
-            step = SR.make_split_decode_step(
-                get_config("codeqwen1.5-7b"), codec, transport="packed",
-                edge_device=dev, cloud_device=dev)
-            cross = inspect.getclosurevars(
-                inspect.unwrap(step)).nonlocals["cross"]
+            send, receive = SR._boundary(get_config("codeqwen1.5-7b"),
+                                         codec, "packed")
+
+            def cross(y, send=send, receive=receive, codec=codec):
+                """The one-process packed step's crossing: the quantizer
+                and rate of its edge stage, the ``.to`` of its crossing
+                and the unpack and dequantize of its cloud stage."""
+                wire, counts = send(y)
+                rate = codec.rate_from_counts(counts, y.shape)
+                return receive(wire.to(dev), y.shape), rate
+
             out[hookup] = {
                 "stage": short(device_ops(
                     lambda c=codec, sp=spec:
@@ -3478,7 +3878,8 @@ def main() -> int:
 
     # 5. the packed split runtime on the same weights, then the codec
     # calls that still launch the standalone tile histogram and pack
-    counts.update(split_phase(cfg, params, dev))
+    split_counts, ranks_ref = split_phase(cfg, params, dev)
+    counts.update(split_counts)
     counts["m"] = codec_calls(boundary, codecs, dev)
 
     # 5b. the socket transport on the same weights and codecs
@@ -3499,7 +3900,11 @@ def main() -> int:
 
     # 10. the multi-device path: expert parallelism over two ranks on the
     # card, the split runtime on MoE and RWKV-6, the CLI under torchrun
-    distributed_phase(smi, dev)
+    moe_split = distributed_phase(smi, dev)
+
+    # 11. the split runtime across ranks: edge and cloud stages as gloo
+    # processes on the card
+    ranks_launches = ranks_phase(smi, dev, ranks_ref, moe_split)
 
     # 7. launch counts of the serving and split runs and of (m): each
     # kernel's count is read from the first run named here, and every
@@ -3524,6 +3929,9 @@ def main() -> int:
         r_["launches"] = counts[runs_of[name_][0]][name_]
         r_["eval_launches"] = eval_counts.get(name_, 0)
         r_["train_launches"] = counts["w"][name_]
+        r_["split_ranks_launches"] = {
+            label: [c.get(name_, 0) for c in per_rank]
+            for label, per_rank in ranks_launches.items()}
         for run_id in runs_of[name_]:
             check(counts[run_id][name_] > 0, f"{name_} never "
                   f"launched on serving run ({run_id})")

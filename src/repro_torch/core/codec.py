@@ -546,31 +546,35 @@ class FeatureCodec:
         uniform codecs per channel group with channels last and groups of
         8-256 count the indices in the quantizer's own launch on the card
         (``backend.quantize_with_histogram``); the others histogram them
-        after it (:meth:`rate_from_indices`).  The same counts give the
-        same rate either way."""
+        after it (:meth:`index_counts`).  The same counts give the same
+        rate either way."""
+        idx, deq, hist = self.quantize_with_counts(x, want_deq)
+        return idx, deq, self.rate_from_counts(hist, np.shape(x))
+
+    def quantize_with_counts(self, x, want_deq: bool = False):
+        """(indices, reconstruction or None, index counts): the pass of
+        :meth:`quantize_with_rate` before its rate, the counts as
+        :meth:`rate_from_counts` takes them."""
         idx, deq, hist = self.backend.quantize_with_histogram(
             x, self.spec(), want_deq)
-        if hist is None:
-            return idx, deq, self.rate_from_indices(idx, np.shape(x))
-        return idx, deq, self._rate_from_counts(hist, np.shape(x))
+        return idx, deq, self.index_counts(idx) if hist is None else hist
 
     def packs_in_quantizer(self) -> bool:
-        """Whether :meth:`quantize_packed_with_rate` takes this codec: a
+        """Whether :meth:`quantize_packed_with_counts` takes this codec: a
         1/2/4-bit wire width, and per tensor (uniform or ECSQ) or uniform
         per channel group with channels last and groups of 8-256."""
         return packs_in_quantizer(self.spec(), self.bits_per_index())
 
-    def quantize_packed_with_rate(self, x):
+    def quantize_packed_with_counts(self, x):
         """(packed uint8 wire bytes of the flat indices -- the bytes of
-        ``pack(quantize(x))`` -- and the rate bits/element) from one
+        ``pack(quantize(x))`` -- and the index counts) from one
         quantization pass that packs and counts its indices: one launch
         of the clip+quant or, for an ECSQ codec, the ECSQ kernel on the
-        card.  The rate comes from the same counts by the same
-        formula as :meth:`quantize_with_rate`'s, so the two are equal.
-        Raises unless :meth:`packs_in_quantizer`."""
-        packed, hist = self.backend.quantize_packed_with_histogram(
+        card.  The counts are :meth:`quantize_with_counts`'s, so
+        :meth:`rate_from_counts` gives the same rate from either.  Raises
+        unless :meth:`packs_in_quantizer`."""
+        return self.backend.quantize_packed_with_histogram(
             x, self.spec(), self.bits_per_index())
-        return packed, self._rate_from_counts(hist, np.shape(x))
 
     def rate_from_indices(self, idx, shape):
         """Bits/element estimate from indices (in-graph).
@@ -580,15 +584,21 @@ class FeatureCodec:
         per-tile entropies (never above the global-histogram bound, by
         conditioning) is the tighter model of what it actually spends.
         """
-        if self.plan is not None:
-            hist = self.backend.tile_histogram(idx, self.spec())
-        else:
-            hist = self.backend.histogram(idx, self.config.n_levels)
-        return self._rate_from_counts(hist, shape)
+        return self.rate_from_counts(self.index_counts(idx), shape)
 
-    def _rate_from_counts(self, hist, shape):
-        """Bits/element from index counts: (N,) for a per-tensor codec,
-        per tile (n_cgroups, n_sblocks, N) for a tiled one."""
+    def index_counts(self, idx):
+        """Index counts: (N,) for a per-tensor codec, per tile
+        (n_cgroups, n_sblocks, N) for a tiled one.  Counts of disjoint
+        parts of a tensor sum to the whole tensor's, for a tiled codec
+        where its tiles do not depend on the tensor's extent
+        (``plan.spatial_extent`` None)."""
+        if self.plan is not None:
+            return self.backend.tile_histogram(idx, self.spec())
+        return self.backend.histogram(idx, self.config.n_levels)
+
+    def rate_from_counts(self, hist, shape):
+        """Bits/element of a tensor of ``shape`` from its index counts
+        (:meth:`index_counts`)."""
         n = max(int(np.prod(shape)), 1)
         if self.plan is not None:
             return estimated_bits_from_tile_hists(

@@ -54,7 +54,12 @@ class DistContext:
     tp_axis: the expert-parallel axis ('model').
 
     The process groups are made when the context is: every rank must
-    build its context at the same point of its program.
+    build its context at the same point of its program.  A mesh with a
+    ``pod`` axis also gives this rank's coordinate on it (``pod_rank``)
+    and, where that axis has two ranks, its peer on the other pod: the
+    rank with the same coordinates on every other axis (``pod_peer``, a
+    global rank; the split runtime's edge and cloud stage send to each
+    other on the default group, so no group is made for it).
     """
 
     mesh: Any = None
@@ -75,7 +80,15 @@ class DistContext:
                              f"process group {dist.get_world_size()}")
         coord = self.mesh.get_coordinate()
         shape = dict(zip(names, self.mesh.mesh.shape))
-        groups = {"tp": None, "tp_rank": 0, "dp": None, "dp_rank": 0}
+        groups = {"tp": None, "tp_rank": 0, "dp": None, "dp_rank": 0,
+                  "pod_rank": 0, "pod_peer": None}
+        if "pod" in names:
+            i = names.index("pod")
+            groups["pod_rank"] = coord[i]
+            if shape["pod"] == 2:
+                other = list(coord)
+                other[i] = 1 - coord[i]
+                groups["pod_peer"] = int(self.mesh.mesh[tuple(other)])
         if shape.get(self.tp_axis, 1) > 1:
             groups["tp"] = self.mesh.get_group(self.tp_axis)
             groups["tp_rank"] = coord[names.index(self.tp_axis)]
@@ -134,6 +147,17 @@ class DistContext:
     @property
     def dp_rank(self) -> int:
         return 0 if self.mesh is None else self._groups["dp_rank"]
+
+    @property
+    def pod_rank(self) -> int:
+        """This rank's coordinate on the ``pod`` axis (0 without one)."""
+        return 0 if self.mesh is None else self._groups["pod_rank"]
+
+    @property
+    def pod_peer(self) -> int | None:
+        """The global rank of this rank's peer on the other pod of a
+        two-pod mesh (None otherwise)."""
+        return None if self.mesh is None else self._groups["pod_peer"]
 
     @property
     def size(self) -> int:

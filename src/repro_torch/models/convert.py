@@ -218,36 +218,51 @@ def train_state_to_numpy(cfg: ModelConfig, state):
 
 
 def split_params_from_numpy(cfg: ModelConfig, tree, *, edge_device="cuda",
-                            cloud_device="cuda"):
+                            cloud_device="cuda", ctx=None):
     """JAX split-runtime parameter tree (``init_split_params``, numpy
     leaves) -> the port's split parameters, each stage's tensors made on
-    its own device, each leaf in :func:`params_from_numpy`'s dtype."""
+    its own device, each leaf in :func:`params_from_numpy`'s dtype.
+    Under ``ctx`` (the split runtime's context across ranks) only this
+    rank's stage is made, and of each expert stack only this rank's slice
+    is kept (:func:`~repro_torch.compression.split_runtime.split_params`).
+    """
     from ..compression.split_runtime import split_params
     edge = resolve_device(edge_device)
     cloud = resolve_device(cloud_device)
+    # under a context: the stage this rank holds (the other is not made)
+    mine = None if ctx is None else ("edge" if ctx.pod_rank == 0
+                                     else "cloud")
 
-    def conv(device):
-        return lambda a, path=(): from_numpy(a, _leaf_dtype(cfg, path),
-                                             device)
+    def conv(device, stage):
+        def leaf(a, path=()):
+            if mine not in (None, stage):
+                return None
+            return from_numpy(a, _leaf_dtype(cfg, path), device)
+        return leaf
 
-    def unstack(stacks, lead, device):
+    def unstack(stacks, lead, device, stage):
         """Layer dicts of a stacked tree (a one-entry list for the one
         pattern position of a period-1 model), indexed ``lead + (i,)``."""
         (stack,) = stacks
         n = np.asarray(stack["norm1"]["scale"]).shape[len(lead)]
-        return [_tree(stack, lambda a, path, i=i: conv(device)(
+        return [_tree(stack, lambda a, path, i=i: conv(device, stage)(
             np.asarray(a)[lead + (i,)], path)) for i in range(n)]
 
-    layers = unstack(tree["stages"], (0,), edge) \
-        + unstack(tree["stages"], (1,), cloud)
+    layers = unstack(tree["stages"], (0,), edge, "edge") \
+        + unstack(tree["stages"], (1,), cloud, "cloud")
     if tree.get("tail") is not None:
-        layers += unstack(tree["tail"], (), cloud)
+        layers += unstack(tree["tail"], (), cloud, "cloud")
     if len(layers) != cfg.num_layers:
         raise ValueError(f"tree holds {len(layers)} layers, config "
                          f"{cfg.name} has {cfg.num_layers}")
-    params = {"embed": _tree(tree["embed"], conv(edge)),
-              "final_norm": _tree(tree["final_norm"], conv(cloud)),
+    # a rank of the cloud holds the embedding only when the head is tied
+    # to it
+    tied_cloud = mine == "cloud" and cfg.tie_embeddings
+    params = {"embed": _tree(tree["embed"], conv(cloud, "cloud")
+                             if tied_cloud else conv(edge, "edge")),
+              "final_norm": _tree(tree["final_norm"], conv(cloud, "cloud")),
               "layers": layers}
     if tree.get("head") is not None:
-        params["head"] = _tree(tree["head"], conv(cloud))
-    return split_params(cfg, params, edge_device=edge, cloud_device=cloud)
+        params["head"] = _tree(tree["head"], conv(cloud, "cloud"))
+    return split_params(cfg, params, edge_device=edge, cloud_device=cloud,
+                        ctx=ctx)

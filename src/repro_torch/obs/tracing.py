@@ -18,6 +18,11 @@ to ~0%).  When enabled, each closed span
 - feeds ``repro_pipeline_stage_latency_seconds{stage=...}`` in the
   default metrics registry.
 
+A tracer may be given a ``sync`` callable, which each span calls as it
+opens and as it closes, before it reads the clock: with
+``torch.cuda.synchronize`` a span times the device work issued inside
+it, not only its dispatch (the split runtime's step parts are timed so).
+
 ``REPRO_OBS_TRACE=1`` enables tracing at import; ``REPRO_OBS_PROFILER_TRACE=1``
 additionally wraps the fused-encode kernel dispatch in
 ``torch.profiler.record_function`` so spans line up with profiler traces.
@@ -85,11 +90,15 @@ class Span:
         parent = _current_span.get()
         self.parent_id = parent.span_id if parent is not None else None
         self._token = _current_span.set(self)
+        if self._tracer.sync is not None:
+            self._tracer.sync()
         self.t_start = time.time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
+        if self._tracer.sync is not None and exc_type is None:
+            self._tracer.sync()
         self.dur_s = time.perf_counter() - self._t0
         if self._token is not None:
             _current_span.reset(self._token)
@@ -105,6 +114,7 @@ class Tracer:
     def __init__(self, registry=None, max_events: int = 65536):
         self.enabled = False
         self.profiler_trace = False
+        self.sync = None
         self.events: deque[dict] = deque(maxlen=max_events)
         self._ids = itertools.count(1)
         self._lock = threading.Lock()
@@ -115,13 +125,16 @@ class Tracer:
     # configuration ----------------------------------------------------
     def configure(self, enabled: bool | None = None,
                   event_log_path: str | None | type(...) = ...,
-                  profiler_trace: bool | None = None) -> "Tracer":
+                  profiler_trace: bool | None = None,
+                  sync=...) -> "Tracer":
         if enabled is not None:
             self.enabled = bool(enabled)
         if event_log_path is not ...:
             self._event_path = event_log_path
         if profiler_trace is not None:
             self.profiler_trace = bool(profiler_trace)
+        if sync is not ...:
+            self.sync = sync
         if self.enabled and self._hist is None:
             self._hist = self._registry.histogram(
                 _STAGE_HIST, "wall time per pipeline stage span",
@@ -203,5 +216,6 @@ def span(stage: str, **attrs):
 
 def configure_tracing(enabled: bool | None = None,
                       event_log_path: str | None | type(...) = ...,
-                      profiler_trace: bool | None = None) -> Tracer:
-    return _TRACER.configure(enabled, event_log_path, profiler_trace)
+                      profiler_trace: bool | None = None,
+                      sync=...) -> Tracer:
+    return _TRACER.configure(enabled, event_log_path, profiler_trace, sync)

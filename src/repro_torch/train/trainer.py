@@ -21,8 +21,9 @@ rank 0 writes; a restore gives each rank its slice, so a checkpoint
 crosses between tp sizes and to and from the JAX package.  Gradient
 compression runs in the JAX package's stacked layout, so each of its
 leaves (a layer leaf over all periods of its group) gets one clip range,
-as the reference's does; a clip range over expert stacks split across
-tp ranks is not computed, so it needs a tp axis of one rank.
+as the reference's does; under a tp axis of more than one rank an expert
+leaf's clip range is the whole stack's, its statistics reduced over the
+tp group (``compress_grads(..., ctx=)``).
 """
 
 from __future__ import annotations
@@ -68,12 +69,6 @@ class Trainer:
                  data_cfg: DataConfig, opt_cfg: AdamWConfig | None = None,
                  ctx=None, codec_fn=None, fail_at_step: int | None = None,
                  device="cuda"):
-        gc = tcfg.grad_compression
-        if gc is not None and gc.enabled and ctx is not None \
-                and ctx.tp_size > 1:
-            raise ValueError("gradient compression needs a tp axis of one "
-                             "rank: its clip range spans a whole expert "
-                             "stack")
         self.cfg, self.tcfg, self.data_cfg = cfg, tcfg, data_cfg
         self.opt_cfg = opt_cfg or AdamWConfig()
         self.ctx = ctx
@@ -100,7 +95,8 @@ class Trainer:
         gc = self.tcfg.grad_compression
         if gc is not None and gc.enabled:
             cg, ne, cmetrics = compress_grads(
-                gc, stack_layers(self.cfg, grads), stack_layers(self.cfg, ef))
+                gc, stack_layers(self.cfg, grads), stack_layers(self.cfg, ef),
+                ctx=self.ctx)
             grads, ef = unstack_layers(self.cfg, cg), \
                 unstack_layers(self.cfg, ne)
         else:

@@ -13,6 +13,11 @@ the reference's own edge stage (the step keeps its payload inside the
 shard_map).  The port loads the parameters with
 ``split_params_from_numpy`` and runs the same steps on the CPU.
 
+With ``models221`` in its spec the same script also runs the reference
+on a (2, 2, 1) mesh (four forced host devices), the batch split over
+``data`` inside each pod; ``tests/test_torch_split_ranks.py`` holds the
+split step across ranks against those runs.
+
 Tolerances: boundary activations within 1e-5 (float32, sums in another
 order); payload bytes identical (an index may only differ where the
 reference's boundary value sits at a bin edge, and the test shows it);
@@ -76,7 +81,10 @@ _SCRIPT = textwrap.dedent("""
     import os
     import sys
     from concurrent.futures import ThreadPoolExecutor
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+    out_path, spec = sys.argv[1], ast.literal_eval(sys.argv[2])
+    # the (2, 2, 1) runs need four devices
+    n_dev = 4 if spec.get("models221") else 2
+    os.environ["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={n_dev}"
     import numpy as np
     import jax
     import jax.numpy as jnp
@@ -86,15 +94,17 @@ _SCRIPT = textwrap.dedent("""
     from repro.core import CodecConfig, calibrate
     from repro.models import transformer as T
 
-    out_path, spec = sys.argv[1], ast.literal_eval(sys.argv[2])
-    mesh = jax.make_mesh((2, 1, 1), ("pod", "data", "model"),
-                         axis_types=(AxisType.Auto,) * 3)
+    meshes = {shape: jax.make_mesh(shape, ("pod", "data", "model"),
+                                   axis_types=(AxisType.Auto,) * 3)
+              for shape in ((2, 1, 1), (2, 2, 1))[:n_dev // 2]}
     b, v, max_seq, steps = (spec["batch"], spec["vocab"], spec["max_seq"],
                             spec["steps"])
     samples = np.load(spec["samples"])
     out = {"samples": samples}
     runs = []
-    for tag, arch, layers, cases in spec["models"]:
+    models = [(m, (2, 1, 1)) for m in spec["models"]] \
+        + [(m, (2, 2, 1)) for m in spec.get("models221", [])]
+    for (tag, arch, layers, cases), shape in models:
         cfg = dataclasses.replace(reduced(get_config(arch), layers=layers),
                                   vocab_size=v)
         sp = SR.init_split_params(cfg, jax.random.PRNGKey(0))
@@ -117,10 +127,10 @@ _SCRIPT = textwrap.dedent("""
             codec = calibrate(CodecConfig(backend="kernel_interpret", **kw),
                               samples=data)
             runs.append((tag, case, transport, cfg, sp, codec,
-                         jax.jit(edge)))
+                         jax.jit(edge), meshes[shape]))
 
     def compiled(run):
-        tag, case, transport, cfg, sp, codec, _ = run
+        tag, case, transport, cfg, sp, codec, _, mesh = run
         step = jax.jit(SR.make_split_decode_step(cfg, mesh, codec,
                                                  transport=transport))
         caches = SR.init_split_cache(cfg, b, max_seq)
@@ -129,7 +139,7 @@ _SCRIPT = textwrap.dedent("""
 
     with ThreadPoolExecutor(4) as pool:     # XLA compiles off the GIL
         steps_of = list(pool.map(compiled, runs))
-    for (tag, case, transport, cfg, sp, codec, edge_fn), step in zip(
+    for (tag, case, transport, cfg, sp, codec, edge_fn, _), step in zip(
             runs, steps_of):
         caches = SR.init_split_cache(cfg, b, max_seq)
         edge_cache = jax.tree.map(lambda a: a[0], caches[0])
@@ -168,22 +178,28 @@ def _codec_kw(kw: dict) -> dict:
     return kw if "clip_mode" in kw else dict(kw, **MANUAL)
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
-    """One subprocess run of the reference split runtime (see above)."""
-    tmp = tmp_path_factory.mktemp("split")
+def run_reference(tmp, models, models221=()) -> dict:
+    """One subprocess run of the reference split runtime (see above) on
+    ``models`` ((tag, arch, layers, cases) each) at (2, 1, 1) and
+    ``models221`` at (2, 2, 1); its npz as a dict."""
     np.save(tmp / "samples.npy", _samples())
     path = tmp / "reference.npz"
-    models = [(f"L{n}", "codeqwen1.5-7b", n, list(CASES)) for n in LAYERS] \
-        + [(arch, arch, 2, list(FAMILY_CASES)) for arch in FAMILIES]
-    spec = dict(models=models, vocab=VOCAB, batch=BATCH, max_seq=MAX_SEQ,
-                steps=STEPS, samples=str(tmp / "samples.npy"),
+    spec = dict(models=list(models), models221=list(models221), vocab=VOCAB,
+                batch=BATCH, max_seq=MAX_SEQ, steps=STEPS,
+                samples=str(tmp / "samples.npy"),
                 cases={k: (t, _codec_kw(kw)) for k, (t, kw) in CASES.items()})
     out = subprocess.run([sys.executable, "-c", _SCRIPT, str(path),
                           repr(spec)], capture_output=True, text=True,
                          timeout=600)
     assert "REFERENCE_SPLIT_OK" in out.stdout, out.stdout + out.stderr
     return dict(np.load(path))
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    models = [(f"L{n}", "codeqwen1.5-7b", n, list(CASES)) for n in LAYERS] \
+        + [(arch, arch, 2, list(FAMILY_CASES)) for arch in FAMILIES]
+    return run_reference(tmp_path_factory.mktemp("split"), models)
 
 
 def _cfg(layers: int, arch: str = "codeqwen1.5-7b"):
@@ -225,17 +241,17 @@ class RecordingCodec(FeatureCodec):
 
     sent: list = dataclasses.field(default_factory=list)
 
-    def quantize_with_rate(self, x, want_deq=False):
-        idx, deq, rate = super().quantize_with_rate(x, want_deq)
+    def quantize_with_counts(self, x, want_deq=False):
+        idx, deq, hist = super().quantize_with_counts(x, want_deq)
         self.sent.append({"y": x.numpy().copy(), "payload": idx.numpy(),
                           "fused": False})
-        return idx, deq, rate
+        return idx, deq, hist
 
-    def quantize_packed_with_rate(self, x):
-        packed, rate = super().quantize_packed_with_rate(x)
+    def quantize_packed_with_counts(self, x):
+        packed, hist = super().quantize_packed_with_counts(x)
         self.sent.append({"y": x.numpy().copy(), "payload": packed.numpy(),
                           "fused": True})
-        return packed, rate
+        return packed, hist
 
     def pack(self, idx):
         out = super().pack(idx)

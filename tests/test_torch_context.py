@@ -18,7 +18,8 @@ norm within rtol 1e-5, its first moments within rtol 1e-5, atol 1e-7,
 and its parameters within rtol 1e-5, atol 1e-6 (the port's trainer
 tests' tolerance; see ``ATOL``) of the one-device step on the same
 global batch; trainer states after a checkpoint crossed tp
-sizes within rtol 1e-5, atol 1e-6 of the run that never did.
+sizes within rtol 1e-5, atol 1e-6 of the run that never did; gradient
+compression under tp=2: see its test.
 """
 
 import dataclasses
@@ -111,6 +112,7 @@ def test_context_without_a_mesh_is_one_device():
     assert (ctx.tp_size, ctx.dp_size, ctx.tp_rank, ctx.dp_rank, ctx.size) \
         == (1, 1, 0, 0, 1)
     assert ctx.tp_group is None and ctx.dp_group is None
+    assert (ctx.pod_rank, ctx.pod_peer) == (0, None)
     t = torch.arange(6.0).reshape(3, 2)
     assert C.dp_rows(t, ctx) is t and C.dp_rows(None, ctx) is None
     g = {"w": t}
@@ -150,7 +152,8 @@ def _context_ranks(rank, out_dir):
     res = {"tp_ranks": dist.get_process_group_ranks(ctx.tp_group),
            "dp_ranks": dist.get_process_group_ranks(ctx.dp_group),
            "coord": [ctx.dp_rank, ctx.tp_rank, ctx.dp_size, ctx.tp_size,
-                     ctx.size]}
+                     ctx.size],
+           "pod": [ctx.pod_rank, ctx.pod_peer]}
     gen = torch.Generator().manual_seed(100 + rank)
     # the tiled all_to_all and its backward
     buf = (1000.0 * rank + torch.arange(E * CAP * D, dtype=torch.float32)
@@ -202,6 +205,8 @@ def test_mesh_groups_order_dp_axes_pod_major(context_ranks):
         assert res["tp_ranks"].tolist() == [2 * pod, 2 * pod + 1]
         assert res["dp_ranks"].tolist() == [j, 2 + j]
         assert res["coord"].tolist() == [pod, j, 2, 2, 4]
+        # the peer on the other pod: the same data and model coordinates
+        assert res["pod"].tolist() == [pod, 2 * (1 - pod) + j]
         assert res["rows4"].tolist() == [2 * pod, 2 * pod + 1]
         assert res["rows3"].tolist() == [0, 1, 2]
 
@@ -306,6 +311,167 @@ def test_dp_tp_train_step_equals_the_one_device_step(tmp_path):
                                        atol=ATOL[key.split("/")[0]],
                                        err_msg=key)
     assert len({float(r["loss"]) for r in got}) == 1
+
+
+# -- gradient compression under tp > 1 -----------------------------------------------
+
+GC_LEVELS = 16           # 4-bit gradients
+
+
+def _compressed_step(cfg, ctx, tokens, ckpt_dir) -> dict:
+    """One ``Trainer`` step with 4-bit gradient compression on the global
+    batch ``tokens``: the grad_compress_mse, the new parameters, and each
+    stacked leaf's clip range, compressor input and reconstruction (this
+    rank's slice of an expert stack), recorded at the quantizer."""
+    from repro_torch.compression import GradCompressionConfig
+    from repro_torch.compression import grad_compression as GC
+    from repro_torch.models.convert import stack_layers
+    tr = Trainer(cfg, TrainerConfig(
+        steps=1, warmup_steps=1, ckpt_dir=str(ckpt_dir),
+        grad_compression=GradCompressionConfig(n_levels=GC_LEVELS)),
+        DataConfig(vocab_size=cfg.vocab_size, batch=tokens.shape[0],
+                   seq_len=tokens.shape[1]), ctx=ctx, device="cpu")
+    state = tr.init_state()
+    seen = []
+    quantize = GC._quantize_dequantize
+
+    def record(x, c, n_levels):
+        out = quantize(x, c, n_levels)
+        seen.append((c.clone(), x.clone(), out))
+        return out
+
+    GC._quantize_dequantize = record
+    try:
+        params, _, _, m = tr._step(state["params"], state["opt"],
+                                   state["ef"], {"tokens": tokens}, 0)
+    finally:
+        GC._quantize_dequantize = quantize
+    paths = ["/".join(map(str, p)) for p, _ in
+             leaves(stack_layers(cfg, state["params"]))]
+    assert len(paths) == len(seen)
+    res = {"mse": m["grad_compress_mse"].numpy(), **_flat(params, "p/")}
+    for path, (c, x, deq) in zip(paths, seen):
+        res.update({f"c/{path}": c.numpy(), f"x/{path}": x.numpy(),
+                    f"deq/{path}": deq.numpy()})
+    return res
+
+
+def _compressed_step_ranks(rank, out_dir, dp, tokens):
+    ctx = DistContext(device_mesh(Mesh((dp, 2), ("data", "model")), "cpu"))
+    res = _compressed_step(_moe_cfg(), ctx, tokens, out_dir / f"ck{rank}")
+    np.savez(out_dir / f"gc{rank}.npz", **res)
+
+
+def _reference_compression(want: dict) -> dict:
+    """The JAX package's ``compress_grads`` on the one-device trainer's
+    whole stacked compressor inputs (zero error feedback: the first
+    step's): each leaf's clip range, as the reference's quantizer is
+    given it, its reconstruction, and the grad_compress_mse."""
+    import jax
+    from repro.compression import GradCompressionConfig as JGradCfg
+    from repro.compression import grad_compression as JGC
+    from repro.compression import init_error_feedback as jinit_ef
+
+    xs = {k[2:]: v for k, v in want.items() if k.startswith("x/")}
+    ranges = {}
+    quantize = JGC.uniform.quantize_dequantize
+
+    def record(x, lo, hi, n_levels):
+        ranges[len(ranges)] = np.asarray(hi)
+        return quantize(x, lo, hi, n_levels)
+
+    JGC.uniform.quantize_dequantize = record
+    try:
+        cg, _, m = JGC.compress_grads(JGradCfg(n_levels=GC_LEVELS), xs,
+                                      jinit_ef(xs))
+    finally:
+        JGC.uniform.quantize_dequantize = quantize
+    # jax.tree visits a dict's keys sorted, as the ranges were recorded
+    order = jax.tree_util.tree_flatten_with_path(xs)[0]
+    ref = {"mse": np.asarray(m["grad_compress_mse"])}
+    for i, (kp, _) in enumerate(order):
+        path = kp[0].key
+        ref.update({f"c/{path}": ranges[i],
+                    f"deq/{path}": np.asarray(cg[path])})
+    return ref
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_grad_compression_under_tp_equals_the_one_device_trainer(tmp_path,
+                                                                 dp):
+    """dp x tp=2 with 4-bit gradient compression: each expert leaf's clip
+    range is the whole stack's (its statistics reduced over the tp
+    group), so clip ranges and grad_compress_mse agree within rtol 1e-6
+    (sums in another order) with the one-device trainer's on the same
+    global batch, and each rank's slice of the reconstructions within one
+    float32 unit at the range's scale (c * 2^-20: ranges a few units
+    apart) except where the compressor input sits at a bin edge (counted);
+    parameters within rtol 1e-5, atol 1e-6.  Against the JAX package's
+    ``compress_grads`` run on the whole stacked gradients: clip ranges
+    and grad_compress_mse within rtol 1e-5, the tolerance of
+    test_torch_train.py's comparison with it (its float32 ``jnp.std`` of a
+    2^18-element expert stack is up to 4.4e-6 from the float64 value,
+    while each rank's range is within rtol 1e-6 of that value, also
+    checked), and the reconstructions within one float32 unit at the
+    range's scale plus the two ranges' difference (a reconstruction moves
+    by at most that much with its range) except at bin edges."""
+    cfg = _moe_cfg()
+    tokens = np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    spawn(_compressed_step_ranks, 2 * dp, tmp_path, tmp_path, dp, tokens)
+    want = _compressed_step(cfg, None, tokens, tmp_path / "ck")
+    ref = _reference_compression(want)
+    assert len(ref) == 1 + 2 * sum(k.startswith("x/") for k in want)
+    at_edge = {"port": 0, "reference": 0}
+
+    def slice_of(arr, path, j, axis):
+        if not C.is_expert_leaf(path.split("/")):
+            return arr
+        n = arr.shape[axis] // 2
+        return np.take(arr, range(j * n, (j + 1) * n), axis=axis)
+
+    def same_deq(key, got, arr, c, x, who, apart=0.0):
+        s = (np.clip(x, -c, c) + c) * (GC_LEVELS - 1) / (2 * c)
+        edge = np.abs(s - np.floor(s) - 0.5) < 1e-4
+        close = np.abs(got.astype(np.float64) - arr) \
+            <= c * 2.0 ** -20 + apart
+        assert np.all(close | edge), \
+            f"{key} against the {who}: {np.sum(~close & ~edge)} values apart"
+        at_edge[who] += int(np.sum(~close & edge))
+
+    for rank in range(2 * dp):
+        got = dict(np.load(tmp_path / f"gc{rank}.npz"))
+        j = rank % 2
+        np.testing.assert_allclose(got["mse"], want["mse"], rtol=1e-6)
+        np.testing.assert_allclose(got["mse"], ref["mse"], rtol=1e-5)
+        for key, arr in want.items():
+            if key == "mse":
+                continue
+            kind, path = key.split("/", 1)
+            if kind == "c":
+                np.testing.assert_allclose(got[key], arr, rtol=1e-6,
+                                           err_msg=key)
+                np.testing.assert_allclose(got[key], ref[key], rtol=1e-5,
+                                           err_msg=key)
+                x = want[f"x/{path}"].astype(np.float64)
+                np.testing.assert_allclose(
+                    got[key], 4.0 * (x.std() + 1e-12), rtol=1e-6,
+                    err_msg=f"{key} against the float64 std")
+            elif kind == "p":
+                # stacked leaves (L, E, ...), the port's (E, ...)
+                np.testing.assert_allclose(got[key], slice_of(arr, path, j, 0),
+                                           rtol=1e-5, atol=ATOL["p"],
+                                           err_msg=key)
+            elif kind == "deq":
+                x = slice_of(want[f"x/{path}"], path, j, 1)
+                same_deq(key, got[key], slice_of(arr, path, j, 1),
+                         np.float64(want[f"c/{path}"]), x, "port")
+                c_ref = np.float64(ref[f"c/{path}"])
+                same_deq(key, got[key], slice_of(ref[key], path, j, 1),
+                         c_ref, x, "reference",
+                         abs(np.float64(got[f"c/{path}"]) - c_ref))
+    print(f"dp={dp} x tp=2: compressed values that differ at bin edges "
+          f"{at_edge}")
 
 
 # -- the trainer's checkpoints across tp sizes ---------------------------------------

@@ -196,11 +196,12 @@ def test_clip_quant_pack_refuses_what_does_not_fit(dev):
                                   backend="cuda"))
     assert not codec.packs_in_quantizer()
     with pytest.raises(ValueError, match="packs per-tensor specs"):
-        codec.quantize_packed_with_rate(x)
+        codec.quantize_packed_with_counts(x)
 
 
 def test_quantize_packed_with_rate_on_card(dev):
-    """The codec's packing pass against the two-launch path on the same
+    """The codec's packing pass (``quantize_packed_with_counts``, the
+    rate from its counts) against the two-launch path on the same
     boundary tensors: the bytes of ``pack(quantize(x))`` and its rate,
     exactly."""
     for n_levels in (2, 3, 4, 16):
@@ -211,7 +212,8 @@ def test_quantize_packed_with_rate_on_card(dev):
             x = _x(dev, int(np.prod(shape)),
                    dtype=torch.bfloat16).reshape(shape)
             idx, _, rate2 = codec.quantize_with_rate(x)
-            packed, rate = codec.quantize_packed_with_rate(x)
+            packed, counts = codec.quantize_packed_with_counts(x)
+            rate = codec.rate_from_counts(counts, shape)
             assert torch.equal(packed, codec.pack(idx.reshape(-1)))
             assert float(rate) == float(rate2)
 
@@ -959,7 +961,7 @@ def test_index_only_routes_write_no_reconstruction(dev):
 def test_plan_codec_rate_paths_count_in_the_quantizer(dev, shape):
     """A per-channel g=8 codec: ``quantize_with_rate`` and
     ``apply_with_rate`` launch #2 once and #5 never, and
-    ``quantize_packed_with_rate`` launches #2 once and #9 and #5 never;
+    ``quantize_packed_with_counts`` launches #2 once and #9 and #5 never;
     their rates equal the two-launch path's (quantize, then the tile
     histogram) exactly and the packed bytes are those of quantize, then
     pack; each quantizer stage is one device operation."""
@@ -976,7 +978,8 @@ def test_plan_codec_rate_paths_count_in_the_quantizer(dev, shape):
     before = dict(_build.LAUNCHES)
     deq, rate = codec.apply_with_rate(x)
     idx, none, rate2 = codec.quantize_with_rate(x)
-    packed, rate3 = codec.quantize_packed_with_rate(x)
+    packed, counts = codec.quantize_packed_with_counts(x)
+    rate3 = codec.rate_from_counts(counts, x.shape)
     assert _advanced(before, clip_quant_tiles=3, index_histogram_tiles=0,
                      pack_bits=0)
     assert torch.equal(deq, codec.apply(x)) and none is None
@@ -1070,7 +1073,7 @@ def test_ecsq_histograms_on_two_streams(dev):
 @pytest.mark.parametrize("shape", [(4, 1, 4096), (4, 64, 4096), (3, 5, 7)])
 def test_ecsq_codec_rate_paths_count_in_the_quantizer(dev, shape):
     """A per-tensor ECSQ N=4 codec: ``apply_with_rate``,
-    ``quantize_with_rate`` and ``quantize_packed_with_rate`` launch #7
+    ``quantize_with_rate`` and ``quantize_packed_with_counts`` launch #7
     once each and #4 and #9 never; their rates equal the two-launch
     path's (quantize, then the index histogram) exactly, the packed bytes
     those of quantize, then pack."""
@@ -1085,7 +1088,8 @@ def test_ecsq_codec_rate_paths_count_in_the_quantizer(dev, shape):
     before = dict(_build.LAUNCHES)
     deq, rate = codec.apply_with_rate(x)
     idx, none, rate2 = codec.quantize_with_rate(x)
-    packed, rate3 = codec.quantize_packed_with_rate(x)
+    packed, counts = codec.quantize_packed_with_counts(x)
+    rate3 = codec.rate_from_counts(counts, x.shape)
     assert _advanced(before, ecsq_assign=3, index_histogram=0, pack_bits=0)
     assert torch.equal(deq, codec.apply(x)) and none is None
     assert torch.equal(idx, codec.quantize(x))
@@ -1455,3 +1459,69 @@ def test_expert_parallel_on_two_ranks_on_the_card(dev, tmp_path):
         assert res["S8/out"] <= 1e-5 and res["S1/out"] <= 1e-5, res
         assert res["S1/g_x"] <= 1e-4, res
         assert res["S8/g_w1_finite"] and res["S1/g_w1_finite"]
+
+
+# -- the split runtime across ranks on the card ---------------------------------------
+
+def _split_card_rank(rank, out_dir):
+    """One of two ranks on cuda:0 over gloo (NCCL refuses two ranks on one
+    card) in a (pod, data, model) = (2, 1, 1) mesh: reduced codeqwen1.5-7b
+    (float32, 4 layers), the split step across ranks against the
+    one-process runtime on the card, ``raw`` and ``packed`` N=4."""
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models import DistContext
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = DistContext(device_mesh(Mesh((2, 1, 1), ("pod", "data", "model")),
+                                  "cuda"), ("data",))
+    cfg = dataclasses.replace(reduced(get_config("codeqwen1.5-7b"), layers=4),
+                              vocab_size=64)
+    codec = calibrate(CodecConfig(n_levels=4, clip_mode="manual",
+                                  manual_cmin=-8.0, manual_cmax=8.0,
+                                  backend="cuda"))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 64, (4, 4)), device=dev)
+    kw = dict(edge_device=dev, cloud_device=dev)
+    res = {}
+    for transport in ("raw", "packed"):
+        c = None if transport == "raw" else codec
+        runs = {}
+        for name, ctx_ in (("ranks", ctx), ("one", None)):
+            step = split_runtime.make_split_decode_step(
+                cfg, c, transport=transport, ctx=ctx_, **kw)
+            sp = split_runtime.split_params(cfg, params, ctx=ctx_, **kw)
+            caches = split_runtime.init_split_cache(cfg, 4, 8, ctx=ctx_, **kw)
+            _build.reset_launches()
+            out = [step(sp, tokens[pos], caches, pos) for pos in range(4)]
+            torch.cuda.synchronize()
+            runs[name] = ([o[0].cpu() for o in out],
+                          [float(o[2]) for o in out], dict(_build.LAUNCHES))
+        res[f"{transport}/logits_equal"] = all(
+            torch.equal(a, b) for a, b in zip(runs["ranks"][0],
+                                              runs["one"][0]))
+        res[f"{transport}/rates_equal"] = runs["ranks"][1] == runs["one"][1]
+        res[f"{transport}/launches"] = {k: v for k, v in
+                                        runs["ranks"][2].items() if v}
+    res["stage"] = "edge" if ctx.pod_rank == 0 else "cloud"
+    np.save(out_dir / f"split{rank}.npy", res, allow_pickle=True)
+
+
+@pytest.mark.timeout(300)
+def test_split_across_ranks_on_the_card(dev, tmp_path):
+    """The (2, 1, 1) split step across two ranks on the card: logits and
+    rates identical in every bit to the one-process runtime's on the
+    card; the edge rank launches the per-tensor quantizer (packing in its
+    launch) once a packed step, the cloud rank no kernel."""
+    from test_torch_context import spawn
+    spawn(_split_card_rank, 2, tmp_path, tmp_path)
+    for rank in range(2):
+        res = np.load(tmp_path / f"split{rank}.npy", allow_pickle=True).item()
+        for transport in ("raw", "packed"):
+            assert res[f"{transport}/logits_equal"], (rank, transport)
+            assert res[f"{transport}/rates_equal"], (rank, transport)
+        assert res["raw/launches"] == {}
+        assert res["packed/launches"] == (
+            {"clip_quant": 4} if res["stage"] == "edge" else {}), res

@@ -173,7 +173,7 @@ def _codec_pair(n_levels, samples):
 @pytest.mark.parametrize("n_levels", LEVELS)
 def test_codec_rates_match_reference(n_levels):
     """``quantize_with_rate``, ``apply_with_rate`` and, at a 1/2/4-bit
-    width, ``quantize_packed_with_rate`` of a per-tensor ECSQ codec count
+    width, ``quantize_packed_with_counts`` of a per-tensor ECSQ codec count
     in the quantizer's pass: the reference's indices, reconstruction,
     bins and bytes; the rate equal to ``rate_from_indices`` exactly and to
     the reference's within rel 1e-5."""
@@ -200,7 +200,8 @@ def test_codec_rates_match_reference(n_levels):
     assert float(rate) == pytest.approx(jrate, rel=1e-5)
     assert tc.packs_in_quantizer() == (n_levels <= 16)
     if n_levels <= 16:
-        packed, rate3 = tc.quantize_packed_with_rate(tx)
+        packed, counts = tc.quantize_packed_with_counts(tx)
+        rate3 = tc.rate_from_counts(counts, x.shape)
         assert np.array_equal(packed.numpy(),
                               np.asarray(jc.pack(jidx.reshape(-1))))
         assert float(rate3) == two_pass

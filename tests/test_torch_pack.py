@@ -3,7 +3,7 @@
 codec's pack/unpack), and the per-tensor quantizer that packs its own
 indices (kernel #1's packing variant: ``fused_clip_quant.clip_quant_pack``,
 the backends' ``quantize_packed_with_histogram`` and the codec's
-``quantize_packed_with_rate``).
+``quantize_packed_with_counts``).
 
 The reference's quantizer and pack run their Pallas kernels in interpret
 mode.  Inputs come from numpy with a seed; bytes, indices and bins are
@@ -156,7 +156,8 @@ def test_quantize_packed_with_rate_matches_reference(n_levels, dtype, n):
     if dtype == "float32":
         assert np.array_equal(np.asarray(jidx_jnp), np.asarray(jidx))
     assert tc.packs_in_quantizer()
-    packed, rate = tc.quantize_packed_with_rate(tx)
+    packed, counts = tc.quantize_packed_with_counts(tx)
+    rate = tc.rate_from_counts(counts, tx.shape)
     assert packed.dtype == torch.uint8
     assert np.array_equal(packed.numpy(), np.asarray(jc.pack(jidx_jnp)))
     _, _, two_pass = tc.quantize_with_rate(tx)
@@ -196,7 +197,7 @@ def test_quantize_packed_refuses_other_codecs(kind):
     codec, x = _unpacking_codec(kind)
     assert not codec.packs_in_quantizer()
     with pytest.raises(ValueError, match="packs per-tensor specs"):
-        codec.quantize_packed_with_rate(x)
+        codec.quantize_packed_with_counts(x)
     with pytest.raises(ValueError, match="packs per-tensor specs"):
         codec.backend.quantize_packed_with_histogram(x, codec.spec(), 2)
 

@@ -310,7 +310,7 @@ def _codec_pair(group, n_levels, shape):
 @pytest.mark.parametrize("group", [8, 64, 3])
 def test_codec_rates_match_reference(group, n_levels):
     """``quantize_with_rate`` and, where the codec packs in its quantizer
-    (groups of 8-256), ``quantize_packed_with_rate`` on a per-channel
+    (groups of 8-256), ``quantize_packed_with_counts`` on a per-channel
     codec: the indices, counts and bytes of the reference's quantize,
     tile histogram and pack; the rate equal to the port's two-pass rate
     exactly and to the reference's within rel 1e-5."""
@@ -334,7 +334,8 @@ def test_codec_rates_match_reference(group, n_levels):
     assert float(rate) == pytest.approx(float(jrate), rel=1e-5)
     assert tc.packs_in_quantizer() == fast
     if fast:
-        packed, prate = tc.quantize_packed_with_rate(tx)
+        packed, counts = tc.quantize_packed_with_counts(tx)
+        prate = tc.rate_from_counts(counts, shape)
         assert np.array_equal(packed.numpy(), np.asarray(
             jc.pack(jidx.reshape(-1))))
         assert float(prate) == float(two_pass)

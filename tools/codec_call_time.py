@@ -14,8 +14,8 @@ g=8 N=4 codec calibrated by min/max on seeded samples -- runs (c) and
 * ``FeatureCodec.apply_with_rate`` -- the ``codec=`` serving hookup
   (quantize, reconstruction, rate estimate);
 * the packed split runtime's crossing -- quantize, pack, move, unpack,
-  dequantize and the rate -- taken from the closure of the step
-  ``make_split_decode_step`` returns, so each copy runs its own.
+  dequantize and the rate -- made of the copy's own split runtime
+  (:func:`crossing`), so each copy runs its own.
 
 With a per-channel ECSQ g=8 N=4 codec on the same samples -- run (f) --
 ``FeatureCodec.encode_stream(x, chunk_elems=65536,
@@ -49,6 +49,26 @@ import numpy as np
 import torch
 
 REPS, TRIALS = 200, 7
+
+
+def crossing(SR, cfg, codec, dev):
+    """``y -> (dequantized input, rate)``: the packed one-process split
+    step's crossing in the copy ``SR`` (its split_runtime module) -- the
+    ends of the crossing (``_boundary``) joined by the step's ``.to``,
+    or, in a copy from before the step was cut into halves, the
+    ``cross`` closure of the step."""
+    if not hasattr(SR, "_boundary"):
+        step = SR.make_split_decode_step(cfg, codec, transport="packed",
+                                         edge_device=dev, cloud_device=dev)
+        return inspect.getclosurevars(inspect.unwrap(step)).nonlocals["cross"]
+    send, receive = SR._boundary(cfg, codec, "packed")
+
+    def cross(y):
+        wire, counts = send(y)
+        rate = codec.rate_from_counts(counts, y.shape)
+        return receive(wire.to(dev), y.shape), rate
+
+    return cross
 
 
 def wall_ms(fn) -> float:
@@ -119,13 +139,9 @@ def main() -> int:
         "ecsq channel": calibrate(CodecConfig(n_levels=4, use_ecsq=True,
                                               ecsq_lagrangian=0.05,
                                               **channel), samples)}
-    crossings = {}
-    for kind in ("tensor", "channel"):
-        step = SR.make_split_decode_step(get_config("codeqwen1.5-7b"),
-                                         codecs[kind], transport="packed",
-                                         edge_device=dev, cloud_device=dev)
-        crossings[kind] = inspect.getclosurevars(
-            inspect.unwrap(step)).nonlocals["cross"]
+    crossings = {kind: crossing(SR, get_config("codeqwen1.5-7b"),
+                                codecs[kind], dev)
+                 for kind in ("tensor", "channel")}
     gen = torch.Generator(device=dev).manual_seed(0)
     label = args.label or args.src
     out = {}
