@@ -192,7 +192,13 @@ Phases, in order; any failure raises and exits non-zero:
    sequences, 8 decode steps, a per-tensor N=4 codec calibrated in
    "model" mode: ``raw`` equal to the unsplit decode step rounded
    through bfloat16, ``packed`` launching the per-tensor quantizer once
-   a step and never the pack kernel or a histogram.  (ac) ``python -m
+   a step and never the pack kernel or a histogram.  (ag)
+   ``ServeEngine(ctx=...)`` with its 4 slots split over a data axis of
+   two gloo ranks on this card, codeqwen1.5-7b at published width cut
+   to 2 of its 32 layers, 8 ragged requests (epochs and refills), a
+   per-tensor N=4 ``codec=``: tokens, ``rate_log``, counters and
+   retirements equal the one-rank engine's on both ranks; ms per decode
+   step on each rank beside one rank's.  (ac) ``python -m
    torch.distributed.run --standalone --nproc_per_node 1 -m
    repro_torch.launch.train --distributed --arch gemma3-1b --steps 2
    --device cuda`` in a subprocess: NCCL, a world of one.
@@ -213,18 +219,44 @@ Phases, in order; any failure raises and exits non-zero:
    tokens, 2 sequences, 8 steps; the two ``model`` ranks of each stage
    identical in every bit (payloads, logits), the logits within 2^-5 of
    the largest of (ab)'s one-process run's, the launches as in (ad).
+   (af) codeqwen1.5-7b at published width cut to 2 + 2 layers, (2, 2,
+   1), four ranks: ``packed`` with a tiled codec whose tiles span rows
+   (N=4, 8 channels x 2 rows a tile, calibrated by min/max on the first
+   step's boundary), 4 sequences, 16 steps; the edge ranks gather their
+   rows and quantize the whole batch's tiles: every rank's logits and
+   rates and both edge ranks' payloads identical in every bit to the
+   one-process runtime's on the same weights, codec and tokens, each
+   edge rank launching what the one-process run launched, each cloud
+   rank nothing.
    Printed: ms per step (median) split into edge stage, crossing (the
    edge's stage done until the cloud holds the payload on the card, host
    staging included), cloud stage and return path, from the step's
    tracing spans (a device sync at each span's ends, then the host
    clock, which the processes share), beside (h)'s one-process ms per
    step; link bytes per step each way; peak device memory per rank.
+12. examples -- the four examples (``repro_torch.examples``) as
+   subprocesses at the reference scripts' settings, six runs at once:
+   ``quickstart`` (its lines equal its ``--device cpu`` run's),
+   ``split_inference`` (its table of 8 rows; the per-tensor and the
+   per-tile quantizer launch), ``train_with_compression`` (the resumed
+   run's losses equal the uninterrupted run's, bit for bit), and
+   ``edge_cloud_demo --smoke`` and ``--smoke --tls --secret s3kr1t``
+   (the OK line); each exits 0.  (ah) the demo's ``run_cloud`` and
+   ``run_edge`` as two processes on this card, codeqwen1.5-7b at
+   published width cut to 4 layers, batch 4 x seq 32, 3 sessions, N=8
+   per channel group of 8: the demo's own checks (reconstruction
+   bit-exact with the in-process round trip, tail logits within rtol =
+   atol = 1e-4), and the edge's stream encode launches the encode
+   megakernel and the device rANS step loop.  Printed: bits/element per
+   session, the sessions' wall time, each process's launches.
 
 The line before the last is the per-kernel JSON record (each kernel's
 numbers per size under ``sizes``, with its launches per run at that
 size, its launches in phase 6 under ``eval_launches``, in (w) under
-``train_launches`` and on each rank of phase 11's runs under
-``split_ranks_launches``, and its port status); the last line is
+``train_launches``, on each rank of phase 11's runs under
+``split_ranks_launches``, on each rank of (ag) under
+``dp_engine_launches``, in each process of phase 12 that counts them
+under ``example_launches``, and its port status); the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -1697,8 +1729,8 @@ def link_counted(codec, sent: list, rated: list, payloads: list):
     """``codec`` with the bytes of each payload it sends appended to
     ``sent`` -- the int32 indices, or the packed bytes that replace them,
     whether the quantizer packed them or the pack kernel did -- each
-    boundary with its rate to ``rated``, and each packed payload the
-    quantizer made to ``payloads``."""
+    boundary with its rate to ``rated``, and each packed payload, the
+    quantizer's or the pack kernel's, to ``payloads``."""
     import dataclasses
 
     class Counted(type(codec)):
@@ -1718,6 +1750,7 @@ def link_counted(codec, sent: list, rated: list, payloads: list):
         def pack(self, idx):
             out = super().pack(idx)
             sent[-1] = out.numel() * out.element_size()
+            payloads.append(out.clone())
             return out
 
     return Counted(**{f.name: getattr(codec, f.name)
@@ -1869,8 +1902,8 @@ def split_phase(cfg, params, dev) -> tuple[dict, dict]:
         check(packs == (steps if transport == "packed" and not fused
                         else 0),
               f"({run_id}) pack_bits launched {packs} times")
-        check(len(payloads) == (steps if fused else 0),
-              f"({run_id}) the quantizer packed {len(payloads)} payloads")
+        check(len(payloads) == (steps if transport == "packed" else 0),
+              f"({run_id}) {len(payloads)} packed payloads recorded")
         if kind is not None:
             same_rates(f"({run_id})", codecs[kind], rated, steps)
         for (x, _), packed in zip(rated, payloads):
@@ -1927,12 +1960,11 @@ def loopback_serve(cfg, params, codecs, served) -> dict:
     session for every crossing.  Returns the run's launch counts."""
     from repro_torch.kernels import _build
     from repro_torch.launch import serve as S
+    from repro_torch.serving.batcher import device_entropy
     seen_b = served["seen"]["b"][:NEW_TOKENS]     # (b)'s timed run
     run_kw = served["run_kw"]
     rates, calls = [], [0]
-    prev = os.environ.get("REPRO_ENTROPY_DEVICE")
-    os.environ["REPRO_ENTROPY_DEVICE"] = "1"
-    try:
+    with device_entropy():
         host_fn, cleanup = S._loopback_codec_fn(codecs["tensor"], CHUNK)
 
         def counted(x):
@@ -1955,11 +1987,6 @@ def loopback_serve(cfg, params, codecs, served) -> dict:
                 cfg, params, codec_host_fn=counted, **run_kw))
         finally:
             link = cleanup()
-    finally:
-        if prev is None:
-            del os.environ["REPRO_ENTROPY_DEVICE"]
-        else:
-            os.environ["REPRO_ENTROPY_DEVICE"] = prev
     _check_retired(reqs)
     check([list(r.out_tokens) for r in reqs] == served["tokens"]["b"],
           "(q) tokens differ from (b)'s")
@@ -2929,13 +2956,13 @@ def engine_run(cfg, params, prompts, dev, ctx=None) -> dict:
     logits = []
     prefill, decode = eng._prefill, eng._decode
 
-    def rec_prefill(p, t, c):
-        lg, c = prefill(p, t, c)
+    def rec_prefill(p, t, c, *, split):
+        lg, c = prefill(p, t, c, split=split)
         logits.append(lg.float().cpu())
         return lg, c
 
-    def rec_decode(p, t, c, pos):
-        lg, c, aux = decode(p, t, c, pos)
+    def rec_decode(p, t, c, pos, *, split):
+        lg, c, aux = decode(p, t, c, pos, split=split)
         logits.append(lg.float().cpu())
         return lg, c, aux
 
@@ -3197,15 +3224,14 @@ def train_cli_distributed() -> None:
           f"({time.perf_counter() - t0:.1f} s)")
 
 
-def distributed_phase(smi: str, dev) -> dict:
+def distributed_phase(smi: str, dev) -> tuple[dict, list]:
     """Phase 10: (aa) expert parallelism on two ranks on the one card,
     (ab) the packed split runtime on qwen3-moe-235b-a22b and rwkv6-3b,
-    (ac) the training CLI under torchrun.  Returns (ab)'s packed run on
-    qwen3-moe-235b-a22b."""
+    (ag) the engine's slots over two dp ranks, (ac) the training CLI
+    under torchrun.  Returns (ab)'s packed run on qwen3-moe-235b-a22b and
+    (ag)'s launches per rank."""
     import gc
     import tempfile
-
-    import torch.multiprocessing as mp
 
     from repro_torch.models import init_params
 
@@ -3227,19 +3253,8 @@ def distributed_phase(smi: str, dev) -> dict:
     # card ("Duplicate GPU detected"); gloo stages the card's tensors
     # through the host, so the collective times are not a link's
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        ctx = mp.start_processes(
-            ep_rank, args=(os.path.join(tmp, "pg"), tmp), nprocs=2,
-            join=False, start_method="spawn")
-        deadline = time.monotonic() + EP_TIMEOUT_S
-        try:
-            while not ctx.join(timeout=5):
-                check(time.monotonic() < deadline,
-                      f"(aa) the ranks did not finish in {EP_TIMEOUT_S} s")
-        finally:
-            for proc in ctx.processes:
-                if proc.is_alive():
-                    proc.kill()
-                proc.join(30)
+        spawned(ep_rank, 2, (os.path.join(tmp, "pg"), tmp), "aa",
+                EP_TIMEOUT_S)
         ranks = []
         for r in range(2):
             with open(os.path.join(tmp, f"ep_rank{r}.json")) as f:
@@ -3313,10 +3328,155 @@ def distributed_phase(smi: str, dev) -> dict:
     family_split(*SPLIT_FAMILIES[1], dev)
     gc.collect()
     torch.cuda.empty_cache()
+    # (ag) the engine's slots over a data axis of two ranks
+    dp_launches = dp_engine_phase(smi, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
     # (ac)
     train_cli_distributed()
     print(f"distributed phase: {time.perf_counter() - t0:.1f} s wall")
-    return moe_split
+    return moe_split, dp_launches
+
+
+# (ag): codeqwen1.5-7b at published width cut to 2 layers (the codec's
+# boundary after the first), 4 slots, 8 ragged requests (prompt length,
+# new tokens): epochs and mid-epoch refills
+DP_LAYERS, DP_SLOTS, DP_MAX_SEQ = 2, 4, 64
+DP_REQUESTS = ((24, 6), (16, 10), (32, 4), (20, 8), (12, 6), (28, 5),
+               (16, 9), (8, 7))
+
+
+def dp_engine_run(cfg, params, codec, dev, ctx=None) -> dict:
+    """``ServeEngine(codec=)`` on DP_REQUESTS (seeded prompts), each step
+    timed between device syncs: tokens, ``rate_log``, counters (latency
+    percentiles aside), retirements, the median ms of a decode step and
+    the launches."""
+    from repro_torch.kernels import _build
+    from repro_torch.serving import Request, ServeEngine
+
+    eng = ServeEngine(cfg, params, slots=DP_SLOTS, max_seq=DP_MAX_SEQ,
+                      ctx=ctx, codec=codec, device=dev)
+    rng = np.random.default_rng(9)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, p)
+                    .astype(np.int32), max_new_tokens=n)
+            for p, n in DP_REQUESTS]
+    decode_ms = []
+    run = eng._run
+
+    def timed(fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(fn, *args)
+        torch.cuda.synchronize()
+        if fn is eng._decode:
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng._run = timed
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    eng.generate(reqs)
+    return {"tokens": [r.out_tokens for r in reqs],
+            "rate_log": [float(r) for r in eng.rate_log],
+            "counters": {k: v for k, v in eng.counters.items()
+                         if "latency" not in k},
+            "retired": [[d["slot"], d["prompt_len"], d["new_tokens"]]
+                        for d in eng.latency_log],
+            "decode_ms": statistics.median(decode_ms),
+            "decode_steps": len(decode_ms),
+            "s": time.perf_counter() - t0,
+            "launches": dict(_build.LAUNCHES)}
+
+
+def dp_rank(rank: int, init: str, out_dir: str, codec) -> None:
+    """One of (ag)'s two ranks on cuda:0, a (data, model) = (2, 1) mesh
+    over gloo: the whole model from seed 0, the engine on its block of
+    the slots."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models import DistContext, init_params
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=2,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        ctx = DistContext(device_mesh(Mesh((2, 1), ("data", "model")),
+                                      "cuda"), ("data",))
+        cfg = dataclasses.replace(get_config("codeqwen1.5-7b"),
+                                  num_layers=DP_LAYERS)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             device=dev)
+        out = {"rank": rank, "dp_rank": ctx.dp_rank,
+               **dp_engine_run(cfg, params, codec, dev, ctx)}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dp_engine_phase(smi: str, dev) -> list[dict]:
+    """(ag): ``ServeEngine(ctx=)`` with its slots split over a data axis
+    of two gloo ranks on this card, a per-tensor N=4 ``codec=``
+    (calibrated in "model" mode from a warm-up batch): tokens,
+    ``rate_log``, counters and retirements equal the one-rank engine's
+    on both ranks.  Returns each rank's launch counts."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import CodecConfig, calibrate
+    from repro_torch.launch import serve as S
+    from repro_torch.models import init_params
+
+    cfg = dataclasses.replace(get_config("codeqwen1.5-7b"),
+                              num_layers=DP_LAYERS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    codec = calibrate(CodecConfig(
+        n_levels=N_SERVE, clip_mode="model", constrain_cmin_zero=False,
+        backend="cuda"), samples=S.warmup_samples(
+            cfg, params, batches=1, seq_len=32, device=dev).reshape(-1))
+    dp_engine_run(cfg, params, codec, dev)          # warm-up
+    one = dp_engine_run(cfg, params, codec, dev)
+    del params
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        spawned(dp_rank, 2, (os.path.join(tmp, "pg-ag"), tmp, codec), "ag")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"dp_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    for r in ranks:
+        for key in ("tokens", "rate_log", "counters", "retired"):
+            check(r[key] == one[key], f"(ag) rank {r['rank']}: {key} "
+                  "differ from the one-rank engine's")
+    check(one["counters"]["refills"] > 0 and len(one["rate_log"]) > 0,
+          f"(ag) counters {one['counters']}")
+    print(f"(ag) ServeEngine(ctx=...) on a data axis of 2 (two gloo ranks on "
+          f"one card, logits and index counts gathered through the host), "
+          f"codeqwen1.5-7b at published width, {DP_LAYERS} layers, "
+          f"{DP_SLOTS} slots, {len(DP_REQUESTS)} requests, per-tensor N="
+          f"{N_SERVE} codec=: tokens, rate_log ({len(one['rate_log'])} "
+          f"steps), counters and retirements equal to the one-rank engine's "
+          f"on both ranks ({one['counters']['epochs']} epochs, "
+          f"{one['counters']['refills']} refills); ms per decode step "
+          f"(median over {one['decode_steps']}): rank 0 "
+          f"{ranks[0]['decode_ms']:.3f}, rank 1 {ranks[1]['decode_ms']:.3f} "
+          f"(one rank {one['decode_ms']:.3f}); engine s: "
+          f"{ranks[0]['s']:.2f} / {ranks[1]['s']:.2f} (one rank "
+          f"{one['s']:.2f}); launches a rank: " + json.dumps(
+              {k: v for k, v in ranks[0]['launches'].items() if v})
+          + f" (one rank: "
+          + json.dumps({k: v for k, v in one['launches'].items() if v})
+          + f"); {smi}")
+    return [r["launches"] for r in ranks]
 
 
 # -- phase 11: the split runtime across ranks ------------------------------------
@@ -3427,25 +3587,33 @@ def split_rank(rank: int, world: int, init: str, out_dir: str,
         json.dump(out, f)
 
 
-def spawn_split_ranks(world: int, job: dict, tmp: str) -> list[dict]:
-    """Run ``job`` on ``world`` ranks (:func:`split_rank`) with a deadline;
-    each rank's record, with each run's logits and payloads."""
+def spawned(fn, nprocs: int, args: tuple, label: str,
+            timeout_s: float = RANKS_TIMEOUT_S) -> None:
+    """Run ``fn(i, *args)`` in ``nprocs`` spawned processes; fails if one
+    raises or they are not done within ``timeout_s``, and leaves none
+    running."""
     import torch.multiprocessing as mp
 
-    first = job["runs"][0][0]
-    pc = mp.start_processes(
-        split_rank, args=(world, os.path.join(tmp, f"pg-{first}"), tmp, job),
-        nprocs=world, join=False, start_method="spawn")
-    deadline = time.monotonic() + RANKS_TIMEOUT_S
+    pc = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                            start_method="spawn")
+    deadline = time.monotonic() + timeout_s
     try:
         while not pc.join(timeout=5):
             check(time.monotonic() < deadline,
-                  f"({first}) the ranks did not finish in {RANKS_TIMEOUT_S} s")
+                  f"({label}) the processes did not finish in {timeout_s} s")
     finally:
         for proc in pc.processes:
             if proc.is_alive():
                 proc.kill()
             proc.join(30)
+
+
+def spawn_split_ranks(world: int, job: dict, tmp: str) -> list[dict]:
+    """Run ``job`` on ``world`` ranks (:func:`split_rank`) with a deadline;
+    each rank's record, with each run's logits and payloads."""
+    first = job["runs"][0][0]
+    spawned(split_rank, world,
+            (world, os.path.join(tmp, f"pg-{first}"), tmp, job), first)
     ranks = []
     for r in range(world):
         with open(os.path.join(tmp, f"{first}_rank{r}.json")) as f:
@@ -3475,14 +3643,12 @@ def link_bytes(cfg, codec, transport: str, batch: int) -> tuple[int, int]:
             2 * batch * cfg.vocab_size)
 
 
-def ranked_launches(label: str, ranks: list, steps: int, quantizes: bool):
-    """Gate: each edge rank launches the per-tensor quantizer (packing in
-    its launch) once a step when ``quantizes`` and no other kernel; each
-    cloud rank no kernel at all."""
+def ranked_launches(label: str, ranks: list, edge: dict):
+    """Gate: each edge rank launches the kernels of ``edge`` (name ->
+    launches) and no other; each cloud rank no kernel at all."""
     for r in ranks:
         got = {k: v for k, v in r[label]["launches"].items() if v}
-        want = {"clip_quant": steps} if quantizes and r["stage"] == "edge" \
-            else {}
+        want = edge if r["stage"] == "edge" else {}
         check(got == want, f"({label}) rank {r['rank']} ({r['stage']}) "
               f"launched {got}, want {want}")
 
@@ -3539,7 +3705,8 @@ def ranks_phase(smi: str, dev, ranks_ref: dict, moe_split: dict) -> dict:
                 f"({label}) payload bytes differ from (h)'s")
             check(ad[0][label]["rates"] == want["rates"],
                   f"({label}) rates differ from (h)'s")
-        ranked_launches(label, ad, steps_ad, quantizes)
+        ranked_launches(label, ad,
+                        {"clip_quant": steps_ad} if quantizes else {})
         parts = step_parts(ad[0][label]["steps"], ad[1][label]["steps"])
         fwd, back = link_bytes(ad_cfg, want["codec"], label[3:], REQUESTS)
         print(f"({label}) codeqwen1.5-7b 16 + 16 layers on (pod, data, "
@@ -3570,7 +3737,7 @@ def ranks_phase(smi: str, dev, ranks_ref: dict, moe_split: dict) -> dict:
         torch.equal(a, b) for a, b in zip(ae[0][label]["payloads"],
                                            ae[1][label]["payloads"])),
         "(ae) the edge's two model ranks sent different payloads")
-    ranked_launches(label, ae, steps_ae, True)
+    ranked_launches(label, ae, {"clip_quant": steps_ae})
     want = moe_split["logits"]
     got = ae[0][label]["logits"]
     diff = float((got - want).abs().max())
@@ -3592,10 +3759,326 @@ def ranks_phase(smi: str, dev, ranks_ref: dict, moe_split: dict) -> dict:
               f"{r['peak_bytes'] / 1e9:.2f}" for r in
               (x[label] for x in ae)) + " GB (parameters " + ", ".join(
               f"{r['param_bytes'] / 1e9:.2f}" for r in ae) + " GB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    af = tiles_ranks_run(smi, dev)
     print(f"split-across-ranks phase: {time.perf_counter() - t0:.1f} s wall")
-    return {lbl: [r[lbl]["launches"] for r in ranks]
-            for ranks, lbls in ((ad, ("ad-raw", "ad-packed")),
-                                (ae, ("ae-packed",))) for lbl in lbls}
+    return {**{lbl: [r[lbl]["launches"] for r in ranks]
+               for ranks, lbls in ((ad, ("ad-raw", "ad-packed")),
+                                   (ae, ("ae-packed",))) for lbl in lbls},
+            "af-packed": af}
+
+
+AF_LAYERS = 4           # codeqwen1.5-7b's 32 layers cut to 2 + 2
+AF_MESH = (2, 2, 1)     # (pod, data, model): two edge and two cloud ranks
+AF_SBLOCK = 2           # rows per tile: a tile spans rows of both stages
+
+
+def tiles_ranks_run(smi: str, dev) -> list[dict]:
+    """(af): the packed split runtime across four ranks on this card,
+    (pod, data, model) = (2, 2, 1), with a tiled codec whose tiles span
+    rows (N=4, ranges per GROUP channels x AF_SBLOCK of the boundary's
+    rows, calibrated by min/max on the first step's (REQUESTS, 1, 4096)
+    boundary), on codeqwen1.5-7b at published width cut to 2 + 2 layers:
+    the edge ranks gather their rows and quantize the whole batch's
+    tiles.  Gates: every rank's logits, the edge ranks' packed payloads
+    and every rank's rates identical in every bit to the one-process
+    runtime's on the same weights, codec and tokens; each edge rank
+    launches the kernels the one-process run launched, each cloud rank
+    none.  Returns each rank's launch counts."""
+    import gc
+    import tempfile
+
+    from repro_torch.compression import split_runtime as SR
+    from repro_torch.configs import get_config
+    from repro_torch.core import CodecConfig, calibrate
+    from repro_torch.kernels import _build
+
+    cfg = dataclasses.replace(get_config("codeqwen1.5-7b"),
+                              num_layers=AF_LAYERS)
+    kw = dict(edge_device=dev, cloud_device=dev)
+    sp = SR.init_split_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              **kw)
+    prompt = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (REQUESTS, SPLIT_PROMPT)), device=dev)
+    edge_part = SR._stage_parts(cfg, None, "raw", None)[0]
+    with torch.inference_mode():
+        y, _ = edge_part(sp["edge"], prompt[:, 0], SR.init_split_cache(
+            cfg, REQUESTS, SPLIT_MAX_SEQ, **kw)[0], 0)
+    codec = calibrate(CodecConfig(
+        n_levels=4, granularity="tile", channel_axis=-1,
+        channel_group_size=GROUP, spatial_block_size=AF_SBLOCK,
+        clip_mode="minmax", backend="cuda"),
+        samples=y.to(torch.float32).cpu().numpy())
+    check(codec.tiles_span_rows() and SR.gathers_rows(codec, "packed"),
+          "(af) the codec's tiles must span rows")
+    sent, rated, payloads = [], [], []
+    step = SR.make_split_decode_step(
+        cfg, link_counted(codec, sent, rated, payloads), transport="packed",
+        **kw)
+    _build.reset_launches()
+    logits, toks, _, dt = split_decode(
+        step, sp, SR.init_split_cache(cfg, REQUESTS, SPLIT_MAX_SEQ, **kw),
+        prompt)
+    one = {k: v for k, v in _build.LAUNCHES.items() if v}
+    inputs = fed_tokens(prompt, toks).cpu()
+    steps = inputs.shape[0]
+    rates = [float(r) for _, r in rated]
+    one_parts = one_process_parts(cfg, codec, sp, inputs.to(dev), dev)
+    logits, payloads = logits.cpu(), [p.cpu() for p in payloads]
+    del sp, step, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        ranks = spawn_split_ranks(4, {
+            "arch": "codeqwen1.5-7b", "overrides": {"num_layers": AF_LAYERS},
+            "mesh": AF_MESH, "in_turn": False, "max_seq": SPLIT_MAX_SEQ,
+            "runs": [("af-packed", "packed", codec, inputs)]}, tmp)
+    label = "af-packed"
+    check([r["stage"] for r in ranks] == ["edge", "edge", "cloud", "cloud"],
+          "(af) stages")
+    for r in ranks:
+        check(torch.equal(r[label]["logits"], logits),
+              f"(af) rank {r['rank']}: logits differ from the one-process "
+              f"run's (largest difference "
+              f"{float((r[label]['logits'] - logits).abs().max())})")
+        check(r[label]["rates"] == rates,
+              f"(af) rank {r['rank']}: rates {r[label]['rates'][:3]}... "
+              f"differ from the one-process run's {rates[:3]}...")
+    for r in ranks[:2]:
+        got = r[label]["payloads"]
+        check(len(got) == steps and all(
+            torch.equal(a, b) for a, b in zip(got, payloads)),
+            f"(af) edge rank {r['rank']}: payload bytes differ from the "
+            "one-process run's")
+    ranked_launches(label, ranks, one)
+    parts = step_parts(ranks[0][label]["steps"], ranks[2][label]["steps"])
+    fwd, back = link_bytes(cfg, codec, "packed", REQUESTS)
+    check(fwd == payloads[0].numel() + 4, f"(af) payload_bytes {fwd} against "
+          f"{payloads[0].numel()} packed bytes and the rate")
+    print(f"(af) codeqwen1.5-7b at published width, {AF_LAYERS // 2} + "
+          f"{AF_LAYERS // 2} layers, on (pod, data, model) = {AF_MESH}, a "
+          f"packed tiled codec whose tiles span rows (N=4, {GROUP} channels "
+          f"x {AF_SBLOCK} rows a tile, {codec.plan.n_tiles} tiles), "
+          f"{REQUESTS} sequences, {steps} steps: every rank's logits and "
+          f"rates and both edge ranks' payload bytes identical in every bit "
+          f"to the one-process runtime's ({dt / steps * 1e3:.1f} ms a step "
+          f"there); each edge rank launched {one}, each cloud rank nothing; "
+          f"ms per step (median): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in parts.items())
+          + " (one process: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in one_parts.items())
+          + f"); link bytes per step {fwd} edge to cloud (the whole batch's "
+          f"payload to each cloud rank), {back} back; peak device memory "
+          "per rank " + ", ".join(
+              f"{r[label]['peak_bytes'] / 1e9:.2f}" for r in ranks)
+          + f" GB; {smi}")
+    return [r[label]["launches"] for r in ranks]
+
+
+# -- phase 12: the examples on the card ------------------------------------------
+
+EXAMPLES_TIMEOUT_S = 600
+# runs a module of repro_torch.examples as ``python -m`` does, through its
+# ``main(argv)`` (argv: its name, the JSON file its results go to, its
+# flags), and writes what ``main`` returned and the process's launch
+# counts when it ends, whatever its exit status
+EXAMPLE_RUNNER = (
+    "import importlib, json, sys\n"
+    "name, out = sys.argv[1], sys.argv[2]\n"
+    "sys.argv = [name] + sys.argv[3:]\n"
+    "from repro_torch.kernels import _build\n"
+    "result = None\n"
+    "try:\n"
+    "    result = importlib.import_module(\n"
+    "        'repro_torch.examples.' + name).main(sys.argv[1:])\n"
+    "finally:\n"
+    "    with open(out, 'w') as f:\n"
+    "        json.dump({'launches': dict(_build.LAUNCHES),\n"
+    "                   'result': result}, f)\n")
+# label -> (example, flags); run at the reference's settings, at once
+EXAMPLE_RUNS = {
+    "quickstart": ("quickstart", []),
+    "quickstart-cpu": ("quickstart", ["--device", "cpu"]),
+    "split_inference": ("split_inference", []),
+    "train_with_compression": ("train_with_compression", []),
+    "demo-smoke": ("edge_cloud_demo", ["--smoke"]),
+    "demo-tls": ("edge_cloud_demo", ["--smoke", "--tls", "--secret",
+                                     "s3kr1t"]),
+}
+# (ah): the demo at codeqwen1.5-7b's published width cut to 4 layers
+AH_LAYERS = 4
+AH_FLAGS = ["--sessions=3", "--batch=4", "--seq=32", "--levels=8",
+            "--granularity=channel", "--device=cuda"]
+
+
+def example_runs(tmp: str) -> dict:
+    """EXAMPLE_RUNS as concurrent subprocesses; each one's exit code,
+    standard output and error, wall seconds and the launches of its own
+    process (a demo's cloud child is not counted)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(SRC)] + ([os.environ["PYTHONPATH"]]
+                      if os.environ.get("PYTHONPATH") else [])))
+    procs = {}
+    t0 = time.perf_counter()
+    for label, (name, flags) in EXAMPLE_RUNS.items():
+        logs = [open(os.path.join(tmp, f"{label}.{k}"), "w+")
+                for k in ("out", "err")]
+        procs[label] = (subprocess.Popen(
+            [sys.executable, "-c", EXAMPLE_RUNNER, name,
+             os.path.join(tmp, f"{label}.json")] + flags,
+            stdout=logs[0], stderr=logs[1], env=env, cwd=tmp), logs)
+    out = {}
+    try:
+        for label, (proc, logs) in procs.items():
+            left = EXAMPLES_TIMEOUT_S - (time.perf_counter() - t0)
+            rc = proc.wait(timeout=max(left, 1))
+            text = []
+            for log in logs:
+                log.seek(0)
+                text.append(log.read())
+            path = os.path.join(tmp, f"{label}.json")
+            res = {"launches": {}, "result": None}
+            if os.path.exists(path):
+                with open(path) as f:
+                    res = json.load(f)
+            out[label] = {"rc": rc, "out": text[0], "err": text[1],
+                          "s": time.perf_counter() - t0, **res}
+    finally:
+        for proc, logs in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+            for log in logs:
+                log.close()
+    return out
+
+
+def ah_process(i: int, port: int, out_dir: str) -> None:
+    """(ah)'s process ``i``: 0 the cloud (``run_cloud``), 1 the edge
+    (``run_edge``), each on cuda:0 with codeqwen1.5-7b at published width
+    cut to AH_LAYERS layers, drawn from the demo's seed; writes its
+    launches, and the edge its sessions."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import edge_cloud_demo as ECD
+    from repro_torch.kernels import _build
+    from repro_torch.models import init_params
+
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = ECD.build_parser().parse_args(AH_FLAGS + [f"--port={port}"])
+    cfg = dataclasses.replace(get_config("codeqwen1.5-7b"),
+                              num_layers=AH_LAYERS)
+    model = (cfg, init_params(cfg, torch.Generator(device=dev)
+                              .manual_seed(args.seed), device=dev))
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    if i == 0:
+        ECD.run_cloud(args, model)
+        out = {}
+    else:
+        ECD.wait_for_cloud(args, lambda: True, timeout_s=300)
+        out = ECD.run_edge(args, model)
+    torch.cuda.synchronize()
+    out.update(role=("cloud", "edge")[i], s=time.perf_counter() - t0,
+               launches=dict(_build.LAUNCHES),
+               peak_bytes=torch.cuda.max_memory_allocated())
+    with open(os.path.join(out_dir, f"ah{i}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def examples_phase(smi: str, dev) -> dict:
+    """Phase 12: the four examples as ``python -m
+    repro_torch.examples.<name>`` subprocesses at the reference's
+    settings, run at once: each exits 0; quickstart prints what its
+    ``--device cpu`` run prints; train_with_compression's resumed run
+    has the uninterrupted run's losses, bit for bit; the demo (``--smoke``, and with
+    ``--tls --secret``) prints its OK line.  Then (ah): the demo's
+    ``run_cloud`` and ``run_edge`` as two processes on the card at
+    codeqwen1.5-7b's published width, AH_LAYERS layers, 4 x 32 tokens, 3
+    sessions, N=8 per channel group: its own checks (reconstruction
+    bit-exact with the in-process round trip, tail logits within rtol =
+    atol = 1e-4) hold, and the edge launches the encode megakernel and
+    the device rANS step loop.  Returns each run's launches."""
+    import socket
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        runs = example_runs(tmp)
+    for label, r in runs.items():
+        check(r["rc"] == 0, f"(examples) {label} exited {r['rc']}:\n"
+              + r["out"][-2000:] + r["err"][-3000:])
+    check(runs["quickstart"]["out"] == runs["quickstart-cpu"]["out"],
+          "(examples) quickstart on the card printed other numbers than on "
+          "the CPU:\n" + runs["quickstart"]["out"])
+    tw = runs["train_with_compression"]["result"]
+    check(tw["resumed"] == tw["base"][tw["resumed_from"]:],
+          "(examples) the resumed run's losses differ from the uninterrupted "
+          f"run's: {tw['resumed']} vs {tw['base']}")
+    rows = re.findall(r"^\s+(tensor|channel)\s+\d+\s", runs[
+        "split_inference"]["out"], re.M)
+    check(len(rows) == 8, f"(examples) split_inference printed {len(rows)} "
+          "rows of its table")
+    for label in ("demo-smoke", "demo-tls"):
+        out = runs[label]["out"]
+        check("[edge] OK: streamed cloud reconstruction is bit-exact" in out
+              and out.count("bit-exact=True tail logits match=True") == 2,
+              f"(examples) {label}:\n{out}")
+    si = runs["split_inference"]["launches"]
+    check(si.get("clip_quant", 0) > 0 and si.get("clip_quant_tiles", 0) > 0,
+          f"(examples) split_inference launched {si}")
+    for label, r in runs.items():
+        print(f"(examples) {label}: exit 0, done {r['s']:.1f} s after the "
+              "six runs started at once; launches " + json.dumps(
+                  {k: v for k, v in r["launches"].items() if v}))
+    for line in runs["quickstart"]["out"].splitlines()[-11:]:
+        print(f"(examples) quickstart | {line}")
+    print("(examples) quickstart's lines on the card equal its --device cpu "
+          f"run's; train_with_compression resumed at step "
+          f"{tw['resumed_from']}: its {len(tw['resumed'])} losses equal the "
+          f"uninterrupted run's bit for bit (final loss {tw['resumed'][-1]!r})"
+          f"; compressed final loss {tw['compressed'][-1]!r}")
+
+    # (ah)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        spawned(ah_process, 2, (port, tmp), "ah", EXAMPLES_TIMEOUT_S)
+        ah = []
+        for i in range(2):
+            with open(os.path.join(tmp, f"ah{i}.json")) as f:
+                ah.append(json.load(f))
+    cloud, edge = ah
+    check(len(edge["sessions"]) == 3 and all(
+        s_["bitexact"] and s_["logits_match"] for s_ in edge["sessions"]),
+        f"(ah) sessions {edge['sessions']}")
+    check(edge["launches"]["encode_tiles"] > 0
+          and edge["launches"]["rans_step"] > 0,
+          f"(ah) the edge's stream encode launched {edge['launches']}")
+    print(f"(ah) edge_cloud_demo's run_cloud and run_edge as two processes "
+          f"on one card, codeqwen1.5-7b at published width, {AH_LAYERS} "
+          f"layers, batch 4 x seq 32, 3 sessions, N=8 per channel group of "
+          f"8: bits/element per session " + ", ".join(
+              f"{s_['bits_per_elem']:.4f}" for s_ in edge["sessions"])
+          + " (vs 16.0 raw); reconstructions bit-exact, tail logits within "
+          "rtol = atol = 1e-4 (largest difference " + ", ".join(
+              f"{s_['logits_max_abs_diff']}" for s_ in edge["sessions"])
+          + f"); the sessions' wall time {edge['wall_s']:.3f} s; launches: "
+          f"edge " + json.dumps(
+              {k: v for k, v in edge["launches"].items() if v})
+          + ", cloud " + json.dumps(
+              {k: v for k, v in cloud["launches"].items() if v})
+          + f"; peak device memory edge {edge['peak_bytes'] / 1e9:.2f} GB, "
+          f"cloud {cloud['peak_bytes'] / 1e9:.2f} GB; (ah) took "
+          f"{time.perf_counter() - t1:.1f} s; {smi}")
+    print(f"examples phase: {time.perf_counter() - t0:.1f} s wall")
+    return {**{label: r["launches"] for label, r in runs.items()},
+            "ah-edge": edge["launches"], "ah-cloud": cloud["launches"]}
 
 
 def split_ranks_alone(smi: str, dev) -> None:
@@ -3900,11 +4383,15 @@ def main() -> int:
 
     # 10. the multi-device path: expert parallelism over two ranks on the
     # card, the split runtime on MoE and RWKV-6, the CLI under torchrun
-    moe_split = distributed_phase(smi, dev)
+    moe_split, dp_launches = distributed_phase(smi, dev)
 
     # 11. the split runtime across ranks: edge and cloud stages as gloo
     # processes on the card
     ranks_launches = ranks_phase(smi, dev, ranks_ref, moe_split)
+
+    # 12. the examples as subprocesses on the card, then the demo's two
+    # halves at published width
+    example_launches = examples_phase(smi, dev)
 
     # 7. launch counts of the serving and split runs and of (m): each
     # kernel's count is read from the first run named here, and every
@@ -3932,6 +4419,9 @@ def main() -> int:
         r_["split_ranks_launches"] = {
             label: [c.get(name_, 0) for c in per_rank]
             for label, per_rank in ranks_launches.items()}
+        r_["dp_engine_launches"] = [c.get(name_, 0) for c in dp_launches]
+        r_["example_launches"] = {label: c.get(name_, 0)
+                                  for label, c in example_launches.items()}
         for run_id in runs_of[name_]:
             check(counts[run_id][name_] > 0, f"{name_} never "
                   f"launched on serving run ({run_id})")

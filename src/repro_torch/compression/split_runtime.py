@@ -58,7 +58,11 @@ as 4 float32 bytes; the return path is the (B, V) bfloat16 logits.  The
 rate is the whole batch's, as the reference's: the edge ranks sum their
 index counts over the ``data`` group before the rate is taken.  A tiled
 codec whose tiles span rows (``plan.spatial_extent`` set) cannot be cut
-by rows, so it needs a ``data`` axis of one rank.
+by rows: where the rows are split, the edge ranks of a ``data`` group
+all-gather their boundary rows and each quantizes the whole batch's
+tiles, as the reference does under GSPMD, and sends its peer the whole
+batch's payload and rate; the cloud rank dequantizes it and keeps its
+own rows (:func:`gathers_rows`).
 
 On NCCL the device tensors are sent as they are.  Gloo sends and
 receives CPU tensors only, so on gloo the device's bytes are staged
@@ -87,7 +91,7 @@ import torch.distributed as dist
 from ..configs.base import ModelConfig
 from ..core.codec import FeatureCodec
 from ..models import transformer as T
-from ..models.context import DistContext, dp_rows
+from ..models.context import DistContext, dp_rows, gather_rows
 from ..models.convert import shard_experts
 from ..obs.tracing import span
 
@@ -212,6 +216,14 @@ def init_split_cache(cfg: ModelConfig, batch: int, max_seq: int, *,
     return None, caches(half + tail, cloud_device, rows)
 
 
+def gathers_rows(codec: FeatureCodec | None, transport: str) -> bool:
+    """Whether a data split's edge ranks gather the whole batch's
+    boundary before quantizing: a quantized transport with a tiled codec
+    whose tiles span rows (:meth:`FeatureCodec.tiles_span_rows`), which
+    cannot be cut by rows."""
+    return transport != "raw" and codec.tiles_span_rows()
+
+
 def payload_bytes(cfg: ModelConfig, codec: FeatureCodec | None,
                   transport: str, rows: int) -> int:
     """Bytes the edge sends the cloud in a step across ranks, for ``rows``
@@ -286,12 +298,15 @@ def make_split_decode_step(cfg: ModelConfig, codec: FeatureCodec | None, *,
 def _stage_parts(cfg, codec, transport: str, ctx):
     """The two halves of a step, the crossing left to the caller:
 
-    * ``edge_part(params, token, cache, pos) -> (wire, counts)``: the
-      embedding and the edge's layers on ``token``'s rows, then the
-      boundary's wire tensor (:func:`_boundary`'s ``send``);
-    * ``cloud_part(params, wire, rows, cache, pos)``: that wire tensor,
-      on the cloud, as ``rows`` rows of input (``receive``), the
-      cloud's layers and the head -> (rows, V) bfloat16 logits (bfloat16
+    * ``edge_part(params, token, cache, pos, whole=False) -> (wire,
+      counts)``: the embedding and the edge's layers on ``token``'s rows,
+      then the boundary's wire tensor (:func:`_boundary`'s ``send``) --
+      with ``whole``, of the whole batch's boundary, gathered from the
+      ``data`` group's ranks first;
+    * ``cloud_part(params, wire, rows, cache, pos, own=False)``: that
+      wire tensor, on the cloud, as ``rows`` rows of input (``receive``)
+      -- with ``own``, this rank's ``data`` block of them -- the cloud's
+      layers and the head -> bfloat16 logits of the rows it ran (bfloat16
       is plenty for the sampler and halves the return path);
     * ``rate_of(counts, rows)``: the rate of ``rows`` rows' counts."""
     half, tail = stage_layout(cfg)
@@ -300,15 +315,17 @@ def _stage_parts(cfg, codec, transport: str, ctx):
     cloud_layers = [(spec, i) for i in range(half + tail)]
     send, receive = _boundary(cfg, codec, transport)
 
-    def edge_part(params, token, cache, pos):
+    def edge_part(params, token, cache, pos, whole=False):
         x = T._embed_in(cfg, params, token[:, None], pos0=pos)
         y = T._apply_group(x, params, edge_layers, cfg, pos=pos,
                            gcache=cache, positions=T._positions(x, pos),
                            ctx=ctx)
-        return send(y)
+        return send(gather_rows(y, ctx) if whole else y)
 
-    def cloud_part(params, wire, rows, cache, pos):
+    def cloud_part(params, wire, rows, cache, pos, own=False):
         x = receive(wire, (rows, 1, cfg.d_model))
+        if own:
+            x = dp_rows(x, ctx)
         y = T._apply_group(x, params, cloud_layers, cfg, pos=pos,
                            gcache=cache, positions=T._positions(x, pos),
                            ctx=ctx)
@@ -392,10 +409,7 @@ def _ranked_step(cfg, codec, transport, ctx, edge, cloud):
     """The step of this rank's stage (module docstring): the halves of
     :func:`_stage_parts`, joined by ``send``/``recv`` with the peer."""
     _check_ranks(ctx)
-    if transport != "raw" and ctx.dp_size > 1 and codec.plan is not None \
-            and codec.plan.spatial_extent is not None:
-        raise ValueError("a tiled codec whose tiles span rows cannot be cut "
-                         "by rows: it needs a data axis of one rank")
+    gathers = gathers_rows(codec, transport)
     on_edge = _stage(ctx) == "edge"
     device = edge if on_edge else cloud
     peer, staged = ctx.pod_peer, _staged(device)
@@ -405,8 +419,8 @@ def _ranked_step(cfg, codec, transport, ctx, edge, cloud):
         batch = token.shape[0]
         with span("edge_stage"):
             wire, counts = edge_part(params, dp_rows(token.to(device), ctx),
-                                     cache, pos)
-            if counts is not None and split:
+                                     cache, pos, whole=split and gathers)
+            if counts is not None and split and not gathers:
                 dist.all_reduce(counts, group=ctx.dp_group)
             rate = rate_of(counts, batch)
             msg = _bytes(wire) if counts is None else torch.cat([
@@ -419,9 +433,12 @@ def _ranked_step(cfg, codec, transport, ctx, edge, cloud):
         return logits.view(torch.bfloat16).reshape(batch, -1), rate
 
     def cloud_step(params, token, cache, pos, split):
-        rows = token.shape[0] // ctx.dp_size if split else token.shape[0]
+        batch = token.shape[0]
+        rows = batch // ctx.dp_size if split else batch
+        # the whole batch's payload where the edge gathered it
+        sent = batch if gathers else rows
         with span("payload_recv"):
-            msg = _recv(payload_bytes(cfg, codec, transport, rows), peer,
+            msg = _recv(payload_bytes(cfg, codec, transport, sent), peer,
                         device, staged)
         with span("cloud_stage"):
             if transport == "raw":
@@ -432,13 +449,10 @@ def _ranked_step(cfg, codec, transport, ctx, edge, cloud):
                 rate = msg[-_RATE_BYTES:].clone().view(torch.float32)[0]
                 if transport == "quantized_f16":
                     wire = wire.view(torch.int32)
-            logits = cloud_part(params, wire, rows, cache, pos)
+            logits = cloud_part(params, wire, sent, cache, pos,
+                                own=split and gathers)
             if split:
-                parts = [torch.empty_like(logits)
-                         for _ in range(ctx.dp_size)]
-                dist.all_gather(parts, logits.contiguous(),
-                                group=ctx.dp_group)
-                logits = torch.cat(parts)
+                logits = gather_rows(logits, ctx)
         with span("logits_send"):
             _send(_bytes(logits), peer, staged)
         return logits, rate

@@ -586,6 +586,14 @@ class FeatureCodec:
         """
         return self.rate_from_counts(self.index_counts(idx), shape)
 
+    def tiles_span_rows(self) -> bool:
+        """Whether a tile of this codec spans rows of the tensor: a tiled
+        codec pinned to its calibrated spatial extent
+        (``plan.spatial_extent`` set).  Such a codec quantizes a whole
+        tensor only, never a block of its rows, so its counts do not
+        add up over row blocks."""
+        return self.plan is not None and self.plan.spatial_extent is not None
+
     def index_counts(self, idx):
         """Index counts: (N,) for a per-tensor codec, per tile
         (n_cgroups, n_sblocks, N) for a tiled one.  Counts of disjoint

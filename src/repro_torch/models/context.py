@@ -200,6 +200,15 @@ def dp_rows(t: torch.Tensor | None, ctx: DistContext | None):
     return t[ctx.dp_rank * n:(ctx.dp_rank + 1) * n]
 
 
+def gather_rows(t: torch.Tensor, ctx: DistContext) -> torch.Tensor:
+    """The global batch from every dp rank's block of rows (the inverse of
+    :func:`dp_rows` where dp divides B): an all-gather over the dp group,
+    the blocks in dp-rank order.  Every rank of the group must call it."""
+    parts = [torch.empty_like(t) for _ in range(ctx.dp_size)]
+    dist.all_gather(parts, t.contiguous(), group=ctx.dp_group)
+    return torch.cat(parts)
+
+
 # ---------------------------------------------------------------------------
 # collectives of the expert-parallel MoE, with their backward
 # ---------------------------------------------------------------------------

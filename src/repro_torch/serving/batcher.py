@@ -56,6 +56,7 @@ single entropy call.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import struct
@@ -74,6 +75,22 @@ from ..obs.tracing import span
 # must not depend on the wire layer); the value is asserted equal in
 # tests/test_batcher.py
 DEFAULT_CHUNK_ELEMS = 1 << 18
+
+
+@contextlib.contextmanager
+def device_entropy():
+    """The ``REPRO_ENTROPY_DEVICE`` opt-in for the duration of the block:
+    a tick whose ``TickConfig.device_entropy`` is None entropy-codes on
+    the device (coder id 4)."""
+    prev = os.environ.get("REPRO_ENTROPY_DEVICE")
+    os.environ["REPRO_ENTROPY_DEVICE"] = "1"
+    try:
+        yield
+    finally:
+        if prev is None:
+            del os.environ["REPRO_ENTROPY_DEVICE"]
+        else:
+            os.environ["REPRO_ENTROPY_DEVICE"] = prev
 
 
 @dataclasses.dataclass(frozen=True)

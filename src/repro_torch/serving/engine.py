@@ -24,12 +24,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ModelConfig
 from ..core.codec import FeatureCodec
 from ..models import (decode_from_boundary, decode_step, decode_to_boundary,
                       init_cache, prefill, prefill_from_boundary,
                       prefill_to_boundary, resolve_device)
+from ..models.context import dp_rows, gather_rows
 from ..obs.metrics import BPE_BUCKETS, MetricsRegistry
 from ..obs.tracing import span
 
@@ -85,16 +87,35 @@ class ServeEngine:
         ``ctx``: a ``DistContext`` passed to every prefill and decode, as
         the reference does: each rank runs the engine on the same
         requests, its MoE layers expert-parallel over the tp ranks
-        (``params`` holding this rank's experts).  The batch is not split
-        over dp ranks: each serves all of it."""
+        (``params`` holding this rank's experts).  Where the dp ranks
+        divide ``slots``, each rank runs the full-batch prefills and the
+        decode steps on its block of the slots (``dp_rows``), holds only
+        its block's caches, and all-gathers the logits over the dp group
+        before sampling, so every rank samples the whole batch and keeps
+        the same slot state.  A refill (batch 1) is computed whole on
+        every dp rank, and only the rank whose block holds the slot keeps
+        its caches; every step where dp does not divide ``slots`` runs
+        whole on every rank too.  The rate is
+        the whole batch's: a ``codec`` sums its index counts over the dp
+        group before the rate is taken; a codec whose tiles span rows, a
+        ``codec_fn`` and a ``codec_host_fn`` get the whole boundary,
+        gathered, and each rank keeps its rows of what they return."""
         self.cfg, self.params, self.ctx = cfg, params, ctx
         self.device = resolve_device(device)
         if sum(x is not None for x in (codec, codec_fn, codec_host_fn)) > 1:
             raise ValueError("pass at most one of codec, codec_fn, "
                              "codec_host_fn")
+        # split the slots over the dp ranks (a block of rows each)
+        self._split = ctx is not None and ctx.dp_size > 1 \
+            and slots % ctx.dp_size == 0
         if codec is not None:
             codec_fn = codec.apply_with_rate
         self.codec_fn = codec_fn
+        # the split-layer hook of a step on the whole batch (False) and of
+        # one on this rank's block of rows (True); ``_run`` picks
+        self._hooks = {False: codec_fn,
+                       True: self._block_hook(codec) if self._split
+                       else None}
         self.codec_host_fn = codec_host_fn
         self.slots = slots
         self.max_seq = max_seq
@@ -138,30 +159,67 @@ class ServeEngine:
             self._prefill = self._split_prefill
             self._decode = self._split_decode
         else:
-            self._prefill = lambda p, t, c: prefill(cfg, p, t, c, ctx=ctx,
-                                                    codec_fn=codec_fn)
-            self._decode = lambda p, t, c, pos: decode_step(
-                cfg, p, t, c, pos, ctx=ctx, codec_fn=codec_fn)
+            self._prefill = lambda p, t, c, *, split: prefill(
+                cfg, p, t, c, ctx=ctx, codec_fn=self._hooks[split])
+            self._decode = lambda p, t, c, pos, *, split: decode_step(
+                cfg, p, t, c, pos, ctx=ctx, codec_fn=self._hooks[split])
 
-    def _host_roundtrip(self, x: torch.Tensor):
+    # -- the dp split ---------------------------------------------------------
+
+    def _run(self, fn, toks: torch.Tensor, cache, *args):
+        """``fn(params, toks, cache, *args, split=)`` (``_prefill`` or
+        ``_decode``) on this rank's block of ``toks``'s rows where the
+        batch is split over dp (``split=True``), else on all of them; the
+        logits (the output's first item) of the whole batch either way."""
+        split = self._split and toks.shape[0] == self.slots
+        out = fn(self.params, dp_rows(toks, self.ctx) if split else toks,
+                 cache, *args, split=split)
+        if not split:
+            return out
+        return (gather_rows(out[0], self.ctx),) + tuple(out[1:])
+
+    def _block_hook(self, codec: FeatureCodec | None):
+        """``codec_fn`` for a step on this rank's block of rows: the
+        whole batch's rate, and this block's reconstruction (None where
+        there is no ``codec_fn``)."""
+        fn, ctx = self.codec_fn, self.ctx
+        if fn is None:
+            return None
+        if codec is not None and not codec.tiles_span_rows():
+            def counted(x):
+                _, deq, counts = codec.quantize_with_counts(x, want_deq=True)
+                dist.all_reduce(counts, group=ctx.dp_group)
+                whole = (x.shape[0] * ctx.dp_size,) + tuple(x.shape[1:])
+                return deq, codec.rate_from_counts(counts, whole)
+            return counted
+
+        def gathered(x):
+            y, rate = fn(gather_rows(x, ctx))
+            return dp_rows(y, ctx), rate
+        return gathered
+
+    def _host_roundtrip(self, x: torch.Tensor, split: bool):
+        if split:
+            x = gather_rows(x, self.ctx)
         recon, rate = self.codec_host_fn(
             x.to(torch.float32).cpu().numpy())
-        return torch.as_tensor(np.asarray(recon, np.float32),
-                               device=self.device), rate
+        recon = torch.as_tensor(np.asarray(recon, np.float32),
+                                device=self.device)
+        return (dp_rows(recon, self.ctx) if split else recon), rate
 
-    def _split_prefill(self, p, toks, cache):
+    def _split_prefill(self, p, toks, cache, *, split: bool):
         """Prefill as two halves with the host codec round-trip run in
         between (``codec_host_fn`` mode)."""
         x, pre = prefill_to_boundary(self.cfg, p, toks, cache, ctx=self.ctx)
-        recon, _ = self._host_roundtrip(x)
+        recon, _ = self._host_roundtrip(x, split)
         logits, post = prefill_from_boundary(self.cfg, p, recon, cache,
                                              ctx=self.ctx)
         return logits, list(pre) + list(post)
 
-    def _split_decode(self, p, cur, cache, pos):
+    def _split_decode(self, p, cur, cache, pos, *, split: bool):
         x, pre = decode_to_boundary(self.cfg, p, cur, cache, pos,
                                     ctx=self.ctx)
-        recon, rate = self._host_roundtrip(x)
+        recon, rate = self._host_roundtrip(x, split)
         logits, post = decode_from_boundary(self.cfg, p, recon, cache, pos,
                                             ctx=self.ctx)
         return logits, list(pre) + list(post), \
@@ -211,7 +269,7 @@ class ServeEngine:
             self._m["active_slot_steps"].inc(sum(
                 r is not None for r in active))
             tok = torch.as_tensor(cur, device=self.device)
-            lg, cache, aux = self._decode(self.params, tok, cache, pos)
+            lg, cache, aux = self._run(self._decode, tok, cache, pos)
             if "codec_rate_bits" in aux:
                 bpe = float(aux["codec_rate_bits"])
                 self.rate_log.append(bpe)
@@ -263,6 +321,10 @@ class ServeEngine:
         }
 
     def _new_cache(self, batch: int):
+        """Caches for ``batch`` rows: this rank's block of them where a
+        batch of ``slots`` is split over dp."""
+        if self._split and batch == self.slots:
+            batch //= self.ctx.dp_size
         return init_cache(self.cfg, batch=batch, max_seq=self.max_seq,
                           split=self.codec_fn is not None
                           or self.codec_host_fn is not None,
@@ -282,8 +344,8 @@ class ServeEngine:
         self._m["epochs"].inc()
         self._m["prefills"].inc()
         with span("prefill", batch=len(batch)):
-            logits, cache = self._prefill(
-                self.params, torch.as_tensor(toks, device=self.device),
+            logits, cache = self._run(
+                self._prefill, torch.as_tensor(toks, device=self.device),
                 cache)
         cur = torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
         # zero-token requests retire immediately
@@ -321,11 +383,18 @@ class ServeEngine:
         self._m["refills"].inc()
         self._m["prefills"].inc()
         with span("prefill", batch=1, refill=True):
-            logits, one = self._prefill(
-                self.params, torch.as_tensor(toks, device=self.device), one)
-        for full_g, one_g in zip(cache, one):
-            for full_l, one_l in zip(full_g, one_g):
-                _copy_row(full_l, one_l, slot)
+            logits, one = self._run(
+                self._prefill, torch.as_tensor(toks, device=self.device), one)
+        # the slot's row of this rank's caches (none where another dp
+        # rank holds it)
+        n, row = self.slots, slot
+        if self._split:
+            n = self.slots // self.ctx.dp_size
+            row = slot - self.ctx.dp_rank * n
+        if 0 <= row < n:
+            for full_g, one_g in zip(cache, one):
+                for full_l, one_l in zip(full_g, one_g):
+                    _copy_row(full_l, one_l, row)
         first = int(torch.argmax(logits[0]))
         cur = cur.copy()
         cur[slot] = first

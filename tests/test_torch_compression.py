@@ -16,7 +16,8 @@ shard_map).  The port loads the parameters with
 With ``models221`` in its spec the same script also runs the reference
 on a (2, 2, 1) mesh (four forced host devices), the batch split over
 ``data`` inside each pod; ``tests/test_torch_split_ranks.py`` holds the
-split step across ranks against those runs.
+split step across ranks against those runs, in ``CASES`` and in
+``ROW_TILE_CASES`` (a tiled codec whose tiles span rows).
 
 Tolerances: boundary activations within 1e-5 (float32, sums in another
 order); payload bytes identical (an index may only differ where the
@@ -74,6 +75,14 @@ CASES = {
         channel_group_size=8, clip_mode="minmax")),
 }
 MANUAL = dict(clip_mode="manual", manual_cmin=-8.0, manual_cmax=8.0)
+# a tiled codec whose tiles span rows: a range per 8 channels x 2 of the
+# boundary's 4 rows, calibrated by min/max from seeded (4, 1, 64) samples
+# (``_tile_samples``); tests/test_torch_split_ranks.py runs it on (2, 2, 1)
+ROW_TILE_CASES = {
+    "packed-tile-rows": ("packed", dict(
+        n_levels=4, granularity="tile", channel_axis=-1,
+        channel_group_size=8, spatial_block_size=2, clip_mode="minmax")),
+}
 
 _SCRIPT = textwrap.dedent("""
     import ast
@@ -100,6 +109,7 @@ _SCRIPT = textwrap.dedent("""
     b, v, max_seq, steps = (spec["batch"], spec["vocab"], spec["max_seq"],
                             spec["steps"])
     samples = np.load(spec["samples"])
+    tile_samples = np.load(spec["tile_samples"])
     out = {"samples": samples}
     runs = []
     models = [(m, (2, 1, 1)) for m in spec["models"]] \
@@ -123,7 +133,8 @@ _SCRIPT = textwrap.dedent("""
 
         for case in cases:
             transport, kw = spec["cases"][case]
-            data = samples if kw.get("granularity") == "channel" else None
+            data = {"channel": samples, "tile": tile_samples}.get(
+                kw.get("granularity"))
             codec = calibrate(CodecConfig(backend="kernel_interpret", **kw),
                               samples=data)
             runs.append((tag, case, transport, cfg, sp, codec,
@@ -174,6 +185,12 @@ def _samples() -> np.ndarray:
         .astype(np.float32)
 
 
+def _tile_samples() -> np.ndarray:
+    """Seeded calibration samples shaped as the boundary, (B, 1, 64)."""
+    return np.random.default_rng(0).standard_normal(
+        (BATCH, 1, 64)).astype(np.float32)
+
+
 def _codec_kw(kw: dict) -> dict:
     return kw if "clip_mode" in kw else dict(kw, **MANUAL)
 
@@ -183,11 +200,14 @@ def run_reference(tmp, models, models221=()) -> dict:
     ``models`` ((tag, arch, layers, cases) each) at (2, 1, 1) and
     ``models221`` at (2, 2, 1); its npz as a dict."""
     np.save(tmp / "samples.npy", _samples())
+    np.save(tmp / "tile_samples.npy", _tile_samples())
     path = tmp / "reference.npz"
     spec = dict(models=list(models), models221=list(models221), vocab=VOCAB,
                 batch=BATCH, max_seq=MAX_SEQ, steps=STEPS,
                 samples=str(tmp / "samples.npy"),
-                cases={k: (t, _codec_kw(kw)) for k, (t, kw) in CASES.items()})
+                tile_samples=str(tmp / "tile_samples.npy"),
+                cases={k: (t, _codec_kw(kw)) for k, (t, kw)
+                       in {**CASES, **ROW_TILE_CASES}.items()})
     out = subprocess.run([sys.executable, "-c", _SCRIPT, str(path),
                           repr(spec)], capture_output=True, text=True,
                          timeout=600)
@@ -261,11 +281,15 @@ class RecordingCodec(FeatureCodec):
 
 def _scaled(y: np.ndarray, codec) -> np.ndarray:
     """Boundary values in units of the quantizer's step (float64), the
-    last axis the channel axis of a per-channel codec."""
+    last axis the channel axis of a tiled codec."""
     if codec.plan is None:
         lo, hi = codec.cmin, codec.cmax
-    else:
+    elif codec.plan.n_sblocks == 1:
         lo, hi = codec.channel_ranges()
+    else:
+        # tiles over rows too: each element's tile's range
+        ids = codec.plan.tile_ids(y.shape)
+        lo, hi = (t.reshape(-1)[ids] for t in codec.tile_tables())
     lo, hi = np.float64(lo), np.float64(hi)
     n = codec.config.n_levels
     return (np.clip(y.astype(np.float64), lo, hi) - lo) * (n - 1) / (hi - lo)

@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import models as tm
+from repro_torch import serving as tm_serving
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import DataConfig
 from repro_torch.launch.mesh import Mesh, device_mesh
@@ -176,6 +177,9 @@ def _context_ranks(rank, out_dir):
     res["s"] = s.detach()
     res["rows4"] = C.dp_rows(torch.arange(4), ctx)
     res["rows3"] = C.dp_rows(torch.arange(3), ctx)
+    # each rank's block, tagged by its rank, gathered over dp
+    res["gathered_rows"] = C.gather_rows(
+        (100 * rank + C.dp_rows(torch.arange(4), ctx)).reshape(2, 1), ctx)
     # the train step's reductions
     full = torch.randn((4, 3), generator=torch.Generator().manual_seed(2))
     rep = torch.randn((5,), generator=torch.Generator().manual_seed(3))
@@ -209,6 +213,16 @@ def test_mesh_groups_order_dp_axes_pod_major(context_ranks):
         assert res["pod"].tolist() == [pod, 2 * (1 - pod) + j]
         assert res["rows4"].tolist() == [2 * pod, 2 * pod + 1]
         assert res["rows3"].tolist() == [0, 1, 2]
+
+
+def test_gather_rows_inverts_dp_rows(context_ranks):
+    """``gather_rows`` concatenates the dp group's blocks in dp-rank order
+    (pod-major): the global batch from every rank's ``dp_rows``."""
+    for rank, res in enumerate(context_ranks):
+        j = rank % 2
+        # the dp group of model coordinate j holds global ranks j, 2 + j
+        assert res["gathered_rows"].reshape(-1).tolist() == \
+            [100 * j, 100 * j + 1, 100 * (2 + j) + 2, 100 * (2 + j) + 3]
 
 
 def test_all_to_all_is_the_tiled_layout_and_its_own_adjoint(context_ranks):
@@ -562,6 +576,138 @@ def test_trainer_checkpoints_cross_tp_sizes_and_the_reference(tmp_path):
     for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(ref_layout),
                     strict=True):
         assert np.array_equal(np.asarray(a), b)
+
+
+# -- the engine's slots over dp ranks -----------------------------------------------
+
+ENGINE_LAYERS, ENGINE_MAX_SEQ = 4, 32
+# case -> (slots, hookup, codec, (prompt length, new tokens) per request,
+# refill_align): ragged requests give epochs and mid-epoch refills; the
+# tiled codec's tiles span the boundary's 4 rows in blocks of 2 and pin
+# its extent to 4, so its prompts are one token and refills wait for
+# position 4 (a (1, 4) prefill); 3 slots do not split over 2 ranks
+_RAGGED = [(5, 4), (7, 2), (3, 6), (6, 3), (4, 5), (2, 2)]
+ENGINE_CASES = {
+    "codec": (4, "codec", "tensor", _RAGGED, 1),
+    "tiles_spanning_rows": (4, "codec", "tiles",
+                            [(1, 3), (1, 6), (1, 2), (1, 7), (1, 4),
+                             (1, 3)], 4),
+    "codec_host_fn": (4, "codec_host_fn", "tensor", _RAGGED, 1),
+    "undivided": (3, "codec", "tensor", _RAGGED, 1),
+}
+# logits of the engine on dp = 2 against the one-rank engine's: float32
+# matmuls over 2 rows against 4 may round differently (the dp x tp train
+# step's tolerance above)
+ENGINE_RTOL, ENGINE_ATOL = 1e-5, 1e-6
+
+
+class _RecordingEngine(tm_serving.ServeEngine):
+    """Keeps the whole batch's logits of every prefill and decode step."""
+
+    logits: list
+    cache_rows: int | None = None
+
+    def _run(self, fn, toks, cache, *args):
+        out = super()._run(fn, toks, cache, *args)
+        self.logits.append(out[0].cpu().numpy().copy())
+        return out
+
+    def _new_cache(self, batch):
+        cache = super()._new_cache(batch)
+        if batch == self.slots:
+            self.cache_rows = next(leaves(cache))[1].shape[0]
+        return cache
+
+
+def _engine_codec(kind: str, d_model: int, backend: str = "torch"):
+    from repro_torch.core import CodecConfig, calibrate
+    if kind == "tensor":
+        return calibrate(CodecConfig(backend=backend, n_levels=4,
+                                     clip_mode="manual", manual_cmin=-2.0,
+                                     manual_cmax=2.0))
+    return calibrate(CodecConfig(
+        backend=backend, n_levels=4, granularity="tile", channel_axis=-1,
+        channel_group_size=8, spatial_block_size=2, clip_mode="minmax"),
+        samples=np.random.default_rng(0).standard_normal(
+            (4, 1, d_model)).astype(np.float32))
+
+
+def _host_roundtrip_fn(codec):
+    def roundtrip(x):
+        payloads = list(codec.encode_stream(x, chunk_elems=96))
+        recon = codec.decode_stream(payloads).reshape(x.shape)
+        return recon, 8.0 * sum(map(len, payloads)) / x.size
+    return roundtrip
+
+
+def _engine_run(case: str, ctx=None, device="cpu") -> dict:
+    """One ENGINE_CASES case through the engine on ``device`` (the codec
+    on its backend): tokens, rates, counters, retirements, the logits of
+    every step and the rows of an epoch's caches."""
+    slots, hookup, kind, spec, align = ENGINE_CASES[case]
+    dev = torch.device(device)
+    cfg = reduced(get_config("codeqwen1.5-7b"), layers=ENGINE_LAYERS)
+    params = tm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                            device=dev)
+    codec = _engine_codec(kind, cfg.d_model,
+                          "cuda" if dev.type == "cuda" else "torch")
+    hook = {hookup: codec if hookup == "codec" else _host_roundtrip_fn(codec)}
+    eng = _RecordingEngine(cfg, params, slots=slots, max_seq=ENGINE_MAX_SEQ,
+                           ctx=ctx, refill_align=align, device=dev, **hook)
+    eng.logits = []
+    rng = np.random.default_rng(0)
+    reqs = [tm_serving.Request(
+        prompt=rng.integers(0, cfg.vocab_size, p).astype(np.int32),
+        max_new_tokens=n) for p, n in spec]
+    eng.generate(reqs)
+    counters = {k: v for k, v in eng.counters.items() if "latency" not in k}
+    return {"tokens": [r.out_tokens for r in reqs],
+            "rate_log": list(eng.rate_log), "counters": counters,
+            "retired": [{k: v for k, v in d.items() if k != "latency_s"}
+                        for d in eng.latency_log],
+            "logits": eng.logits, "cache_rows": eng.cache_rows}
+
+
+def _engine_ranks(rank, out_dir):
+    import pickle
+    ctx = DistContext(device_mesh(Mesh((2, 1), ("data", "model")), "cpu"),
+                      ("data",))
+    res = {case: _engine_run(case, ctx) for case in ENGINE_CASES}
+    (out_dir / f"engine{rank}.pkl").write_bytes(pickle.dumps(res))
+
+
+@pytest.fixture(scope="module")
+def engine_ranks(tmp_path_factory):
+    import pickle
+    tmp = tmp_path_factory.mktemp("engine")
+    spawn(_engine_ranks, 2, tmp, tmp)
+    return [pickle.loads((tmp / f"engine{r}.pkl").read_bytes())
+            for r in range(2)]
+
+
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_on_dp_ranks_equals_the_one_rank_engine(engine_ranks, case):
+    """``ServeEngine(ctx=)`` on a gloo world of dp = 2: each rank prefills
+    and decodes its block of the slots, all-gathers the logits and samples
+    the whole batch, so tokens, ``rate_log``, counters and retirements
+    equal the one-rank engine's on both ranks, and the logits are within
+    ENGINE_RTOL / ENGINE_ATOL; a rank holds caches of its block's rows
+    only where dp divides the slots."""
+    want = _engine_run(case)
+    slots = ENGINE_CASES[case][0]
+    for got in (r[case] for r in engine_ranks):
+        assert got["tokens"] == want["tokens"]
+        assert got["rate_log"] == want["rate_log"] and want["rate_log"]
+        assert got["counters"] == want["counters"]
+        assert got["counters"]["refills"] > 0
+        assert got["retired"] == want["retired"]
+        assert len(got["logits"]) == len(want["logits"])
+        for a, b in zip(got["logits"], want["logits"]):
+            np.testing.assert_allclose(a, b, rtol=ENGINE_RTOL,
+                                       atol=ENGINE_ATOL)
+        assert got["cache_rows"] == (slots // 2 if slots % 2 == 0
+                                     else slots)
+    assert want["cache_rows"] == slots
 
 
 # -- launch.train --distributed ------------------------------------------------------

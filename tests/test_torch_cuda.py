@@ -1525,3 +1525,145 @@ def test_split_across_ranks_on_the_card(dev, tmp_path):
         assert res["raw/launches"] == {}
         assert res["packed/launches"] == (
             {"clip_quant": 4} if res["stage"] == "edge" else {}), res
+
+
+def _tiles_card_rank(rank, out_dir):
+    """One of four ranks on cuda:0 over gloo in a (pod, data, model) =
+    (2, 2, 1) mesh: reduced codeqwen1.5-7b (float32, 4 layers), the packed
+    split step across ranks with a tiled codec whose tiles span rows (the
+    edge ranks gather their rows) against the one-process runtime on the
+    card."""
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models import DistContext
+    torch.cuda.set_device(0)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = DistContext(device_mesh(Mesh((2, 2, 1), ("pod", "data", "model")),
+                                  "cuda"), ("data",))
+    cfg = dataclasses.replace(reduced(get_config("codeqwen1.5-7b"), layers=4),
+                              vocab_size=64)
+    codec = calibrate(CodecConfig(
+        n_levels=4, granularity="tile", channel_axis=-1, channel_group_size=8,
+        spatial_block_size=2, clip_mode="minmax", backend="cuda"),
+        samples=np.random.default_rng(0).standard_normal(
+            (4, 1, cfg.d_model)).astype(np.float32))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(
+        0, 64, (4, 4)), device=dev)
+    kw = dict(edge_device=dev, cloud_device=dev)
+    runs = {}
+    for name, ctx_ in (("ranks", ctx), ("one", None)):
+        step = split_runtime.make_split_decode_step(
+            cfg, codec, transport="packed", ctx=ctx_, **kw)
+        sp = split_runtime.split_params(cfg, params, ctx=ctx_, **kw)
+        caches = split_runtime.init_split_cache(cfg, 4, 8, ctx=ctx_, **kw)
+        _build.reset_launches()
+        out = [step(sp, tokens[pos], caches, pos) for pos in range(4)]
+        torch.cuda.synchronize()
+        runs[name] = ([o[0].cpu() for o in out], [float(o[2]) for o in out],
+                      {k: v for k, v in _build.LAUNCHES.items() if v})
+    res = {"logits_equal": all(torch.equal(a, b) for a, b in
+                               zip(runs["ranks"][0], runs["one"][0])),
+           "rates_equal": runs["ranks"][1] == runs["one"][1],
+           "launches": runs["ranks"][2], "one_launches": runs["one"][2],
+           "stage": "edge" if ctx.pod_rank == 0 else "cloud"}
+    np.save(out_dir / f"tiles{rank}.npy", res, allow_pickle=True)
+
+
+@pytest.mark.timeout(300)
+def test_split_across_ranks_tiles_spanning_rows_on_the_card(dev, tmp_path):
+    """(2, 2, 1) with a tiled codec whose tiles span rows: the edge ranks
+    gather their rows and quantize the whole batch's tiles; every rank's
+    logits and rates identical in every bit to the one-process runtime's
+    on the card; each edge rank launches what the one-process run
+    launched, each cloud rank nothing."""
+    from test_torch_context import spawn
+    spawn(_tiles_card_rank, 4, tmp_path, tmp_path)
+    for rank in range(4):
+        res = np.load(tmp_path / f"tiles{rank}.npy", allow_pickle=True).item()
+        assert res["logits_equal"] and res["rates_equal"], (rank, res)
+        assert res["launches"] == (res["one_launches"]
+                                   if res["stage"] == "edge" else {}), res
+        assert res["stage"] == ("edge" if rank < 2 else "cloud")
+
+
+def _engine_card_rank(rank, out_dir):
+    """One of two ranks on cuda:0 over gloo, a (data, model) = (2, 1)
+    mesh: the engine's cases of ``tests/test_torch_context.py`` with
+    their codecs on the card."""
+    import pickle
+
+    from test_torch_context import ENGINE_CASES, _engine_run
+
+    from repro_torch.launch.mesh import Mesh, device_mesh
+    from repro_torch.models import DistContext
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ctx = DistContext(device_mesh(Mesh((2, 1), ("data", "model")), "cuda"),
+                      ("data",))
+    res = {case: _engine_run(case, ctx, "cuda") for case in ENGINE_CASES}
+    (out_dir / f"engine{rank}.pkl").write_bytes(pickle.dumps(res))
+
+
+@pytest.mark.timeout(300)
+def test_engine_on_dp_ranks_on_the_card(dev, tmp_path):
+    """``ServeEngine(ctx=)`` on two dp ranks on the card, its codecs on
+    the CUDA backend: tokens, ``rate_log``, counters and retirements equal
+    the one-rank engine's on the card, logits within the CPU test's
+    tolerance."""
+    import pickle
+
+    from test_torch_context import (ENGINE_ATOL, ENGINE_CASES, ENGINE_RTOL,
+                                    _engine_run, spawn)
+    spawn(_engine_card_rank, 2, tmp_path, tmp_path)
+    for case in ENGINE_CASES:
+        want = _engine_run(case, None, "cuda")
+        for rank in range(2):
+            got = pickle.loads((tmp_path / f"engine{rank}.pkl")
+                               .read_bytes())[case]
+            for key in ("tokens", "rate_log", "counters", "retired"):
+                assert got[key] == want[key], (case, rank, key)
+            for a, b in zip(got["logits"], want["logits"], strict=True):
+                np.testing.assert_allclose(a, b, rtol=ENGINE_RTOL,
+                                           atol=ENGINE_ATOL)
+
+
+@pytest.mark.timeout(300)
+def test_examples_on_the_card(dev, tmp_path):
+    """``python -m repro_torch.examples.quickstart`` prints on the card
+    what it prints with ``--device cpu``; ``edge_cloud_demo --smoke``
+    runs its two processes on the card and prints its OK line."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src)
+
+    def run(*args):
+        out = subprocess.run([sys.executable, "-m"] + list(args),
+                             capture_output=True, text=True, timeout=240,
+                             env=env, cwd=tmp_path)
+        assert out.returncode == 0, out.stdout + out.stderr
+        return out.stdout
+
+    card = run("repro_torch.examples.quickstart")
+    assert card == run("repro_torch.examples.quickstart", "--device", "cpu")
+    demo = run("repro_torch.examples.edge_cloud_demo", "--smoke")
+    assert "[edge] OK: streamed cloud reconstruction is bit-exact" in demo
+
+
+@pytest.mark.timeout(300)
+def test_train_with_compression_resumes_exactly_on_the_card(dev, tmp_path):
+    """``train_with_compression`` on the card at 6 steps, a checkpoint
+    every 2 and a failure at step 3: the resumed run's losses are the
+    uninterrupted run's, bit for bit."""
+    from repro_torch.examples import train_with_compression as TW
+
+    res = TW.run("cuda", ckpt_dir=str(tmp_path / "ckpt"), steps=6,
+                 ckpt_every=2, fail_at=3, batch=2, seq_len=16)
+    assert res["resumed_from"] == 2
+    assert res["resumed"] == res["base"][2:]
+    assert res["compressed"] != res["base"]

@@ -309,9 +309,9 @@ def test_engine_refills_recurrent_caches(models):
     prompts = []
     prefill = eng._prefill
 
-    def recording(p, toks, cache):
+    def recording(p, toks, cache, *, split):
         prompts.extend(toks.numpy())
-        return prefill(p, toks, cache)
+        return prefill(p, toks, cache, split=split)
 
     eng._prefill = recording
     eng.generate(reqs)

@@ -263,10 +263,8 @@ def _refusals(rank, out_dir) -> None:
 
 
 def test_ranked_split_refuses_bad_contexts(ranks_211, tmp_path_factory):
-    """Without a pod axis of two ranks, with the pods splitting the batch
-    (both checked on the (2, 1, 1) ranks before their runs), and a tiled
-    codec whose tiles span rows under a data split (on the (2, 2, 1)
-    ranks)."""
+    """Without a pod axis of two ranks, and with the pods splitting the
+    batch (both checked on the (2, 1, 1) ranks before their runs)."""
     _, _, out_dir = ranks_211
     assert all((out_dir / f"refused{r}").exists() for r in range(2))
 
@@ -274,21 +272,31 @@ def test_ranked_split_refuses_bad_contexts(ranks_211, tmp_path_factory):
 # -- (2, 2, 1): row blocks, and the reference's SPMD run -----------------------------
 
 TAG_221 = "R221"
+# the tiled codec whose tiles span rows (test_torch_compression.py's
+# ROW_TILE_CASES): the edge ranks of a data group gather their rows
+TILE_CASE = "packed-tile-rows"
 
 
-def _ranks_221(rank, out_dir, tree, codecs, tokens, tiled):
+def _tile_codec():
+    import test_torch_compression as TC
+    from repro_torch.core import CodecConfig, calibrate
+    transport, kw = TC.ROW_TILE_CASES[TILE_CASE]
+    return transport, calibrate(CodecConfig(backend="torch", **kw),
+                                samples=TC._tile_samples())
+
+
+def _ranks_221(rank, out_dir, tree, codecs, tokens):
     ctx = _ctx((2, 2, 1))
     cfg = _cfg(4)
-    with pytest.raises(ValueError, match="tiles span rows"):
-        SR.make_split_decode_step(cfg, tiled, transport="packed",
-                                  edge_device="cpu", cloud_device="cpu",
-                                  ctx=ctx)
-    (out_dir / f"refused{rank}").touch()
     params = split_params_from_numpy(cfg, tree, edge_device="cpu",
                                      cloud_device="cpu", ctx=ctx)
     res = {}
     for case, (transport, codec) in codecs.items():
-        run = _run(cfg, params, codec, transport, tokens[case], ctx)
+        unrounded = []
+        run = _run(cfg, params, codec, transport, tokens[case], ctx,
+                   unrounded=unrounded)
+        if case == TILE_CASE and unrounded:
+            run["unrounded"] = np.stack(unrounded)
         res.update({f"{case}/{k}": v for k, v in run.items()})
     _save(out_dir, rank, res)
 
@@ -298,22 +306,13 @@ def ranks_221(tmp_path_factory):
     """The reference's (2, 2, 1) runs (one subprocess), then the four
     ranks on its weights and tokens."""
     import test_torch_compression as TC
-    from repro_torch.core import CodecConfig, calibrate
     tmp = tmp_path_factory.mktemp("ranks221")
-    ref = TC.run_reference(tmp, [], [(TAG_221, "codeqwen1.5-7b", 4,
-                                      list(CASE_NAMES))])
-    codecs = _codecs()
+    names = list(CASE_NAMES) + [TILE_CASE]
+    ref = TC.run_reference(tmp, [], [(TAG_221, "codeqwen1.5-7b", 4, names)])
+    codecs = {**_codecs(), TILE_CASE: _tile_codec()}
     tokens = {c: ref[f"{TAG_221}/{c}/tokens"].astype(np.int64)
-              for c in CASE_NAMES}
-    # per-tile ranges over blocks of 2 of the boundary's 4 rows
-    tiled = calibrate(CodecConfig(
-        backend="torch", n_levels=4, granularity="tile", channel_axis=-1,
-        channel_group_size=8, spatial_block_size=2, clip_mode="minmax"),
-        samples=np.random.default_rng(0).standard_normal(
-            (BATCH, 1, 64)).astype(np.float32))
-    spawn(_ranks_221, 4, tmp, tmp, TC._tree(ref, TAG_221), codecs, tokens,
-          tiled)
-    assert all((tmp / f"refused{r}").exists() for r in range(4))
+              for c in names}
+    spawn(_ranks_221, 4, tmp, tmp, TC._tree(ref, TAG_221), codecs, tokens)
     return ref, codecs, tokens, _load(tmp, 4)
 
 
@@ -374,6 +373,57 @@ def test_ranked_split_221_rows_and_reference(ranks_221, case):
         assert np.all(TC._bf16_rounding_apart(
             logits[pos], want[pos], port_unrounded)), \
             f"logits differ by {np.abs(logits[pos] - want[pos]).max()}"
+
+
+def test_ranked_split_221_tiles_spanning_rows(ranks_221):
+    """A tiled codec whose tiles span rows under a data split: each edge
+    rank gathers its data group's boundary rows and quantizes the whole
+    batch's tiles, as the reference does under GSPMD, and sends its peer
+    the whole batch's payload.  Both edge ranks send the same bytes, the
+    bytes of the one-process runtime's quantizer on the gathered boundary;
+    every rank returns the same logits and rate.  Against the reference's
+    (2, 2, 1) SPMD run by the rule of the other cases: payload indices
+    equal but where the reference's boundary value sits at a bin edge,
+    ``rate_bits`` within 1e-6, logits within 1e-3 with the bfloat16
+    rounding-edge rule."""
+    import test_torch_compression as TC
+    ref, codecs, tokens, ranks = ranks_221
+    transport, codec = codecs[TILE_CASE]
+    assert SR.gathers_rows(codec, transport)
+    got = [_part(r, f"{TILE_CASE}/") for r in ranks]
+    for res in got:
+        _assert_same(res, got[0], ("logits", "rate"))
+    edge = got[0]
+    assert "payload" not in got[2] and "payload" not in got[3]
+    _assert_same(got[1], edge, ("payload", "y", "counts"))
+    assert edge["y"].shape[1] == BATCH
+    for pos in range(STEPS):
+        y = torch.from_numpy(edge["y"][pos])
+        # the whole boundary's one-process quantizer, pack and rate
+        idx = codec.quantize(y)
+        assert np.array_equal(edge["payload"][pos],
+                              codec.pack(idx.reshape(-1)).numpy())
+        assert edge["rate"][pos] == np.float32(float(
+            codec.rate_from_indices(idx, y.shape)))
+        assert SR.payload_bytes(_cfg(4), codec, transport, BATCH) \
+            == edge["payload"][pos].size + 4
+        ref_wire = ref[f"{TAG_221}/{TILE_CASE}/payload"][pos]
+        if not TC._same_or_at_edge(
+                edge["payload"][pos].reshape(ref_wire.shape), ref_wire,
+                ref[f"{TAG_221}/{TILE_CASE}/y"][pos], codec):
+            print(f"(2, 2, 1) {TILE_CASE}: held to the reference for {pos} "
+                  f"of {STEPS} steps, then an index at a bin edge")
+            return
+        assert abs(float(edge["rate"][pos])
+                   - float(ref[f"{TAG_221}/{TILE_CASE}/rate"][pos])) \
+            <= TC.RATE_ATOL
+        # each cloud rank's unrounded logits are its block's rows
+        port_unrounded = np.concatenate([got[2]["unrounded"][pos],
+                                         got[3]["unrounded"][pos]])
+        want = ref[f"{TAG_221}/{TILE_CASE}/logits"][pos]
+        assert np.all(TC._bf16_rounding_apart(
+            edge["logits"][pos], want, port_unrounded)), \
+            f"logits differ by {np.abs(edge['logits'][pos] - want).max()}"
 
 
 # -- (2, 1, 2): expert parallelism inside each stage ---------------------------------
