@@ -50,7 +50,7 @@ from typing import Literal
 import numpy as np
 import torch
 
-from ..obs.tracing import span
+from ..obs.tracing import span, tracer
 from . import aciq, cabac, clipping
 from .backend import (QuantSpec, get_backend, host_tensor, packs_in_quantizer,
                       spec_from_numpy)
@@ -547,9 +547,11 @@ class FeatureCodec:
         8-256 count the indices in the quantizer's own launch on the card
         (``backend.quantize_with_histogram``); the others histogram them
         after it (:meth:`index_counts`).  The same counts give the same
-        rate either way."""
-        idx, deq, hist = self.quantize_with_counts(x, want_deq)
-        return idx, deq, self.rate_from_counts(hist, np.shape(x))
+        rate either way.  The pass is a ``repro.codec`` range in a
+        profiler's trace (``Tracer.annotate``)."""
+        with tracer().annotate("repro.codec"):
+            idx, deq, hist = self.quantize_with_counts(x, want_deq)
+            return idx, deq, self.rate_from_counts(hist, np.shape(x))
 
     def quantize_with_counts(self, x, want_deq: bool = False):
         """(indices, reconstruction or None, index counts): the pass of

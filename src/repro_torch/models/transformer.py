@@ -33,6 +33,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import LayerSpec, ModelConfig
+from ..obs.tracing import tracer
 from ..tree import leaves, rebuild
 from . import layers as L
 from . import moe as MOE
@@ -259,12 +260,16 @@ def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, *, pos: int,
                  cache, positions, ctx=None):
     """x: (B,S,d). cache: this layer's cache dict or None (written in
     place). pos: absolute position of x[:, 0].  ``ctx`` reaches only the
-    MoE (the reference's other uses are placement hints)."""
+    MoE (the reference's other uses are placement hints).  The attention
+    mixer and the FFN are ``repro.attention`` and ``repro.ffn`` ranges in
+    a profiler's trace (``Tracer.annotate``)."""
+    tr = tracer()
     h = L.apply_norm(x, p["norm1"], cfg.norm, cfg.norm_eps)
     if spec.kind == "attn":
-        x = x + L.attention_out(_attention(h, p["attn"], spec, cfg, pos=pos,
-                                           cache=cache, positions=positions),
-                                p["attn"])
+        with tr.annotate("repro.attention"):
+            x = x + L.attention_out(
+                _attention(h, p["attn"], spec, cfg, pos=pos, cache=cache,
+                           positions=positions), p["attn"])
     elif spec.kind == "rglru":
         out, new = RG.rglru_block_apply(h, p["rec"], cfg, cache)
         x = x + out
@@ -277,15 +282,16 @@ def _apply_layer(x, p, spec: LayerSpec, cfg: ModelConfig, *, pos: int,
         if cache is not None:
             _write(cache["tmix"], new)
     h2 = L.apply_norm(x, p["norm2"], cfg.norm, cfg.norm_eps)
-    if spec.moe:
-        return x + MOE.moe_apply(h2, p["moe"], cfg, ctx)
-    if spec.kind == "rwkv":
-        out, new = RW.channel_mix_apply(h2, p["cmix"],
-                                        cache["cmix"] if cache else None)
-        if cache is not None:
-            _write(cache["cmix"], new)
-        return x + out
-    return x + L.mlp_apply(h2, p["mlp"], cfg.act, cfg.gated_mlp)
+    with tr.annotate("repro.ffn"):
+        if spec.moe:
+            return x + MOE.moe_apply(h2, p["moe"], cfg, ctx)
+        if spec.kind == "rwkv":
+            out, new = RW.channel_mix_apply(h2, p["cmix"],
+                                            cache["cmix"] if cache else None)
+            if cache is not None:
+                _write(cache["cmix"], new)
+            return x + out
+        return x + L.mlp_apply(h2, p["mlp"], cfg.act, cfg.gated_mlp)
 
 
 def _remat_group_size(n: int) -> int:

@@ -4,8 +4,9 @@
   of typed Counter/Gauge/Histogram instruments with Prometheus text-format
   rendering (names follow ``repro_<subsystem>_<name>_<unit>``).
 - :mod:`repro_torch.obs.tracing` -- span-based stage tracing, disabled by
-  default; optionally wraps the fused-encode dispatch in
-  ``torch.profiler.record_function``.
+  default; while a ``torch.profiler`` session records, each span is
+  also a ``repro.<stage>`` ``record_function`` range in the profiler's
+  trace, and ``Tracer.annotate`` opens such a range alone.
 - :mod:`repro_torch.obs.exposition` -- a minimal asyncio HTTP endpoint
   serving ``GET /metrics`` (Prometheus text 0.0.4) and ``GET /events``
   (the JSON span log), plus a text-format parser for tests.

@@ -23,18 +23,25 @@ opens and as it closes, before it reads the clock: with
 ``torch.cuda.synchronize`` a span times the device work issued inside
 it, not only its dispatch (the split runtime's step parts are timed so).
 
-``REPRO_OBS_TRACE=1`` enables tracing at import; ``REPRO_OBS_PROFILER_TRACE=1``
-additionally wraps the fused-encode kernel dispatch in
-``torch.profiler.record_function`` so spans line up with profiler traces.
+While a ``torch.profiler`` session records the calling thread, each
+span also opens a ``torch.profiler.record_function`` range named
+``repro.<stage>`` (after its opening sync; it closes after the closing
+one), so the program's spans lie in the profiler's trace on the
+profiler's clock.  :meth:`Tracer.annotate` is the light form: such a
+range alone, with no sync and no event, for places too fine for a span
+(a layer's attention or FFN, the codec's pass).  Neither imports torch;
+with tracing off neither checks for a profiler.
+
+``REPRO_OBS_TRACE=1`` enables tracing at import.
 """
 
 from __future__ import annotations
 
-import contextlib
 import contextvars
 import itertools
 import json
 import os
+import sys
 import threading
 import time
 from collections import deque
@@ -67,9 +74,19 @@ class _NullSpan:
 _NULL_SPAN = _NullSpan()
 
 
+def _profiler_range(name: str):
+    """``record_function(name)``, not yet entered, where a
+    ``torch.profiler`` session records this thread, else None (torch is
+    never imported here: without it no profiler runs)."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    return torch.autograd.profiler.record_function(name)
+
+
 class Span:
     __slots__ = ("stage", "attrs", "span_id", "parent_id", "t_start",
-                 "dur_s", "_tracer", "_token", "_t0")
+                 "dur_s", "_tracer", "_token", "_t0", "_range")
 
     def __init__(self, tracer: "Tracer", stage: str, attrs: dict):
         self.stage = stage
@@ -81,6 +98,7 @@ class Span:
         self._tracer = tracer
         self._token = None
         self._t0 = 0.0
+        self._range = None
 
     def set(self, **attrs):
         self.attrs.update(attrs)
@@ -92,6 +110,9 @@ class Span:
         self._token = _current_span.set(self)
         if self._tracer.sync is not None:
             self._tracer.sync()
+        self._range = _profiler_range("repro." + self.stage)
+        if self._range is not None:
+            self._range.__enter__()
         self.t_start = time.time()
         self._t0 = time.perf_counter()
         return self
@@ -100,6 +121,9 @@ class Span:
         if self._tracer.sync is not None and exc_type is None:
             self._tracer.sync()
         self.dur_s = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         if self._token is not None:
             _current_span.reset(self._token)
         if exc_type is not None:
@@ -113,7 +137,6 @@ class Tracer:
 
     def __init__(self, registry=None, max_events: int = 65536):
         self.enabled = False
-        self.profiler_trace = False
         self.sync = None
         self.events: deque[dict] = deque(maxlen=max_events)
         self._ids = itertools.count(1)
@@ -125,14 +148,11 @@ class Tracer:
     # configuration ----------------------------------------------------
     def configure(self, enabled: bool | None = None,
                   event_log_path: str | None | type(...) = ...,
-                  profiler_trace: bool | None = None,
                   sync=...) -> "Tracer":
         if enabled is not None:
             self.enabled = bool(enabled)
         if event_log_path is not ...:
             self._event_path = event_log_path
-        if profiler_trace is not None:
-            self.profiler_trace = bool(profiler_trace)
         if sync is not ...:
             self.sync = sync
         if self.enabled and self._hist is None:
@@ -168,13 +188,15 @@ class Tracer:
         if self._hist is not None:
             self._hist.observe(sp.dur_s, stage=sp.stage)
 
-    # torch.profiler hook ----------------------------------------------
+    # torch.profiler ranges -------------------------------------------
     def annotate(self, name: str):
-        """``record_function`` ctx for the fused-encode dispatch (opt-in)."""
-        if not (self.enabled and self.profiler_trace):
-            return contextlib.nullcontext()
-        from torch.profiler import record_function
-        return record_function(name)
+        """A ``record_function(name)`` range where tracing is on and a
+        ``torch.profiler`` session records this thread; else the shared
+        no-op.  No sync, no event: it only marks the trace."""
+        if not self.enabled:
+            return _NULL_SPAN
+        rf = _profiler_range(name)
+        return _NULL_SPAN if rf is None else rf
 
     # analysis helpers -------------------------------------------------
     def snapshot_events(self) -> list[dict]:
@@ -201,8 +223,6 @@ class Tracer:
 _TRACER = Tracer()
 if os.environ.get("REPRO_OBS_TRACE", "") not in ("", "0"):
     _TRACER.configure(enabled=True)
-if os.environ.get("REPRO_OBS_PROFILER_TRACE", "") not in ("", "0"):
-    _TRACER.configure(enabled=True, profiler_trace=True)
 
 
 def tracer() -> Tracer:
@@ -216,6 +236,5 @@ def span(stage: str, **attrs):
 
 def configure_tracing(enabled: bool | None = None,
                       event_log_path: str | None | type(...) = ...,
-                      profiler_trace: bool | None = None,
                       sync=...) -> Tracer:
-    return _TRACER.configure(enabled, event_log_path, profiler_trace, sync)
+    return _TRACER.configure(enabled, event_log_path, sync)

@@ -145,12 +145,6 @@ class ServeEngine:
         self._m_latency = m.histogram(
             "repro_engine_request_latency_seconds",
             "request wall-clock latency (admit -> retire)")
-        self._m_lat_p50 = m.gauge(
-            "repro_engine_request_latency_p50_seconds",
-            "p50 latency over the latency_log ring buffer")
-        self._m_lat_p99 = m.gauge(
-            "repro_engine_request_latency_p99_seconds",
-            "p99 latency over the latency_log ring buffer")
         self._m_bpe = m.histogram(
             "repro_engine_split_rate_bpe",
             "split-layer coded bits/element per decode step",
@@ -264,17 +258,20 @@ class ServeEngine:
                                                   cur, pos)
             if all(r is None for r in active):
                 continue    # nothing admitted (prompts too long for pos)
+            n_active = sum(r is not None for r in active)
             self._m["steps"].inc()
             self._m["slot_steps"].inc(self.slots)
-            self._m["active_slot_steps"].inc(sum(
-                r is not None for r in active))
-            tok = torch.as_tensor(cur, device=self.device)
-            lg, cache, aux = self._run(self._decode, tok, cache, pos)
-            if "codec_rate_bits" in aux:
-                bpe = float(aux["codec_rate_bits"])
-                self.rate_log.append(bpe)
-                self._m_bpe.observe(bpe)
-            cur = torch.argmax(lg, dim=-1).to(torch.int32).cpu().numpy()
+            self._m["active_slot_steps"].inc(n_active)
+            # the span's syncs fall where the step waits anyway: after the
+            # last step's tokens reached the host, and after this one's
+            with span("decode", active=n_active, pos=pos):
+                tok = torch.as_tensor(cur, device=self.device)
+                lg, cache, aux = self._run(self._decode, tok, cache, pos)
+                if "codec_rate_bits" in aux:
+                    bpe = float(aux["codec_rate_bits"])
+                    self.rate_log.append(bpe)
+                    self._m_bpe.observe(bpe)
+                cur = torch.argmax(lg, dim=-1).to(torch.int32).cpu().numpy()
             pos += 1
         return requests
 
@@ -288,9 +285,6 @@ class ServeEngine:
         })
         self._m_requests.inc()
         self._m_latency.observe(r.latency_s)
-        lat = [d["latency_s"] for d in self.latency_log]
-        self._m_lat_p50.set(float(np.percentile(lat, 50)))
-        self._m_lat_p99.set(float(np.percentile(lat, 99)))
         log.info("request done: slot=%d prompt_len=%d tokens=%d "
                  "latency=%.3fs", i, len(r.prompt), len(r.out_tokens),
                  r.latency_s)
@@ -304,10 +298,10 @@ class ServeEngine:
     @property
     def counters(self) -> dict:
         """Structured serving metrics: slot occupancy of the continuous
-        batch, admission churn, the split-layer rate actually spent, and
-        request-latency percentiles over the ``latency_log`` window.  The
-        same numbers live as ``repro_engine_*`` instruments in
-        :attr:`metrics`."""
+        batch, admission churn, the split-layer rate actually spent and
+        the requests retired.  The same numbers live as
+        ``repro_engine_*`` instruments in :attr:`metrics`, beside the
+        request-latency histogram."""
         t = {k: int(c.value()) for k, c in self._m.items()}
         return {
             **t,
@@ -316,8 +310,6 @@ class ServeEngine:
             "split_bpe_avg": (float(np.mean(self.rate_log))
                               if self.rate_log else 0.0),
             "requests_done": int(self._m_requests.value()),
-            "request_latency_p50_s": self._m_lat_p50.value(),
-            "request_latency_p99_s": self._m_lat_p99.value(),
         }
 
     def _new_cache(self, batch: int):
@@ -343,7 +335,8 @@ class ServeEngine:
         cache = self._new_cache(self.slots)
         self._m["epochs"].inc()
         self._m["prefills"].inc()
-        with span("prefill", batch=len(batch)):
+        with span("prefill", batch=len(batch), padded=self.slots * plen,
+                  prompt=sum(len(r.prompt) for r in batch)):
             logits, cache = self._run(
                 self._prefill, torch.as_tensor(toks, device=self.device),
                 cache)
@@ -378,23 +371,26 @@ class ServeEngine:
             return cache, cur
         toks = np.zeros((1, pos), np.int32)
         toks[0, pos - len(r.prompt):] = r.prompt
-        one = self._new_cache(1)
-        r.t_admit = time.perf_counter()
-        self._m["refills"].inc()
-        self._m["prefills"].inc()
-        with span("prefill", batch=1, refill=True):
-            logits, one = self._run(
-                self._prefill, torch.as_tensor(toks, device=self.device), one)
-        # the slot's row of this rank's caches (none where another dp
-        # rank holds it)
-        n, row = self.slots, slot
-        if self._split:
-            n = self.slots // self.ctx.dp_size
-            row = slot - self.ctx.dp_rank * n
-        if 0 <= row < n:
-            for full_g, one_g in zip(cache, one):
-                for full_l, one_l in zip(full_g, one_g):
-                    _copy_row(full_l, one_l, row)
+        with span("refill"):
+            one = self._new_cache(1)
+            r.t_admit = time.perf_counter()
+            self._m["refills"].inc()
+            self._m["prefills"].inc()
+            with span("prefill", batch=1, refill=True, padded=pos,
+                      prompt=len(r.prompt)):
+                logits, one = self._run(
+                    self._prefill, torch.as_tensor(toks, device=self.device),
+                    one)
+            # the slot's row of this rank's caches (none where another dp
+            # rank holds it)
+            n, row = self.slots, slot
+            if self._split:
+                n = self.slots // self.ctx.dp_size
+                row = slot - self.ctx.dp_rank * n
+            if 0 <= row < n:
+                for full_g, one_g in zip(cache, one):
+                    for full_l, one_l in zip(full_g, one_g):
+                        _copy_row(full_l, one_l, row)
         first = int(torch.argmax(logits[0]))
         cur = cur.copy()
         cur[slot] = first
