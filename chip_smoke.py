@@ -40,7 +40,15 @@ Phases, in order; any failure raises and exits non-zero:
    the step loop, the larger of its byte bound and its dependent chain:
    the cycles of the step's least dependent chain, measured in this run
    by ``tools/rans_chain_probe.cu``, per step at the top SM clock
-   ``nvidia-smi`` reports);
+   ``nvidia-smi`` reports).  The decode-attention kernel (#10), bf16,
+   against the plain decode path (the masked float32 attention over the
+   whole cache, the slots past the prefix holding large values) within
+   rtol 1.6e-2, atol 2e-3, at the benchmark cell's shape (48 rows x 8192
+   slots, 32 / 4 heads of 128) at positions 0, 255, 8191 and 2150, at
+   dbrx's stage (32 x 4096, 48 / 8 heads) at 0, 4095 and 2150, and at
+   phase 4's decode shape; timed at the last position of each beside the
+   plain path, its byte bound (the prefix of K and V read once) and
+   ``F.scaled_dot_product_attention`` over the prefix;
 4. serve   -- codeqwen1.5-7b at full width and depth (bf16, random
    weights from seed 0), 4 requests of 64 prompt + 8 new tokens, N=4,
    every codec calibrated from one set of warm-up activations:
@@ -51,7 +59,8 @@ Phases, in order; any failure raises and exits non-zero:
    ECSQ, ``codec=``; (f) per-channel ECSQ g=8, the bitstream hookup.
    Launch counts are reset before and read after each run -- also by
    size, prefill or decode -- and every kernel must have launched on its
-   run; (a), (c) and (e) count their indices in the quantizer's launch
+   run, decode attention once a layer in each of the 7 decode steps of
+   (a)-(f) and the 16 steps of (g)-(l) and (n); (a), (c) and (e) count their indices in the quantizer's launch
    and must launch no histogram, with each boundary's rate equal to the
    two-launch path's (quantize, then histogram); every boundary's
    payloads of (f), whose ECSQ quantizer writes coded order, equal the
@@ -157,7 +166,8 @@ Phases, in order; any failure raises and exits non-zero:
    ``step_time_lower_bound_s``: the larger of the FLOPs at the H100's
    peak and the eager traffic at its HBM rate); then the same step runs
    on the card (weights from seed 0).  Gates: ``FlopCounterMode``
-   around it counts exactly the meta pass's FLOPs; the bytes of its
+   around it, plus the products of the decode-attention launches it does
+   not see, counts exactly the meta pass's FLOPs; the bytes of its
    arguments on the card equal the predicted ``memory.argument_bytes``;
    ``max_memory_allocated`` over the timed runs is within 10% of the
    predicted peak.  On the first three cells the first two gates hold
@@ -212,8 +222,8 @@ Phases, in order; any failure raises and exits non-zero:
    steps; every rank's logits identical in every bit to (g)'s and (h)'s,
    the packed payload bytes and rates to (h)'s; the edge rank launches
    the per-tensor quantizer (packing in its launch) once a packed step
-   and no other kernel (no pack, no histogram), the cloud rank no
-   kernel.  (ae) qwen3-moe-235b-a22b at published width cut to 2 of its
+   and no other codec kernel (no pack, no histogram), the cloud rank no
+   codec kernel.  (ae) qwen3-moe-235b-a22b at published width cut to 2 of its
    94 layers (1 + 1), (2, 1, 2), 64 experts a rank in each stage, the
    four ranks drawing in turn: ``packed`` with (ab)'s codec on (ab)'s
    tokens, 2 sequences, 8 steps; the two ``model`` ranks of each stage
@@ -226,8 +236,9 @@ Phases, in order; any failure raises and exits non-zero:
    rows and quantize the whole batch's tiles: every rank's logits and
    rates and both edge ranks' payloads identical in every bit to the
    one-process runtime's on the same weights, codec and tokens, each
-   edge rank launching what the one-process run launched, each cloud
-   rank nothing.
+   edge rank launching the codec kernels the one-process run launched,
+   each cloud rank none.  In (ad), (ae) and (af) every rank also launches
+   decode attention once an attention layer of its stage a step.
    Printed: ms per step (median) split into edge stage, crossing (the
    edge's stage done until the cloud holds the payload on the card, host
    staging included), cloud stage and return path, from the step's
@@ -292,6 +303,14 @@ REQUESTS, PROMPT_LEN, NEW_TOKENS = 4, 64, 8
 WARMUP_BATCHES = 2          # calibration batches of split-layer activations
 ECSQ_LAGRANGIAN = 0.05
 SPLIT_PROMPT, SPLIT_NEW, SPLIT_MAX_SEQ = 8, 8, 32
+# decode attention (#10), bf16, 128 a head: name -> (rows, cache slots,
+# query heads, KV heads, positions checked against the plain path, the
+# last also timed) -- the benchmark cell's shape, dbrx's stage, and the
+# shape phase 4's decode steps launch it at (its last step)
+DA_SHAPES = {"cell": (48, 8192, 32, 4, (0, 255, 8191, 2150)),
+             "dbrx": (32, 4096, 48, 8, (0, 4095, 2150)),
+             "decode": (REQUESTS, PROMPT_LEN + NEW_TOKENS + 8, 32, 32, (70,))}
+DA_TOL = dict(rtol=1.6e-2, atol=2e-3)   # bf16 outputs against the plain path
 ROADMAP = ROOT / "ROADMAP.md"    # its queue B table: each kernel's status
 TICK_SESSIONS = 16      # concurrent sessions of the transport runs (r), (s)
 # run -> (transport, split codec); the codecs are built in split_phase
@@ -857,6 +876,8 @@ def size_class(kernel: str, symbol: str, args) -> str:
     name theirs the same way on their fast route (#8: "", " idx", or
     " coded" for coded order), and " element" (" element idx") on the
     element route."""
+    if kernel == "decode_attention":
+        return "decode"
     if kernel == "clip_quant" and args[2] == TRAIN_N:
         return "train +hist" if args[10] is not None else "train"
     if symbol == "repro_clip_quant_pack":
@@ -1420,10 +1441,13 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
             err=diff(pb.pack_bits(idx, bits), pb.pack_bits_plain(idx, bits)))
     row("pack_bits", "pack_bits.cu", "src/repro/kernels/pack_bits.py:38",
         sizes)
+    row("decode_attention", "decode_attention.cu", None,
+        decode_attention_cases(dev))
 
     check(all(r_["sizes"][s]["max_abs_err"] == 0 for r_ in rows
               for s in r_["sizes"]
-              if r_["name"] not in ("clip_quant", "clip_quant_tiles")),
+              if r_["name"] not in ("clip_quant", "clip_quant_tiles",
+                                    "decode_attention")),
           "integer kernel outputs and ECSQ reconstructions must match "
           "exactly")
     print("times per call: device time of back-to-back calls; 'eager' is "
@@ -1441,6 +1465,63 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
                   + (f"  library {t['library_ms']:.4f} ms (eager)"
                      if t["library_ms"] is not None else ""))
     return rows
+
+
+def decode_attention_cases(dev) -> dict:
+    """Kernel #10 at each of DA_SHAPES: the wrapper against the plain
+    decode path (the masked float32 attention over the whole cache) at
+    each position checked, within DA_TOL, with the slots past the
+    prefix holding large values so that reading one would show; then the
+    sizes ``row`` times at the last position checked, beside the plain
+    path, its
+    byte bound (the prefix of K and V read once) and
+    ``F.scaled_dot_product_attention`` over the prefix."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import layers as L
+
+    hd, sizes = 128, {}
+    for name, (b, s, h, kh, checked) in DA_SHAPES.items():
+        idx = torch.arange(s, dtype=torch.int32, device=dev)
+        worst = 0.0
+        for pos in checked:
+            g = torch.Generator(device=dev).manual_seed(pos)
+            q = torch.randn((b, 1, h, hd), device=dev, generator=g).to(
+                torch.bfloat16)
+            k, v = (torch.randn((b, s, kh, hd), device=dev, generator=g).to(
+                torch.bfloat16) for _ in range(2))
+            n = min(pos + 1, s)
+            k[:, n:] = 1e4
+            v[:, n:] = -1e4
+            got = DA.decode_attention(q[:, 0], k, v, n).float()
+            want = L.multi_head_attention(q, k, v, q_offset=pos,
+                                          k_positions=idx).float()
+            err = float((got - want).abs().max())
+            check(bool(((got - want).abs() <= DA_TOL["atol"] + DA_TOL["rtol"]
+                        * want.abs()).all()),
+                  f"(#10) decode_attention {name} at pos {pos}: {err} from "
+                  f"the plain path, beyond rtol {DA_TOL['rtol']} atol "
+                  f"{DA_TOL['atol']}")
+            worst = max(worst, err)
+        print(f"decode_attention {name} ({b} x {s} slots, {h} / {kh} heads "
+              f"of {hd}, bf16) at positions {checked}: within rtol "
+              f"{DA_TOL['rtol']}, atol {DA_TOL['atol']} of the plain path "
+              f"(largest difference {worst})")
+        # the last position checked is the one timed; q, k, v are its
+        sizes[name] = dict(
+            kernel=lambda q=q, k=k, v=v, n=n: DA.decode_attention(
+                q[:, 0], k, v, n),
+            plain=lambda q=q, k=k, v=v, pos=pos, idx=idx:
+                L.multi_head_attention(q, k, v, q_offset=pos,
+                                       k_positions=idx),
+            plain_kw=dict(reps=5),
+            library=lambda q=q, k=k, v=v, n=n: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k[:, :n].transpose(1, 2),
+                v[:, :n].transpose(1, 2), enable_gqa=True),
+            nbytes=2 * b * n * kh * hd * 2, nops=4 * b * h * n * hd,
+            err=worst)
+    return sizes
 
 
 # -- phase 4: serving ----------------------------------------------------------
@@ -2815,6 +2896,7 @@ def dry_cell(arch: str, shape, overrides: dict, smi: str, dev) -> None:
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
     from repro_torch.launch import dryrun
     from repro_torch.launch.dryrun import H100
     from repro_torch.launch.mesh import make_smoke_mesh
@@ -2842,10 +2924,17 @@ def dry_cell(arch: str, shape, overrides: dict, smi: str, dev) -> None:
     check(held == rec["memory"]["argument_bytes"], f"(9) {arch} "
           f"{shape.name}: {held} argument bytes on the card, predicted "
           f"{rec['memory']['argument_bytes']}")
+    _build.reset_launches()
     with FlopCounterMode(display=False) as fc:
         step(*args)
     torch.cuda.synchronize()
-    card_flops = fc.get_total_flops()
+    # FlopCounterMode does not see the decode-attention kernel (#10): add
+    # its products, 4 * B * H * n_valid * hd a launch, which the meta
+    # pass counts as the plain path's two matmuls (a decode cell's pos is
+    # its last slot, so n_valid is the whole cache)
+    card_flops = fc.get_total_flops() + _build.LAUNCHES["decode_attention"] \
+        * 4 * shape.global_batch * cfg.num_heads * shape.seq_len \
+        * cfg.head_dim
     check(card_flops == ops["flops"], f"(9) {arch} {shape.name}: "
           f"FlopCounterMode counts {card_flops} FLOPs on the card, the "
           f"meta pass {ops['flops']}")
@@ -3643,12 +3732,27 @@ def link_bytes(cfg, codec, transport: str, batch: int) -> tuple[int, int]:
             2 * batch * cfg.vocab_size)
 
 
-def ranked_launches(label: str, ranks: list, edge: dict):
-    """Gate: each edge rank launches the kernels of ``edge`` (name ->
-    launches) and no other; each cloud rank no kernel at all."""
+def attention_layers(cfg, n_layers: int | None = None) -> int:
+    """Attention layers among the first ``n_layers`` of ``cfg`` (all)."""
+    return sum(spec.kind == "attn"
+               for spec in cfg.layer_specs()[:n_layers])
+
+
+def ranked_launches(label: str, ranks: list, cfg, steps: int, edge: dict):
+    """Gate: every rank launches decode attention once an attention layer
+    of its stage a step, over ``steps`` steps of ``cfg``'s split; each edge
+    rank also the codec kernels of ``edge`` (name -> launches), and no
+    rank any other kernel."""
+    from repro_torch.compression.split_runtime import stage_layout
+
+    half, _ = stage_layout(cfg)
+    per_stage = {"edge": attention_layers(cfg, half),
+                 "cloud": attention_layers(cfg) - attention_layers(cfg, half)}
     for r in ranks:
         got = {k: v for k, v in r[label]["launches"].items() if v}
-        want = edge if r["stage"] == "edge" else {}
+        want = dict(edge) if r["stage"] == "edge" else {}
+        if per_stage[r["stage"]]:
+            want["decode_attention"] = per_stage[r["stage"]] * steps
         check(got == want, f"({label}) rank {r['rank']} ({r['stage']}) "
               f"launched {got}, want {want}")
 
@@ -3705,7 +3809,7 @@ def ranks_phase(smi: str, dev, ranks_ref: dict, moe_split: dict) -> dict:
                 f"({label}) payload bytes differ from (h)'s")
             check(ad[0][label]["rates"] == want["rates"],
                   f"({label}) rates differ from (h)'s")
-        ranked_launches(label, ad,
+        ranked_launches(label, ad, ad_cfg, steps_ad,
                         {"clip_quant": steps_ad} if quantizes else {})
         parts = step_parts(ad[0][label]["steps"], ad[1][label]["steps"])
         fwd, back = link_bytes(ad_cfg, want["codec"], label[3:], REQUESTS)
@@ -3737,7 +3841,7 @@ def ranks_phase(smi: str, dev, ranks_ref: dict, moe_split: dict) -> dict:
         torch.equal(a, b) for a, b in zip(ae[0][label]["payloads"],
                                            ae[1][label]["payloads"])),
         "(ae) the edge's two model ranks sent different payloads")
-    ranked_launches(label, ae, {"clip_quant": steps_ae})
+    ranked_launches(label, ae, ae_cfg, steps_ae, {"clip_quant": steps_ae})
     want = moe_split["logits"]
     got = ae[0][label]["logits"]
     diff = float((got - want).abs().max())
@@ -3851,7 +3955,11 @@ def tiles_ranks_run(smi: str, dev) -> list[dict]:
             torch.equal(a, b) for a, b in zip(got, payloads)),
             f"(af) edge rank {r['rank']}: payload bytes differ from the "
             "one-process run's")
-    ranked_launches(label, ranks, one)
+    check(one.get("decode_attention") == attention_layers(cfg) * steps,
+          f"(af) the one-process run launched {one}, want decode_attention "
+          f"{attention_layers(cfg)} layers x {steps} steps")
+    ranked_launches(label, ranks, cfg, steps,
+                    {k: v for k, v in one.items() if k != "decode_attention"})
     parts = step_parts(ranks[0][label]["steps"], ranks[2][label]["steps"])
     fwd, back = link_bytes(cfg, codec, "packed", REQUESTS)
     check(fwd == payloads[0].numel() + 4, f"(af) payload_bytes {fwd} against "
@@ -3863,7 +3971,9 @@ def tiles_ranks_run(smi: str, dev) -> list[dict]:
           f"{REQUESTS} sequences, {steps} steps: every rank's logits and "
           f"rates and both edge ranks' payload bytes identical in every bit "
           f"to the one-process runtime's ({dt / steps * 1e3:.1f} ms a step "
-          f"there); each edge rank launched {one}, each cloud rank nothing; "
+          f"there); each edge rank launched the one-process run's codec "
+          f"kernels, every rank decode attention once a layer of its stage "
+          f"a step (one process: {one}); "
           f"ms per step (median): " + ", ".join(
               f"{k} {v:.3f}" for k, v in parts.items())
           + " (one process: " + ", ".join(
@@ -4400,7 +4510,7 @@ def main() -> int:
                "encode_tiles": "bdqrs", "rans_step": "bdfqrs",
                "clip_quant_tiles": "clm", "index_histogram_tiles": "m",
                "ecsq_assign": "enm", "ecsq_assign_tiles": "fm",
-               "pack_bits": "m"}
+               "pack_bits": "m", "decode_attention": "abcdefghijkln"}
     check(sorted(r_["name"] for r_ in rows) == sorted(runs_of),
           "the kernel table must list every ported kernel")
     # each counts its indices in the quantizer (and (h)-(l), (n) pack
@@ -4410,9 +4520,19 @@ def main() -> int:
                        "pack_bits"):
             check(counts[run_id][kernel] == 0, f"{kernel} launched "
                   f"{counts[run_id][kernel]} times on ({run_id})")
+    # decode attention: once an attention layer a decode step, in the
+    # serve runs (the decode steps after the prefill) and the split runs
+    n_attn = attention_layers(cfg)
+    for run_id in runs_of["decode_attention"]:
+        steps = NEW_TOKENS - 1 if run_id in "abcdef" \
+            else SPLIT_PROMPT + SPLIT_NEW
+        check(counts[run_id]["decode_attention"] == n_attn * steps,
+              f"decode_attention launched {counts[run_id]['decode_attention']}"
+              f" times on ({run_id}), want {n_attn} layers x {steps} steps")
     for r_ in rows:
         name_ = r_["name"]
-        r_["status"] = port_status(r_["replaces"])
+        r_["status"] = port_status(r_["replaces"]) if r_["replaces"] \
+            else "new; replaces no TPU kernel"
         r_["launches"] = counts[runs_of[name_][0]][name_]
         r_["eval_launches"] = eval_counts.get(name_, 0)
         r_["train_launches"] = counts["w"][name_]
@@ -4443,6 +4563,9 @@ def main() -> int:
                 # (m)'s 2-D plan has sizes of its own
                 route = "m" if "2-D" in size or "element" in size \
                     else route.replace("m", "")
+            if name_ == "decode_attention" and size != "decode":
+                # the runs launch it at their own shape, timed as "decode"
+                route = ""
             t["launches"] = {run_id: RUN_SIZES[run_id].get((name_, cls), 0)
                              for run_id in route}
     # the time each kernel loses to its bound in one run of phases 4-5 and

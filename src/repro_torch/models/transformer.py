@@ -15,7 +15,12 @@ channel mixing (``cmix``).  Caches are a list per group of per-layer
 dicts: ``{"k", "v"}`` (B, S, K, hd) for attention, ``{"h", "conv"}`` for
 RG-LRU, ``{"tmix": {"state", "shift"}, "cmix": {"shift"}}`` for RWKV.
 Caches are updated in place: a decode or prefill writes into the cache
-tensors it was given and returns the same objects.
+tensors it was given and returns the same objects.  A decode step's
+attention over a bf16 cache on the card runs the hand-written kernel
+(:mod:`repro_torch.kernels.decode_attention`) over the cache's written
+prefix where the kernel takes the shapes; every other case (the CPU,
+prefill, a uint8 or float32 cache, other head sizes) runs the plain
+masked path.
 
 The entry points take an optional ``ctx`` (:class:`.context.DistContext`)
 for expert parallelism: under it the rows are this rank's and each MoE
@@ -33,6 +38,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..configs.base import LayerSpec, ModelConfig
+from ..kernels import decode_attention as DA
 from ..obs.tracing import tracer
 from ..tree import leaves, rebuild
 from . import layers as L
@@ -227,6 +233,13 @@ def _attention(h, p, spec: LayerSpec, cfg: ModelConfig, *, pos: int, cache,
         slot = pos % s_cache if spec.window else pos
         ck[:, slot] = _kv_enc(cfg, k[:, 0])
         cv[:, slot] = _kv_enc(cfg, v[:, 0])
+        if DA.takes(q, ck):
+            # the slots the mask below leaves valid are [0, n_valid), on
+            # a linear cache and on a ring one alike: the kernel reads
+            # only those, in the cache's own dtype
+            return DA.decode_attention(q[:, 0].contiguous(), ck, cv,
+                                       min(pos + 1, s_cache),
+                                       cfg.attn_logit_softcap)
         idx = torch.arange(s_cache, dtype=torch.int32, device=h.device)
         k_pos = pos - (pos - idx) % s_cache if spec.window else idx
         return L.multi_head_attention(

@@ -1667,3 +1667,171 @@ def test_train_with_compression_resumes_exactly_on_the_card(dev, tmp_path):
     assert res["resumed_from"] == 2
     assert res["resumed"] == res["base"][2:]
     assert res["compressed"] != res["base"]
+
+
+# -- decode attention over the written prefix ----------------------------------
+
+# name -> (B, S_cache, H, K, hd, window, softcap, positions), bf16: the
+# benchmark cell's shape, dbrx's 48/8 heads on its 32 x 4096 cache, and a
+# ring of S = window slots with a soft cap at hd 256 before and after it
+# wraps
+DECODE_ATTENTION = {
+    "cell": (48, 8192, 32, 4, 128, None, 0.0,
+             (0, 1, 255, 256, 2047, 2150, 8191)),
+    "dbrx": (32, 4096, 48, 8, 128, None, 0.0, (0, 1000, 4095)),
+    "ring-softcap-hd256": (4, 512, 16, 8, 256, 512, 50.0,
+                           (300, 511, 512, 1300)),
+}
+
+
+def _decode_attention_inputs(dev, name, pos):
+    """q, k, v of a DECODE_ATTENTION case, with the slots past the written
+    prefix holding large values, so that reading one would show."""
+    b, s, h, kh, hd, *_ = DECODE_ATTENTION[name]
+    g = torch.Generator(device=dev).manual_seed(pos)
+    q = torch.randn((b, 1, h, hd), device=dev, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn((b, s, kh, hd), device=dev, generator=g).to(
+        torch.bfloat16) for _ in range(2))
+    n_valid = min(pos + 1, s)
+    k[:, n_valid:] = 1e4
+    v[:, n_valid:] = -1e4
+    return q, k, v, n_valid
+
+
+def _exact_attention(q, k, v, n_valid, softcap):
+    """Float64 attention of q (B, 1, H, hd) over slots [0, n_valid) of k,
+    v: the value both paths round towards."""
+    b, _, h, hd = q.shape
+    kh = k.shape[2]
+    logits = torch.einsum("bkgh,btkh->bkgt",
+                          q.double().reshape(b, kh, h // kh, hd),
+                          k[:, :n_valid].double()) / hd ** 0.5
+    if softcap > 0.0:
+        logits = softcap * torch.tanh(logits / softcap)
+    out = torch.einsum("bkgt,btkh->bkgh", torch.softmax(logits, dim=-1),
+                       v[:, :n_valid].double())
+    return out.reshape(b, 1, h, hd)
+
+
+@pytest.mark.parametrize("name,pos", [(n, p) for n, c in
+                                      DECODE_ATTENTION.items() for p in c[-1]])
+def test_decode_attention_matches_the_plain_path(dev, name, pos):
+    """The kernel against the plain decode path (the masked attention over
+    the whole cache) on the same inputs, within rtol 1.6e-2, atol 1e-2;
+    and against float64 attention over the prefix, no further off than
+    twice the plain path's largest error there and 2^-12: the kernel
+    rounds exp(s - m_tile) to bf16 where the plain path rounds the
+    normalised probabilities, each an error of a bf16 unit a term, so a
+    split left out of the combine or weighted wrongly, a few thousandths
+    at the longer prefixes, would show."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import layers as L
+
+    _, s, _, _, _, window, softcap, _ = DECODE_ATTENTION[name]
+    q, k, v, n_valid = _decode_attention_inputs(dev, name, pos)
+    idx = torch.arange(s, dtype=torch.int32, device=dev)
+    k_pos = pos - (pos - idx) % s if window else idx
+    want = L.multi_head_attention(q, k, v, q_offset=pos, k_positions=k_pos,
+                                  window=window, softcap=softcap)
+    before = dict(_build.LAUNCHES)
+    got = DA.decode_attention(q[:, 0], k, v, n_valid, softcap)
+    torch.cuda.synchronize()
+    assert _advanced(before, decode_attention=1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2,
+                               atol=1e-2)
+    exact = _exact_attention(q, k, v, n_valid, softcap)
+    err_got = float((got.double() - exact).abs().max())
+    err_plain = float((want.double() - exact).abs().max())
+    assert err_got <= 2 * err_plain + 2.0 ** -12, (err_got, err_plain)
+
+
+@pytest.mark.parametrize("name,pos", [("cell", 2150), ("cell", 8191),
+                                      ("dbrx", 4095),
+                                      ("ring-softcap-hd256", 1300)])
+def test_decode_attention_combines_splits(dev, name, pos, monkeypatch):
+    """The split plan's several splits, combined by the second launch,
+    against the same kernel run as one split over the whole prefix (no
+    combine): the two differ only in where exp(s - m) is rounded and in
+    the order of float32 sums, a bf16 unit of the output or so."""
+    from repro_torch.kernels import decode_attention as DA
+
+    b, _, _, kh, hd, _, softcap, _ = DECODE_ATTENTION[name]
+    q, k, v, n_valid = _decode_attention_inputs(dev, name, pos)
+    _, n_splits = DA.split_plan(b * kh, n_valid, hd, DA._sm_count(dev.index
+                                                                  or 0))
+    assert n_splits > 1
+    split = DA.decode_attention(q[:, 0], k, v, n_valid, softcap)
+    tk = DA.tile_slots(hd)
+    monkeypatch.setattr(DA, "split_plan",
+                        lambda bk, n, hd_, sms: (-(-n // tk) * tk, 1))
+    whole = DA.decode_attention(q[:, 0], k, v, n_valid, softcap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(split.float(), whole.float(), rtol=1e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+def test_decode_step_keeps_other_caches_on_the_plain_path(dev, dtype):
+    """A float32 or fp16 cache on the card takes the plain path: a decode
+    step launches no decode attention, and the wrapper refuses such
+    tensors on the card."""
+    from repro_torch.kernels import decode_attention as DA
+
+    cfg = dataclasses.replace(reduced(get_config("codeqwen1.5-7b")),
+                              head_dim=128, num_heads=8, num_kv_heads=2,
+                              dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    cache = init_cache(cfg, 2, 16, device=dev)
+    tok = torch.tensor([3, 7], dtype=torch.int32, device=dev)
+    before = dict(_build.LAUNCHES)
+    logits, _, _ = decode_step(cfg, params, tok, cache, 5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(logits.float()).all()
+    assert _advanced(before, decode_attention=0)
+    q = torch.zeros((2, 8, 128), dtype=getattr(torch, dtype), device=dev)
+    k = cache[0][0]["k"]
+    with pytest.raises(ValueError):
+        DA.decode_attention(q, k, k, 6)
+
+
+@pytest.mark.parametrize("arch,hd", [("codeqwen1.5-7b", 128),
+                                     ("gemma2-9b", 256)])
+def test_decode_step_routes_attention_through_the_kernel(dev, arch, hd,
+                                                         monkeypatch):
+    """A bfloat16 decode step of a small config at a head size the kernel
+    takes launches it once an attention layer, and its logits match the
+    same step on the plain path (the kernel's route switched off) from
+    the same cache.  gemma2's window layer is a ring of 64 slots that the
+    steps wrap, with its soft cap; logits within 2% of their largest
+    magnitude."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.models import prefill
+
+    base = reduced(get_config(arch))
+    cfg = dataclasses.replace(base, head_dim=hd, num_heads=8,
+                              num_kv_heads=2, dtype="bfloat16")
+    n_attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 60)).astype(np.int32)).to(dev)
+    cache = init_cache(cfg, 2, 96, device=dev)
+    logits, cache = prefill(cfg, params, toks, cache)
+    tok = logits.argmax(-1)
+    for pos in range(60, 68):
+        plain_cache = [[{n: t.clone() for n, t in c.items()} for c in grp]
+                       for grp in cache]
+        before = dict(_build.LAUNCHES)
+        got, cache, _ = decode_step(cfg, params, tok, cache, pos)
+        torch.cuda.synchronize()
+        assert _advanced(before, decode_attention=n_attn)
+        with monkeypatch.context() as m:
+            m.setattr(DA, "takes", lambda q, k: False)
+            want, _, _ = decode_step(cfg, params, tok, plain_cache, pos)
+        assert _advanced(before, decode_attention=n_attn)
+        scale = float(want.float().abs().max())
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2 * scale)
+        tok = got.argmax(-1)
