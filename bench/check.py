@@ -39,7 +39,7 @@ from . import traffic
 from .reference import calibration as CAL
 from .reference import codec as QC
 from .reference.model import Item, Reference
-from .roofline import layer_specs
+from .layers import layer_specs
 
 
 @dataclasses.dataclass

@@ -179,20 +179,19 @@ class Recorder:
     def flops(self, model: dict) -> int:
         """Useful operations of the window: the prefills of the requests
         admitted in it (their prompts, not the padding) and every token
-        decoded in it, over each request's real context."""
-        tokens = ctx = 0
+        decoded in it, over each request's real context.  Token ``j`` of
+        a request's output (``j`` >= 1) is decoded with a context of
+        its prompt and ``j`` tokens."""
+        contexts = []
         for r in self.admitted:
             if r.n_end is None:
                 continue
-            plen, first = len(r.prompt), r.n_open
+            plen = len(r.prompt)
             if r.t_admit >= self.t_open:
-                tokens += plen
-                ctx += RL.prefill_context_sum(plen)
-                first = 1
-            for j in range(max(first, 1), r.n_end):
-                tokens += 1
-                ctx += plen + j
-        return RL.forward_flops(model, tokens, ctx)
+                contexts.append((1, plen + max(r.n_end - 1, 0)))
+            elif r.n_end > max(r.n_open, 1):
+                contexts.append((plen + max(r.n_open, 1), plen + r.n_end - 1))
+        return RL.forward_flops(model, contexts)
 
 
 class Clock:
@@ -215,11 +214,14 @@ def percentile(values: list[float], q: int) -> float:
 
 
 class Context:
-    """What the per-layer metric readers read (``bench/metrics``)."""
+    """What the per-layer metric readers read (``bench/metrics``):
+    ``spans``, the program's spans of the host-clock part of the window;
+    ``traced_spans``, those of the profiled part."""
 
     def __init__(self, rec: Recorder, model: dict, spans: list,
-                 trace: TR.Trace | None):
+                 trace: TR.Trace | None, traced_spans: list = ()):
         self.rec, self.model, self.spans, self.trace = rec, model, spans, trace
+        self.traced_spans = list(traced_spans)
         self.window_s = rec.window_s
         self.trace_window = TR.window(trace) if trace is not None else None
 
@@ -332,11 +334,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool,
     out = {"attempted": len(rec.admitted), "failed": 0,
            "device": _device(dev, peak, cell.chips)}
     if trace:
-        spans = [e for e in tracer().snapshot_events()
+        events = tracer().snapshot_events()
+        spans = [e for e in events
                  if rec.wall_open <= e["t_start"] <= rec.wall_end]
+        traced = [e for e in events if e["t_start"] > rec.wall_end]
         tr = TR.from_profiler(rec.prof) if rec.prof is not None else None
         clock.lap("trace_export", dev)
-        ctx = Context(rec, model, spans, tr)
+        ctx = Context(rec, model, spans, tr, traced)
         out["metrics"] = _read(cell.per_layer, ctx)
         if ctx.trace_window is not None:
             t0, t1 = ctx.trace_window

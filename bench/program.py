@@ -42,16 +42,35 @@ def decode_steps(ctx) -> list:
     return inside(ranges(ctx.trace, "decode"), [(t0, t1)])
 
 
-def launched_us(trace: TR.Trace, spans: list) -> float:
+def launched_us(trace: TR.Trace, spans: list, names=()) -> float:
     """Device microseconds of the operations launched inside ``spans``
-    (by start, not overlapping), matched by correlation."""
+    (by start, not overlapping), matched by correlation; with ``names``,
+    of those whose name holds one of them."""
     starts = [a for a, _ in spans]
     corr = set()
     for t, c in trace.launches:
         i = bisect.bisect_right(starts, t) - 1
         if c is not None and i >= 0 and t <= spans[i][1]:
             corr.add(c)
-    return sum(d for _, _, d, c in trace.device if c in corr)
+    return sum(d for n, _, d, c in trace.device if c in corr
+               and (not names or any(k in n for k in names)))
+
+
+def decode_positions(ctx) -> dict:
+    """The position of each ``repro.decode`` range of the trace, from
+    the engine's ``decode`` span of the same step.  A span is a range
+    only where the profiler recorded at its start, so the profiled
+    part's spans and the trace's ranges, each in order, begin at the
+    same step; the last span may have no range (the profiler stopped
+    inside it).  Empty where the two do not pair so."""
+    if ctx.trace is None:
+        return {}
+    steps = ranges(ctx.trace, "decode")
+    spans = sorted((e for e in ctx.traced_spans if e["stage"] == "decode"),
+                   key=lambda e: e["t_start"])
+    if not len(steps) <= len(spans) <= len(steps) + 1:
+        return {}
+    return {r: e["pos"] for r, e in zip(steps, spans)}
 
 
 def per_step_ms(ctx, name: str, per_range: bool = False):

@@ -1,9 +1,9 @@
 """Plain float32 forward pass of the decoder LMs the cells serve.
 
-Pre-norm decoder layers: GQA attention with rotary positions (the
-half-split layout), causal, softmax in float32; a gated MLP or a top-k
-mixture of experts that drops nothing; an untied head.  The boundary
-quantizer runs between two layers at every position.
+Pre-norm decoder layers, each a mixer and a feed-forward as its layer
+kind's modules compute them (``bench/layers``); a token embedding and an
+untied head, here.  The boundary quantizer runs between two layers at
+every position.
 
 It runs layer by layer over a list of :class:`Item` (sequence batches):
 each layer's weights are made again from the seed (``bench.weights``),
@@ -19,14 +19,18 @@ configuration's bfloat16.
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
-import torch.nn.functional as F
 
+from .. import layers as L
 from .. import weights as W
-from ..roofline import layer_specs
 from . import codec as QC
+from . import ops
+
+# the ``model`` keys the embedding, the head and the layer loop read
+# (``bench.layers.check_options``)
+OPTIONS = ("vocab_size", "d_model", "dtype", "norm", "norm_eps", "num_layers",
+           "pattern", "split_after_period")
 
 
 @dataclasses.dataclass
@@ -41,105 +45,11 @@ class Item:
     boundary: torch.Tensor | None = None    # (B, L, d) float32
 
 
-def _fp8(t: torch.Tensor) -> torch.Tensor:
-    scale = t.abs().amax().clamp(min=1e-12) / 448.0
-    return (t / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
-
-
-def _lin(a: torch.Tensor, w: torch.Tensor, lowp: bool) -> torch.Tensor:
-    """(n, k) @ (k, m) in float32, through float8 operands for ``lowp``."""
-    if lowp:
-        a, w = _fp8(a), _fp8(w)
-    return a @ w
-
-
-def _act(name: str):
-    if name == "gelu":
-        return lambda t: F.gelu(t, approximate="tanh")
-    return F.silu
-
-
-def _norm(x, p, model):
-    eps = model.get("norm_eps", 1e-6)
-    if model.get("norm", "rmsnorm") == "layernorm":
-        mean = x.mean(-1, keepdim=True)
-        var = ((x - mean) ** 2).mean(-1, keepdim=True)
-        return (x - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
-    return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + eps) * p["scale"]
-
-
-def _rope(x: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: (B, L, N, hd) at positions 0..L-1."""
-    length, hd = x.shape[1], x.shape[-1]
-    half = hd // 2
-    freqs = theta ** (-torch.arange(half, dtype=torch.float64) / half)
-    ang = torch.arange(length, dtype=torch.float64)[:, None] * freqs
-    sin = torch.sin(ang).to(torch.float32).to(x.device)[None, :, None]
-    cos = torch.cos(ang).to(torch.float32).to(x.device)[None, :, None]
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def _attention(q, k, v, chunk: int = 512):
-    """Causal GQA attention; q (B, L, H, hd), k/v (B, L, K, hd)."""
-    b, length, h, hd = q.shape
-    kh = k.shape[2]
-    qg = q.reshape(b, length, kh, h // kh, hd)
-    out = torch.empty_like(q)
-    for c0 in range(0, length, chunk):
-        c1 = min(length, c0 + chunk)
-        s = torch.einsum("bskgh,btkh->bkgst", qg[:, c0:c1], k[:, :c1])
-        s = s / math.sqrt(hd)
-        future = torch.arange(c1, device=q.device)[None, :] \
-            > torch.arange(c0, c1, device=q.device)[:, None]
-        s = s.masked_fill(future, float("-inf"))
-        o = torch.einsum("bkgst,btkh->bskgh", torch.softmax(s, -1),
-                         v[:, :c1])
-        out[:, c0:c1] = o.reshape(b, c1 - c0, h, hd)
-    return out
-
-
-def moe(xs: torch.Tensor, p: dict, model: dict, lowp: bool) -> torch.Tensor:
-    """Top-k routing over every expert, the k weights renormalised; every
-    routed token is computed."""
-    act = _act(model.get("act", "silu"))
-    probs = torch.softmax(xs @ p["router"], dim=-1)
-    w, idx = torch.topk(probs, model["experts_per_token"], dim=-1)
-    w = w / w.sum(-1, keepdim=True)
-    out = torch.zeros_like(xs)
-    for e in range(model["num_experts"]):
-        tok, slot = (idx == e).nonzero(as_tuple=True)
-        if tok.numel() == 0:
-            continue
-        xe = xs[tok]
-        he = act(_lin(xe, p["w1"][e], lowp)) * _lin(xe, p["w3"][e], lowp)
-        out.index_add_(0, tok, _lin(he, p["w2"][e], lowp)
-                       * w[tok, slot][:, None])
-    return out
-
-
 def layer_forward(x, p, spec: dict, model: dict, lowp: bool):
-    b, length, d = x.shape
-    a = p["attn"]
-    h, kh, hd = model["num_heads"], model["num_kv_heads"], model["head_dim"]
-    theta = model.get("rope_theta", 10_000.0)
-    hn = _norm(x, p["norm1"], model).reshape(b * length, d)
-    q = _lin(hn, a["wq"].reshape(d, h * hd), lowp).view(b, length, h, hd)
-    k = _lin(hn, a["wk"].reshape(d, kh * hd), lowp).view(b, length, kh, hd)
-    v = _lin(hn, a["wv"].reshape(d, kh * hd), lowp).view(b, length, kh, hd)
-    o = _attention(_rope(q, theta), _rope(k, theta), v)
-    x = x + _lin(o.reshape(b * length, h * hd), a["wo"].reshape(h * hd, d),
-                 lowp).view(b, length, d)
-    hn = _norm(x, p["norm2"], model)
-    if spec["moe"]:
-        y = moe(hn.reshape(b * length, d), p["moe"], model,
-                lowp).view(b, length, d)
-    else:
-        m, act = p["mlp"], _act(model.get("act", "silu"))
-        flat = hn.reshape(b * length, d)
-        y = _lin(act(_lin(flat, m["w1"], lowp)) * _lin(flat, m["w3"], lowp),
-                 m["w2"], lowp).view(b, length, d)
-    return x + y
+    """One layer: its mixer's residual block, then its feed-forward's."""
+    for m in L.modules(spec):
+        x = m.forward(x, p, spec, model, lowp)
+    return x
 
 
 def _widen(tree):
@@ -154,7 +64,7 @@ class Reference:
     def __init__(self, config: dict, seed: int, device, lowp: bool = False):
         self.model = config["model"]
         self.seed, self.device, self.lowp = seed, torch.device(device), lowp
-        self.specs = layer_specs(self.model)
+        self.specs = L.layer_specs(self.model)
         self.split = self.model["split_after_period"] \
             * len(self.model.get("pattern") or [{}])
 
@@ -198,9 +108,9 @@ class Reference:
                     xs[j] = QC.fake_quant(xs[j], *qrange)
         top = _widen(W.head(model, self.seed, dev))
         for j in live:
-            x = _norm(xs[j][:, items[j].first:], top["final_norm"], model)
+            x = ops.norm(xs[j][:, items[j].first:], top["final_norm"], model)
             b, n, d = x.shape
-            items[j].logits = _lin(x.reshape(b * n, d), top["w"],
-                                   self.lowp).view(b, n, -1)
+            items[j].logits = ops.lin(x.reshape(b * n, d), top["w"],
+                                      self.lowp).view(b, n, -1)
             xs[j] = None
         return qrange

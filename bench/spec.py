@@ -2,9 +2,12 @@
 
 ``BENCHMARK.json`` names each cell's configuration and traffic mix; the
 files are ``bench/configs/<config>.json``, ``bench/mixes/<traffic>.json``
-and ``bench/limits/<cell>.json``, and each per-layer metric is read by
-``bench/metrics/<metric>.py``.  Adding a cell is adding files and a
-``workloads`` entry: nothing here names a cell.
+and ``bench/limits/<cell>.json``, each per-layer metric is read by
+``bench/metrics/<metric>.py``, and each layer kind is computed and
+counted by ``bench/layers/<kind>.py``.  Adding a cell is adding files
+and a ``workloads`` entry: nothing here names a cell.  A configuration
+that sets an option no module of its layers reads is refused here,
+before any weights are made.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import dataclasses
 import importlib
 import json
 from pathlib import Path
+
+from .layers import check_options
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -45,9 +50,11 @@ def load_cell(name: str, benchmark: Path | None = None) -> Cell:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json; have "
                        f"{[w['name'] for w in spec['workloads']]}")
     conf = next(c for c in spec["configs"] if c["name"] == entry["config"])
+    config = load_json(ROOT / conf["file"])
+    from .reference.model import OPTIONS
+    check_options(config["model"], conf["file"], OPTIONS)
     return Cell(
-        name=name, chips=int(entry["chips"]),
-        config=load_json(ROOT / conf["file"]),
+        name=name, chips=int(entry["chips"]), config=config,
         mix=load_json(BENCH / "mixes" / f"{entry['traffic']}.json"),
         limits=load_json(BENCH / "limits" / f"{name}.json"),
         end_to_end=[m for m in spec["end_to_end"] if _reports(m, name)],

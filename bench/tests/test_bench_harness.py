@@ -37,8 +37,10 @@ def test_sound_run_is_correct(cell):
 def test_traced_run_reads_the_host_side_metrics(cell):
     res = harness.run_cell(tiny_cell(cell), 5, 0.5, True, "cpu",
                            time.perf_counter())
-    # no card: the profiler's metrics have nothing to read
-    assert set(res["metrics"]) == {"prefill_share", "step_mfu"}
+    # no card: the profiler's metrics have nothing to read; the
+    # engine's spans and the host clock's do
+    assert set(res["metrics"]) == {"prefill_share", "step_mfu",
+                                   "decode_step_ms", "refill_pad_share"}
     assert 0 < res["metrics"]["prefill_share"]["value"] <= 100
 
 
@@ -85,6 +87,29 @@ def test_control_is_not_correct(cell):
     assert any(c["value"] > c["limit"] for c in control.values()), control
     assert all(c["value"] <= c["limit"]
                for c in CHK.judge(r, limits).values())
+
+
+WINDOWED = {"pattern": [{"kind": "attn", "window": 8}, {"kind": "attn"}]}
+
+
+def test_a_windowed_cell_is_correct():
+    # every other layer attends over the last 8 positions; the engine's
+    # rows reach far past them
+    res = harness.run_cell(tiny_cell(CELLS[0], **WINDOWED), 2**31 + 19,
+                           0.5, False, "cpu", time.perf_counter())
+    assert res["correct"], res["checks"]
+    assert res["readings"]["positions"] > 100
+
+
+def test_the_check_sees_the_window(monkeypatch):
+    # the same run with the window taken out of the reference
+    from bench.layers import attn
+    orig = attn.forward
+    monkeypatch.setattr(attn, "forward", lambda x, p, spec, *a: orig(
+        x, p, dict(spec, window=None), *a))
+    res = harness.run_cell(tiny_cell(CELLS[0], **WINDOWED), 2**31 + 19,
+                           0.5, False, "cpu", time.perf_counter())
+    assert not res["correct"], res["readings"]
 
 
 def test_an_expert_cell_that_drops_is_refused():

@@ -12,7 +12,8 @@ from bench import trace as TR
 from tiny_cells import tiny_cell
 
 NEW = ("decode_step_ms", "attention_device_ms", "ffn_device_ms",
-       "codec_launched_ms", "dispatch_idle_share", "refill_pad_share")
+       "codec_launched_ms", "dispatch_idle_share", "refill_pad_share",
+       "decode_attention_roofline")
 
 
 def _x(cat, name, ts, dur, **kw):
@@ -81,10 +82,10 @@ def _spans():
              "error": "WindowClosed"}]
 
 
-def _ctx(trace=None, spans=()):
+def _ctx(trace=None, spans=(), traced=(), model=None, rec=None):
     return types.SimpleNamespace(
-        rec=None, model={"dtype": "bfloat16"}, spans=list(spans),
-        trace=trace, window_s=2.0,
+        rec=rec, model=model or {"dtype": "bfloat16"}, spans=list(spans),
+        traced_spans=list(traced), trace=trace, window_s=2.0,
         trace_window=TR.window(trace) if trace is not None else None)
 
 
@@ -134,6 +135,45 @@ def test_refill_pad_share_over_the_refill_prefills():
     # a refill
     assert _read("refill_pad_share", _ctx(spans=_spans())) \
         == pytest.approx(62.5)
+
+
+def _roofline_ctx(n_spans=6):
+    """``_events`` with kernel 1 (in the step 170-230) a
+    ``decode_attn_mma``, kernel 6 (in the step 240-300) a
+    ``combine_splits`` and kernel 10 (in the step 100-150, before the
+    window) a ``decode_attn_mma``; the profiled part's decode spans at
+    positions 100.. pair with the five decode ranges, the last cut by
+    the window's close; two attention layers of one KV head of 4, in
+    bf16; a decode boundary of 3 rows."""
+    names = {"k1": "void decode_attn_mma<128>(bf16 const*)",
+             "k6": "combine_splits(Sink, bf16*)",
+             "k10": "void decode_attn_mma<128>(bf16 const*)"}
+    events = [dict(e, name=names.get(e["name"], e["name"]))
+              for e in _events()]
+    spans = [{"stage": "decode", "t_start": 100.0 + i, "dur_s": 0.1,
+              "active": 3, "pos": 100 + i} for i in range(n_spans)]
+    spans[-1]["error"] = "WindowClosed"
+    model = {"num_layers": 2, "d_model": 8, "num_heads": 2,
+             "num_kv_heads": 1, "head_dim": 4, "dtype": "bfloat16"}
+    return _ctx(TR.parse(events), traced=spans, model=model,
+                rec=types.SimpleNamespace(decode_values=3 * 8))
+
+
+def test_decode_attention_roofline_over_the_windows_steps():
+    # steps at positions 102 and 103: K and V of 103 and 104 slots of 3
+    # rows, 4 values of 2 bytes, in two layers, over kernels 1 and 6
+    ctx = _roofline_ctx()
+    assert PG.decode_positions(ctx)[(170.0, 230.0)] == 102
+    read = 2 * 2 * 3 * (103 + 104) * 4 * 2
+    assert _read("decode_attention_roofline", ctx) \
+        == pytest.approx(100 * read / 3.35e12 / 30e-6)
+
+
+@pytest.mark.parametrize("n_spans", [4, 7])
+def test_decode_attention_roofline_needs_a_span_a_step(n_spans):
+    # spans that do not pair with the trace's decode ranges
+    assert _read("decode_attention_roofline", _roofline_ctx(n_spans)) \
+        is None
 
 
 def test_readers_give_nothing_without_a_trace_or_spans():

@@ -1,6 +1,6 @@
 """The plain reference against the port on the CPU at a tiny size: the
-forward pass (dense, and experts with capacity drops), the quantizer and
-the frozen clip calibration."""
+forward pass (dense, over a sliding window, and experts with capacity
+drops), the quantizer and the frozen clip calibration."""
 
 import numpy as np
 import pytest
@@ -10,11 +10,14 @@ from bench import spec
 from bench import weights as W
 from bench.reference import calibration as CAL
 from bench.reference import codec as QC
-from bench.reference.model import Item, Reference, moe
+from bench.layers.moe import mixture
+from bench.reference.model import Item, Reference
 from tiny_cells import tiny_cell
 
 CELLS = {"dense": "codeqwen1.5-7b.long-decode",
          "moe": "dbrx-132b-s8.moe-decode"}
+# a window shorter than the 20 tokens, on every other layer
+WINDOWED = {"pattern": [{"kind": "attn", "window": 8}, {"kind": "attn"}]}
 
 
 def _port_logits(config, tokens, crange):
@@ -30,9 +33,10 @@ def _port_logits(config, tokens, crange):
     return logits
 
 
-@pytest.mark.parametrize("kind", ["dense", "moe"])
+@pytest.mark.parametrize("kind", ["dense", "moe", "windowed"])
 def test_forward_matches_the_port(kind):
-    cell = tiny_cell(CELLS[kind])
+    cell = tiny_cell(CELLS["dense"], **WINDOWED) if kind == "windowed" \
+        else tiny_cell(CELLS[kind])
     tokens = torch.randint(1, 512, (3, 20), generator=torch.Generator()
                            .manual_seed(0))
     crange = (-20.0, 20.0, 1 << 16)
@@ -53,7 +57,7 @@ def test_expert_layer_matches_the_ports_dispatch():
     p = W.layer(model, 0, 9, "cpu")["moe"]
     x = torch.randn(40, model["d_model"],
                     generator=torch.Generator().manual_seed(1))
-    torch.testing.assert_close(moe(x, p, model, lowp=False),
+    torch.testing.assert_close(mixture(x, p, model, lowp=False),
                                moe_local(x, p, spec.model_config(cell.config)),
                                atol=1e-5, rtol=1e-5)
 
@@ -105,3 +109,19 @@ def test_control_moves_the_logits_further():
     port = _port_logits(cell.config, tokens, crange)
     assert (low.logits - ref.logits).abs().max() \
         > 100 * (port - ref.logits).abs().max()
+
+
+def test_the_window_changes_the_logits():
+    # the windowed case above is not the full one in disguise
+    tokens = torch.randint(1, 512, (1, 20), generator=torch.Generator()
+                           .manual_seed(3))
+    crange = (-20.0, 20.0, 1 << 16)
+    full, windowed = Item(tokens), Item(tokens)
+    Reference(tiny_cell(CELLS["dense"]).config, 5, "cpu").run(
+        [full], lambda e: crange)
+    # every layer windowed, so the boundary stays after the first
+    Reference(tiny_cell(CELLS["dense"], pattern=[
+        {"kind": "attn", "window": 8}]).config, 5, "cpu").run(
+        [windowed], lambda e: crange)
+    assert torch.equal(full.logits[:, :8], windowed.logits[:, :8])
+    assert (full.logits[:, 8:] - windowed.logits[:, 8:]).abs().max() > 0.1

@@ -2,10 +2,11 @@
 
 Each layer (and the embedding, and the head) draws from a generator of
 its own, seeded from ``(seed, part)``, in one normal draw for all its
-matrices in the model's dtype (and one float32 draw for a router), so
-the reference can make any one layer again, bit for bit, without the
-others.  Scales follow the port's initialisation; norms are ones (and
-zero biases).  The tree is the port's parameter layout.
+matrices in the model's dtype (and a float32 draw of its own for a
+matrix that asks for one, as a router does), so the reference can make
+any one layer again, bit for bit, without the others.  Scales follow the port's initialisation; norms are ones (and
+zero biases).  The tree is the port's parameter layout.  What a layer
+holds, each layer kind's module says (``bench/layers``).
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import math
 
 import torch
 
-from .roofline import layer_specs
+from . import layers as L
 
 DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
           "float32": torch.float32}
@@ -48,32 +49,25 @@ def _norm(model: dict, dtype, device) -> dict:
 
 
 def layer(model: dict, i: int, seed: int, device) -> dict:
-    """Layer ``i``'s parameters."""
-    spec = layer_specs(model)[i]
+    """Layer ``i``'s parameters: its norms, and under each module's
+    ``GROUP`` the matrices it names (``bench/layers``), the mixer's then
+    the feed-forward's, in one draw from the part ``layer<i>``."""
+    spec = L.layer_specs(model)[i]
     dtype = DTYPES[model.get("dtype", "bfloat16")]
-    d, hd = model["d_model"], model["head_dim"]
-    h, kh = model["num_heads"], model["num_kv_heads"]
-    shapes = [(d, h, hd), (d, kh, hd), (d, kh, hd), (h, hd, d)]
-    scales = [1 / math.sqrt(d)] * 3 + [1 / math.sqrt(h * hd)]
-    if spec["moe"]:
-        e, f = model["num_experts"], model["moe_d_ff"]
-        shapes += [(e, d, f), (e, d, f), (e, f, d)]
-        scales += [1 / math.sqrt(d), 1 / math.sqrt(d), 1 / math.sqrt(f)]
-    else:
-        f = model["d_ff"]
-        shapes += [(d, f), (f, d), (d, f)]
-        scales += [1 / math.sqrt(d), 1 / math.sqrt(f), 1 / math.sqrt(d)]
-    wq, wk, wv, wo, a, b, c = _draw(shapes, scales, dtype, device, seed,
-                                    f"layer{i}")
+    named = [(m.GROUP, w) for m in L.modules(spec)
+             for w in m.matrices(model, spec)]
+    drawn = [(g, w) for g, w in named if w.own is None]
+    tensors = _draw([w.shape for _, w in drawn], [w.scale for _, w in drawn],
+                    dtype, device, seed, f"layer{i}")
     p = {"norm1": _norm(model, dtype, device),
-         "norm2": _norm(model, dtype, device),
-         "attn": {"wq": wq, "wk": wk, "wv": wv, "wo": wo}}
-    if spec["moe"]:
-        router, = _draw([(d, model["num_experts"])], [1 / math.sqrt(d)],
-                        torch.float32, device, seed, f"router{i}")
-        p["moe"] = {"router": router, "w1": a, "w3": b, "w2": c}
-    else:
-        p["mlp"] = {"w1": a, "w2": b, "w3": c}
+         "norm2": _norm(model, dtype, device)}
+    for (group, w), t in zip(drawn, tensors):
+        p.setdefault(group, {})[w.name] = t
+    for group, w in named:
+        if w.own is not None:
+            t, = _draw([w.shape], [w.scale], torch.float32, device, seed,
+                       f"{w.own}{i}")
+            p.setdefault(group, {})[w.name] = t
     return p
 
 
@@ -94,8 +88,6 @@ def head(model: dict, seed: int, device) -> dict:
 
 def params(model: dict, seed: int, device) -> dict:
     """The whole tree in the port's layout."""
-    if model.get("tie_embeddings"):
-        raise NotImplementedError("tied embeddings")
     top = head(model, seed, device)
     return {"embed": {"table": embed(model, seed, device)},
             "final_norm": top["final_norm"], "head": {"w": top["w"]},
