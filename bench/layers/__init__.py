@@ -2,14 +2,17 @@
 
 A layer of a configuration's ``pattern`` is two residual blocks: a
 mixer, ``bench/layers/<kind>.py`` for the spec's ``kind``, then a
-feed-forward, ``moe.py`` where the spec sets ``moe``, otherwise
-``mlp.py``.
+feed-forward: ``moe.py`` where the spec sets ``moe``, otherwise the
+module the mixer names in ``FEED_FORWARD`` where it names one (as an
+RWKV mixer names ``cmix.py``, its channel mix), otherwise ``mlp.py``,
+as the port picks them.
 Each module gives, in plain torch (it imports neither JAX nor anything
 of the program):
 
 - its weights: ``GROUP``, the key of its parameters in a layer's tree
   (the port's layout), and ``matrices(model, spec)``, a :class:`Matrix`
-  for each, in the order of the layer's one draw (``bench/weights.py``);
+  for each (its shape, and the spread and mean of its draw), in the
+  order of the layer's one draw (``bench/weights.py``);
 - ``forward(x, p, spec, model, lowp)``: its residual block in float32,
   ``x`` plus what it computes from the normed ``x``, with ``p`` the
   layer's tree; ``lowp``, the control, takes every linear product
@@ -21,10 +24,10 @@ of the program):
   each ``(first, last)`` range of ``contexts``;
 - ``OPTIONS``: the ``model`` and spec keys it reads.
 
-A kind the benchmark does not know yet is a new file here, and nothing
-else changes.  :func:`check_options` refuses a configuration that sets
-an option away from its neutral value where no module of its layers
-reads it.
+A kind or a feed-forward the benchmark does not know yet is a new file
+here, and nothing else changes.  :func:`check_options` refuses a
+configuration that sets an option away from its neutral value where no
+module of its layers reads it.
 """
 
 from __future__ import annotations
@@ -50,13 +53,16 @@ NEUTRAL = {
 
 @dataclasses.dataclass(frozen=True)
 class Matrix:
-    """A weight matrix: normal draws times ``scale``.  ``own``: drawn
-    alone, in float32, from the part seed ``<own><layer>``, and not in
-    the layer's one draw in the model's dtype."""
+    """A weight matrix: normal draws times ``scale``, plus ``mean``
+    (where the port draws a parameter about a value other than 0).
+    ``own``: drawn alone, in float32, from the part seed
+    ``<own><layer>``, and not in the layer's one draw in the model's
+    dtype."""
     name: str
     shape: tuple
     scale: float
     own: str | None = None
+    mean: float = 0.0
 
 
 def layer_specs(model: dict) -> list[dict]:
@@ -85,7 +91,8 @@ def module(name: str):
 def modules(spec: dict) -> tuple:
     """A layer's mixer and feed-forward, in the order they run."""
     mixer = module(spec["kind"])
-    return mixer, module("moe" if spec["moe"] else "mlp")
+    ffn = "moe" if spec["moe"] else getattr(mixer, "FEED_FORWARD", "mlp")
+    return mixer, module(ffn)
 
 
 def check_options(model: dict, source: str, shared=()) -> None:

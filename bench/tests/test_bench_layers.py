@@ -1,7 +1,8 @@
 """The layer kinds as files (``bench/layers``): what moving the one
 layer the reference knew into them had to keep, bit for bit; a kind
-that a file alone adds; and the options a configuration may not set
-where no module of its layers reads them."""
+that a file alone adds, with the feed-forward it names; RWKV-6's
+channel mix against the port's; draws about a mean; and the options a
+configuration may not set where no module of its layers reads them."""
 
 import dataclasses
 import hashlib
@@ -162,6 +163,140 @@ def test_a_kind_is_a_file(scaled_kind):
         == d * d + 3 * d * f
     # two scaled layers and two attention layers of 4 heads of 16
     assert RL.context_flops(model, [(1, 4)]) == 2 * 3 * 4 + 2 * 4 * 64 * 10
+
+
+# the same mixer, naming its feed-forward: the channel mix, a module
+# that is not there, or (``ones``) one whose matrices are drawn at a
+# mean with no spread, in the layer's one draw and alone
+NAMED = {"shifted": SCALED + 'FEED_FORWARD = "cmix"\n',
+         "astray": SCALED + 'FEED_FORWARD = "nowhere"\n',
+         "constant": SCALED + 'FEED_FORWARD = "ones"\n',
+         "ones": """
+from bench.layers import Matrix
+
+OPTIONS = ("d_model",)
+GROUP = "ones"
+
+
+def matrices(model, spec):
+    d = model["d_model"]
+    return [Matrix("a", (d, 3), 0.0, mean=1.0),
+            Matrix("b", (d,), 0.0, own="b", mean=1.0)]
+"""}
+
+
+@pytest.fixture
+def named_kinds(tmp_path, monkeypatch):
+    """The mixers of ``NAMED``, outside bench/, on ``bench.layers``'
+    search path."""
+    for name, text in NAMED.items():
+        (tmp_path / f"{name}.py").write_text(text)
+    monkeypatch.setattr(L, "__path__", [*L.__path__, str(tmp_path)])
+    importlib.invalidate_caches()
+    yield
+    for name in NAMED:
+        sys.modules.pop(f"bench.layers.{name}", None)
+
+
+def test_a_mixer_names_its_feed_forward(named_kinds):
+    model = dict(tiny_cell(CELLS[0]).config["model"], pattern=[
+        {"kind": "shifted"}, {"kind": "attn"}])
+    L.check_options(model, "test", ())
+    p = W.layer(model, 0, 3, "cpu")
+    d, f = model["d_model"], model["d_ff"]
+    assert set(p) == {"norm1", "norm2", "scaled", "cmix"}
+    assert set(W.layer(model, 1, 3, "cpu")) == {"norm1", "norm2", "attn",
+                                                "mlp"}
+    # one draw: the mixer's matrix first, then the channel mix's in order
+    drawn = torch.randn(d * d + 2 * d + 2 * d * f + d * d,
+                        dtype=p["scaled"]["w"].dtype,
+                        generator=torch.Generator().manual_seed(
+                            W.part_seed(3, "layer0")))
+    parts = [("scaled", "w", (d, d), 0.5, 0.0),
+             ("cmix", "mu", (2, d), 12 ** -0.5, 0.5),
+             ("cmix", "wk", (d, f), d ** -0.5, 0.0),
+             ("cmix", "wv", (f, d), f ** -0.5, 0.0),
+             ("cmix", "wr", (d, d), d ** -0.5, 0.0)]
+    off = 0
+    for group, name, shape, scale, mean in parts:
+        n = shape[0] * shape[1]
+        want = (drawn[off:off + n] * scale + mean).view(shape)
+        assert torch.equal(p[group][name], want), name
+        off += n
+    item = Item(torch.randint(1, 512, (2, 10),
+                              generator=torch.Generator().manual_seed(1)))
+    Reference({"model": model}, 3, "cpu").run(
+        [item], lambda edge: (-20.0, 20.0, 1 << 16))
+    assert item.logits.shape == (2, 10, model["vocab_size"])
+    assert torch.isfinite(item.logits).all()
+    assert RL.layer_params(model, L.layer_specs(model)[0]) \
+        == d * d + 2 * d * f + d * d
+
+
+def test_moe_in_the_spec_overrides_the_named_feed_forward(named_kinds):
+    model = dict(tiny_cell("dbrx-132b-s8.moe-decode").config["model"],
+                 pattern=[{"kind": "shifted", "moe": True}])
+    L.check_options(model, "test", ())
+    assert set(W.layer(model, 0, 3, "cpu")) == {"norm1", "norm2", "scaled",
+                                                "moe"}
+    assert [m.GROUP for m in L.modules(L.layer_specs(model)[0])] \
+        == ["scaled", "moe"]
+
+
+def test_a_feed_forward_no_module_gives_is_refused_at_load(tmp_path,
+                                                           named_kinds,
+                                                           monkeypatch):
+    made = []
+    monkeypatch.setattr(W, "_draw", lambda *a, **k: made.append(a))
+    cell, path = _benchmark_with(tmp_path, pattern=[{"kind": "astray"}])
+    with pytest.raises(NotImplementedError, match="bench/layers/nowhere.py"):
+        spec.load_cell(cell, path)
+    assert not made
+
+
+def test_channel_mix_matches_the_port(named_kinds):
+    # both sides in float32 on the CPU, the same products in the same
+    # order; they differ only where the norms' reductions round apart
+    from repro_torch.models.layers import apply_norm
+    from repro_torch.models.rwkv6 import channel_mix_apply
+    cmix = L.module("cmix")
+    model = dict(tiny_cell(CELLS[0]).config["model"],
+                 pattern=[{"kind": "shifted"}])
+    spec_ = L.layer_specs(model)[0]
+    p = W.layer(model, 0, 11, "cpu")
+    x = torch.randn(3, 9, model["d_model"],
+                    generator=torch.Generator().manual_seed(4))
+    h = apply_norm(x, p["norm2"], model["norm"], model["norm_eps"])
+    port = x + channel_mix_apply(h, p["cmix"])[0]
+    got = cmix.forward(x, p, spec_, model, False)
+    torch.testing.assert_close(got, port, atol=1e-5, rtol=1e-5)
+    # the float8 control lands far further from the port
+    low = cmix.forward(x, p, spec_, model, True)
+    assert (low - port).abs().max() > 100 * max(
+        float((got - port).abs().max()), 1e-6)
+
+
+def test_a_matrix_is_drawn_at_its_mean(named_kinds):
+    model = dict(tiny_cell(CELLS[0]).config["model"],
+                 pattern=[{"kind": "constant"}])
+    d = model["d_model"]
+    p = W.layer(model, 0, 3, "cpu")["ones"]
+    assert torch.equal(p["a"], torch.ones(d, 3))
+    assert p["b"].dtype == torch.float32
+    assert torch.equal(p["b"], torch.ones(d))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_a_zero_mean_leaves_the_draw_as_it_was(dtype):
+    shapes, scales = [(4, 6), (5,), (3, 2, 2)], [0.3, 1.7, 0.02]
+    drawn = torch.randn(24 + 5 + 12, dtype=dtype,
+                        generator=torch.Generator().manual_seed(
+                            W.part_seed(8, "p")))
+    want = [drawn[:24].view(4, 6) * 0.3, drawn[24:29] * 1.7,
+            drawn[29:].view(3, 2, 2) * 0.02]
+    for means in (None, [0.0, 0.0, 0.0]):
+        got = W._draw(shapes, scales, dtype, "cpu", 8, "p", means=means)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def _benchmark_with(tmp_path, **changes):

@@ -4,7 +4,9 @@ Each layer (and the embedding, and the head) draws from a generator of
 its own, seeded from ``(seed, part)``, in one normal draw for all its
 matrices in the model's dtype (and a float32 draw of its own for a
 matrix that asks for one, as a router does), so the reference can make
-any one layer again, bit for bit, without the others.  Scales follow the port's initialisation; norms are ones (and
+any one layer again, bit for bit, without the others.  Scales and
+means follow the port's initialisation (a uniform draw of the port's
+is a normal one of the same mean and spread here); norms are ones (and
 zero biases).  The tree is the port's parameter layout.  What a layer
 holds, each layer kind's module says (``bench/layers``).
 """
@@ -28,14 +30,21 @@ def part_seed(seed: int, part: str) -> int:
 
 
 def _draw(shapes: list[tuple], scales: list[float], dtype, device,
-          seed: int, part: str) -> list[torch.Tensor]:
+          seed: int, part: str, means=None) -> list[torch.Tensor]:
+    """Normal draws times each scale, plus each of ``means`` (zeros
+    where None)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(part_seed(seed, part))
     sizes = [math.prod(s) for s in shapes]
     flat = torch.randn(sum(sizes), generator=gen, dtype=dtype, device=device)
     out, off = [], 0
-    for shape, size, scale in zip(shapes, sizes, scales):
-        out.append(flat[off:off + size].view(shape).mul_(scale))
+    for shape, size, scale, mean in zip(shapes, sizes, scales,
+                                        means or [0.0] * len(shapes)):
+        t = flat[off:off + size].view(shape).mul_(scale)
+        if mean:
+            # added only where asked, so a zero-mean draw stays bit for bit
+            t.add_(mean)
+        out.append(t)
         off += size
     return out
 
@@ -58,7 +67,8 @@ def layer(model: dict, i: int, seed: int, device) -> dict:
              for w in m.matrices(model, spec)]
     drawn = [(g, w) for g, w in named if w.own is None]
     tensors = _draw([w.shape for _, w in drawn], [w.scale for _, w in drawn],
-                    dtype, device, seed, f"layer{i}")
+                    dtype, device, seed, f"layer{i}",
+                    means=[w.mean for _, w in drawn])
     p = {"norm1": _norm(model, dtype, device),
          "norm2": _norm(model, dtype, device)}
     for (group, w), t in zip(drawn, tensors):
@@ -66,7 +76,7 @@ def layer(model: dict, i: int, seed: int, device) -> dict:
     for group, w in named:
         if w.own is not None:
             t, = _draw([w.shape], [w.scale], torch.float32, device, seed,
-                       f"{w.own}{i}")
+                       f"{w.own}{i}", means=[w.mean])
             p.setdefault(group, {})[w.name] = t
     return p
 
