@@ -48,7 +48,14 @@ Phases, in order; any failure raises and exits non-zero:
    dbrx's stage (32 x 4096, 48 / 8 heads) at 0, 4095 and 2150, and at
    phase 4's decode shape; timed at the last position of each beside the
    plain path, its byte bound (the prefix of K and V read once) and
-   ``F.scaled_dot_product_attention`` over the prefix;
+   ``F.scaled_dot_product_attention`` over the prefix.  The prefill
+   attention kernel (#11), bf16, against the plain prefill path
+   (``multi_head_attention(q, k, v, q_offset=0)``, float32 logits over
+   the whole square) within rtol 1.6e-2, atol 1e-2, at a refill of the
+   benchmark cell (1 row, 32 / 4 heads of 128) at lengths 1, 65, 512 and
+   2150 and at phase 4's prefill shape (4 x 64, 32 / 32 heads); timed at
+   the last length of each beside the plain path, its causal FLOP bound
+   and ``F.scaled_dot_product_attention(is_causal=True)``;
 4. serve   -- codeqwen1.5-7b at full width and depth (bf16, random
    weights from seed 0), 4 requests of 64 prompt + 8 new tokens, N=4,
    every codec calibrated from one set of warm-up activations:
@@ -166,8 +173,8 @@ Phases, in order; any failure raises and exits non-zero:
    ``step_time_lower_bound_s``: the larger of the FLOPs at the H100's
    peak and the eager traffic at its HBM rate); then the same step runs
    on the card (weights from seed 0).  Gates: ``FlopCounterMode``
-   around it, plus the products of the decode-attention launches it does
-   not see, counts exactly the meta pass's FLOPs; the bytes of its
+   around it, plus the products of the decode- and prefill-attention
+   launches it does not see, counts exactly the meta pass's FLOPs; the bytes of its
    arguments on the card equal the predicted ``memory.argument_bytes``;
    ``max_memory_allocated`` over the timed runs is within 10% of the
    predicted peak.  On the first three cells the first two gates hold
@@ -292,6 +299,7 @@ SRC = ROOT / "src"
 
 MEM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM CUDA-core float32 peak
+BF16_MMA_OPS_PER_S = 989e12   # H100 SXM dense bf16 tensor-core peak
 # one-thread latency probe of a rANS step (kernel #6), for its chain bound
 PROBE = ROOT / "tools" / "rans_chain_probe.cu"
 PROBE_ITERS = 4096
@@ -311,7 +319,13 @@ DA_SHAPES = {"cell": (48, 8192, 32, 4, (0, 255, 8191, 2150)),
              "dbrx": (32, 4096, 48, 8, (0, 4095, 2150)),
              "decode": (REQUESTS, PROMPT_LEN + NEW_TOKENS + 8, 32, 32, (70,))}
 DA_TOL = dict(rtol=1.6e-2, atol=2e-3)   # bf16 outputs against the plain path
-ROADMAP = ROOT / "ROADMAP.md"    # its queue B table: each kernel's status
+# prefill attention (#11), bf16, 128 a head: name -> (rows, query heads,
+# KV heads, lengths checked against the plain path, the last also timed)
+# -- a refill of the benchmark cell, and phase 4's opening prefill
+PA_SHAPES = {"refill": (1, 32, 4, (1, 65, 512, 2150)),
+             "prefill": (REQUESTS, 32, 32, (PROMPT_LEN,))}
+PA_TOL = dict(rtol=1.6e-2, atol=1e-2)   # as tests/test_torch_cuda.py holds #11
+PERF = ROOT / "PERF.md"    # its kernel table: each kernel's status
 TICK_SESSIONS = 16      # concurrent sessions of the transport runs (r), (s)
 # run -> (transport, split codec); the codecs are built in split_phase
 SPLIT_RUNS = {"g": ("raw", None), "h": ("packed", "tensor-4"),
@@ -367,11 +381,13 @@ def eager_ms(fn, reps: int = 20) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(n_bytes: float, n_ops: float) -> tuple[float, str]:
+def bound(n_bytes: float, n_ops: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> tuple[float, str]:
     """Least time for the work: bytes over the memory rate vs operations
-    over the CUDA-core rate (ms, and which one binds)."""
+    over ``ops_per_s``, the CUDA-core rate unless the work runs on the
+    tensor cores (ms, and which one binds)."""
     t_mem = n_bytes / MEM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -878,6 +894,8 @@ def size_class(kernel: str, symbol: str, args) -> str:
     element route."""
     if kernel == "decode_attention":
         return "decode"
+    if kernel == "prefill_attention":
+        return "prefill"
     if kernel == "clip_quant" and args[2] == TRAIN_N:
         return "train +hist" if args[10] is not None else "train"
     if symbol == "repro_clip_quant_pack":
@@ -1011,7 +1029,8 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
     def row(name, src, line, sizes):
         out = {}
         for size, c in sizes.items():
-            b_ms, b_by = bound(c["nbytes"], c["nops"])
+            b_ms, b_by = bound(c["nbytes"], c["nops"],
+                               c.get("ops_per_s", FP32_OPS_PER_S))
             r = {"ms": time_ms(c["kernel"]),
                  "plain_ms": time_ms(c["plain"], **c.get("plain_kw", {})),
                  "bound_ms": b_ms, "bound_by": b_by,
@@ -1443,11 +1462,13 @@ def kernel_timings(boundary, dev, sm_mhz: float, cycles: dict):
         sizes)
     row("decode_attention", "decode_attention.cu", None,
         decode_attention_cases(dev))
+    row("prefill_attention", "prefill_attention.cu", None,
+        prefill_attention_cases(dev))
 
     check(all(r_["sizes"][s]["max_abs_err"] == 0 for r_ in rows
               for s in r_["sizes"]
               if r_["name"] not in ("clip_quant", "clip_quant_tiles",
-                                    "decode_attention")),
+                                    "decode_attention", "prefill_attention")),
           "integer kernel outputs and ECSQ reconstructions must match "
           "exactly")
     print("times per call: device time of back-to-back calls; 'eager' is "
@@ -1521,6 +1542,54 @@ def decode_attention_cases(dev) -> dict:
                 v[:, :n].transpose(1, 2), enable_gqa=True),
             nbytes=2 * b * n * kh * hd * 2, nops=4 * b * h * n * hd,
             err=worst)
+    return sizes
+
+
+def prefill_attention_cases(dev) -> dict:
+    """Kernel #11 at each of PA_SHAPES: the wrapper against the plain
+    prefill path (``multi_head_attention(q, k, v, q_offset=0)``, float32
+    logits over the whole square) at each length checked, within PA_TOL;
+    then the sizes ``row`` times at the last length checked, beside the
+    plain path, its causal FLOP bound (both products over the pairs
+    ``t <= s``) and ``F.scaled_dot_product_attention(is_causal=True)``."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import prefill_attention as PA
+    from repro_torch.models import layers as L
+
+    hd, sizes = 128, {}
+    for name, (b, h, kh, lengths) in PA_SHAPES.items():
+        worst = 0.0
+        for s in lengths:
+            g = torch.Generator(device=dev).manual_seed(s)
+            q, k, v = (torch.randn((b, s, n, hd), device=dev, generator=g)
+                       .to(torch.bfloat16) for n in (h, kh, kh))
+            with torch.inference_mode():
+                got = PA.prefill_attention(q, k, v).float()
+                want = L.multi_head_attention(q, k, v, q_offset=0).float()
+            err = float((got - want).abs().max())
+            check(bool(((got - want).abs() <= PA_TOL["atol"] + PA_TOL["rtol"]
+                        * want.abs()).all()),
+                  f"(#11) prefill_attention {name} at length {s}: {err} from "
+                  f"the plain path, beyond rtol {PA_TOL['rtol']} atol "
+                  f"{PA_TOL['atol']}")
+            worst = max(worst, err)
+        print(f"prefill_attention {name} ({b} rows, {h} / {kh} heads of "
+              f"{hd}, bf16) at lengths {lengths}: within rtol "
+              f"{PA_TOL['rtol']}, atol {PA_TOL['atol']} of the plain path "
+              f"(largest difference {worst})")
+        # the last length checked is the one timed; q, k, v are its
+        sizes[name] = dict(
+            kernel=lambda q=q, k=k, v=v: PA.prefill_attention(q, k, v),
+            plain=lambda q=q, k=k, v=v: L.multi_head_attention(
+                q, k, v, q_offset=0),
+            plain_kw=dict(reps=5),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                is_causal=True, enable_gqa=True),
+            nbytes=2 * b * s * (h + 2 * kh) * hd * 2,
+            nops=2 * b * h * hd * s * (s + 1),
+            ops_per_s=BF16_MMA_OPS_PER_S, err=worst)
     return sizes
 
 
@@ -2928,11 +2997,14 @@ def dry_cell(arch: str, shape, overrides: dict, smi: str, dev) -> None:
     with FlopCounterMode(display=False) as fc:
         step(*args)
     torch.cuda.synchronize()
-    # FlopCounterMode does not see the decode-attention kernel (#10): add
-    # its products, 4 * B * H * n_valid * hd a launch, which the meta
-    # pass counts as the plain path's two matmuls (a decode cell's pos is
-    # its last slot, so n_valid is the whole cache)
-    card_flops = fc.get_total_flops() + _build.LAUNCHES["decode_attention"] \
+    # FlopCounterMode sees neither attention kernel: add the products the
+    # meta pass counts as the plain path's two matmuls -- #10's 4 * B * H
+    # * n_valid * hd a launch (a decode cell's pos is its last slot, so
+    # n_valid is the whole cache), #11's 4 * B * H * S * S * hd over the
+    # whole square a launch
+    card_flops = fc.get_total_flops() + (
+        _build.LAUNCHES["decode_attention"]
+        + _build.LAUNCHES["prefill_attention"] * shape.seq_len) \
         * 4 * shape.global_batch * cfg.num_heads * shape.seq_len \
         * cfg.head_dim
     check(card_flops == ops["flops"], f"(9) {arch} {shape.name}: "
@@ -4214,20 +4286,19 @@ def split_ranks_alone(smi: str, dev) -> None:
 
 
 def port_status(replaces: str) -> str:
-    """A kernel's port status from the "Port" column of the row of
-    ``ROADMAP.md``'s queue B table that names its TPU kernel
-    (``file.py:line``), without the source file it names."""
+    """A kernel's port status from the "Status" column of the row of
+    ``PERF.md``'s kernel table that names its TPU kernel
+    (``file.py:line``)."""
     key = "`" + replaces.rsplit("/", 1)[-1] + "`"
     col = None
-    for ln in ROADMAP.read_text().splitlines():
+    for ln in PERF.read_text().splitlines():
         cells = [c.strip() for c in ln.strip().strip("|").split("|")]
-        if cells[0] == "#" and "Port" in cells:
-            col = cells.index("Port")
+        if cells[0] == "#" and "Status" in cells:
+            col = cells.index("Status")
         elif (col is not None and len(cells) > col and cells[0].isdigit()
               and key in cells[1]):
-            status = re.sub(r"^`csrc/[^`]*`,\s*", "", cells[col])
-            return "ported " + status.replace(", ", "; ")
-    raise AssertionError(f"ROADMAP.md queue B has no row for {key}")
+            return cells[col].replace(", ", "; ")
+    raise AssertionError(f"PERF.md's kernel table has no row for {key}")
 
 
 def rate_recorded(codec, rated: list):
@@ -4510,7 +4581,8 @@ def main() -> int:
                "encode_tiles": "bdqrs", "rans_step": "bdfqrs",
                "clip_quant_tiles": "clm", "index_histogram_tiles": "m",
                "ecsq_assign": "enm", "ecsq_assign_tiles": "fm",
-               "pack_bits": "m", "decode_attention": "abcdefghijkln"}
+               "pack_bits": "m", "decode_attention": "abcdefghijkln",
+               "prefill_attention": "abcdef"}
     check(sorted(r_["name"] for r_ in rows) == sorted(runs_of),
           "the kernel table must list every ported kernel")
     # each counts its indices in the quantizer (and (h)-(l), (n) pack
@@ -4529,6 +4601,14 @@ def main() -> int:
         check(counts[run_id]["decode_attention"] == n_attn * steps,
               f"decode_attention launched {counts[run_id]['decode_attention']}"
               f" times on ({run_id}), want {n_attn} layers x {steps} steps")
+    # prefill attention: once an attention layer a prefill into a cache;
+    # each serve run has one, the opening prefill of its 4 requests in 4
+    # slots ((b), (d), (f) in its two halves), and no refill
+    for run_id in runs_of["prefill_attention"]:
+        check(counts[run_id]["prefill_attention"] == n_attn,
+              f"prefill_attention launched "
+              f"{counts[run_id]['prefill_attention']} times on ({run_id}), "
+              f"want {n_attn} layers x 1 prefill")
     for r_ in rows:
         name_ = r_["name"]
         r_["status"] = port_status(r_["replaces"]) if r_["replaces"] \
@@ -4563,8 +4643,10 @@ def main() -> int:
                 # (m)'s 2-D plan has sizes of its own
                 route = "m" if "2-D" in size or "element" in size \
                     else route.replace("m", "")
-            if name_ == "decode_attention" and size != "decode":
-                # the runs launch it at their own shape, timed as "decode"
+            if name_ == "decode_attention" and size != "decode" or \
+                    name_ == "prefill_attention" and size != "prefill":
+                # the runs launch them at their own shapes, timed as
+                # "decode" and "prefill"
                 route = ""
             t["launches"] = {run_id: RUN_SIZES[run_id].get((name_, cls), 0)
                              for run_id in route}

@@ -404,6 +404,18 @@ inline int sm_count() {
   return cache[dev];
 }
 
+// -- the attention kernels' tiles ---------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// two float32 values rounded to bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&p);
+}
+
 }  // namespace repro
 
 // Launch a kernel templated on the element type named by a dtype code.

@@ -52,9 +52,8 @@ struct Tile {
   static constexpr int SMEM = kStages * 2 * TK * ROW * 2;   // bytes, 16-bit
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using repro::pack2;
+using repro::smem_u32;
 
 // 16 bytes from global to shared memory; zero-filled where !valid
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -99,12 +98,6 @@ __device__ __forceinline__ void mma16816(float d[4], const uint32_t a[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two float32 values rounded to bf16, lo in the low half
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
 }
 
 __device__ __forceinline__ float softcapped(float acc, float scale,

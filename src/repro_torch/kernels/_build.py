@@ -63,6 +63,8 @@ _SIGNATURES = {
     "repro_pack_bits": (_P, _L, _I, _P, _P),
     "repro_decode_attention": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                _F, _F, _P, _P, _P, _P),
+    "repro_prefill_attention": (_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L,
+                                _L, _L, _L, _L, _L, _L, _F, _P, _P),
 }
 
 # kernel name -> launches since the last reset_launches()
@@ -70,7 +72,8 @@ LAUNCHES: dict[str, int] = {"clip_quant": 0, "clip_quant_tiles": 0,
                             "encode_tiles": 0, "index_histogram": 0,
                             "index_histogram_tiles": 0, "rans_step": 0,
                             "ecsq_assign": 0, "ecsq_assign_tiles": 0,
-                            "pack_bits": 0, "decode_attention": 0}
+                            "pack_bits": 0, "decode_attention": 0,
+                            "prefill_attention": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

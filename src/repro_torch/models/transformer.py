@@ -18,9 +18,11 @@ Caches are updated in place: a decode or prefill writes into the cache
 tensors it was given and returns the same objects.  A decode step's
 attention over a bf16 cache on the card runs the hand-written kernel
 (:mod:`repro_torch.kernels.decode_attention`) over the cache's written
-prefix where the kernel takes the shapes; every other case (the CPU,
-prefill, a uint8 or float32 cache, other head sizes) runs the plain
-masked path.
+prefix where the kernel takes the shapes, and a prefill into a cache the
+causal kernel (:mod:`repro_torch.kernels.prefill_attention`) where that
+one takes them (bf16, no window, no soft cap, no autograd recording);
+every other case (the CPU, a pass without a cache, a uint8 or float32
+cache, other head sizes) runs the plain masked path.
 
 The entry points take an optional ``ctx`` (:class:`.context.DistContext`)
 for expert parallelism: under it the rows are this rank's and each MoE
@@ -39,6 +41,7 @@ import torch.utils.checkpoint
 
 from ..configs.base import LayerSpec, ModelConfig
 from ..kernels import decode_attention as DA
+from ..kernels import prefill_attention as PA
 from ..obs.tracing import tracer
 from ..tree import leaves, rebuild
 from . import layers as L
@@ -247,8 +250,12 @@ def _attention(h, p, spec: LayerSpec, cfg: ModelConfig, *, pos: int, cache,
             q_offset=pos, k_positions=k_pos, window=spec.window,
             softcap=cfg.attn_logit_softcap)
     # prefill from scratch: attend over fresh K/V, then fill cache
-    attn = L.multi_head_attention(q, k, v, q_offset=0, window=spec.window,
-                                  softcap=cfg.attn_logit_softcap)
+    if PA.takes(q, k, spec.window, cfg.attn_logit_softcap):
+        attn = PA.prefill_attention(q, k, v)
+    else:
+        attn = L.multi_head_attention(q, k, v, q_offset=0,
+                                      window=spec.window,
+                                      softcap=cfg.attn_logit_softcap)
     kq, vq = _kv_enc(cfg, k), _kv_enc(cfg, v)
     if s_new >= s_cache:
         tail = torch.arange(s_new - s_cache, s_new, device=h.device) % s_cache

@@ -1835,3 +1835,210 @@ def test_decode_step_routes_attention_through_the_kernel(dev, arch, hd,
         torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                    atol=2e-2 * scale)
         tok = got.argmax(-1)
+
+
+# -- prefill attention (#11) -------------------------------------------------------
+
+# query heads a KV head -> (query heads, KV heads): one query head a KV
+# head, dbrx's 48 / 8 and the benchmark cell's 32 / 4
+PREFILL_GROUPS = {1: (4, 4), 6: (48, 8), 8: (32, 4)}
+
+
+def _prefill_inputs(dev, b, s, g, hd, seed=0):
+    """q (B, S, H, hd), k, v (B, S, K, hd), bf16; q doubled, so the
+    softmax is peakier than the projections' unit scale gives."""
+    h, kh = PREFILL_GROUPS[g]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (2 * torch.randn((b, s, h, hd), device=dev, generator=gen)).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, s, kh, hd), device=dev, generator=gen).to(
+        torch.bfloat16) for _ in range(2))
+    return q, k, v
+
+
+def _exact_prefill(q, k, v):
+    """Float64 causal attention of q (B, S, H, hd) over k, v (B, S, K,
+    hd), a row at a time: the value both paths round towards."""
+    b, s, h, hd = q.shape
+    kh = k.shape[2]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+    out = []
+    for i in range(b):
+        qi = q[i].double().reshape(s, kh, h // kh, hd)
+        logits = torch.einsum("skgh,tkh->kgst", qi, k[i].double()) / hd ** 0.5
+        logits = logits.masked_fill(~mask, float("-inf"))
+        out.append(torch.einsum("kgst,tkh->skgh", torch.softmax(logits, -1),
+                                v[i].double()).reshape(s, h, hd))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("g", list(PREFILL_GROUPS))
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("s", [1, 15, 64, 65, 511, 512, 2150])
+def test_prefill_attention_matches_the_plain_path(dev, s, b, g, hd):
+    """The kernel against the plain prefill path
+    (``multi_head_attention(q, k, v, q_offset=0)``) on the same inputs,
+    within rtol 1.6e-2, atol 1e-2; and against float64 causal attention,
+    no further off than twice the plain path's largest error there and
+    2^-12: the kernel rounds exp(s - m_tile) to bf16 where the plain path
+    rounds the normalised probabilities, each an error of a bf16 unit a
+    term, so a tile skipped or masked wrongly would show.  S covers one
+    row, part of a tile, whole and ragged key tiles and query tiles, and
+    the benchmark's refill length."""
+    from repro_torch.kernels import prefill_attention as PA
+    from repro_torch.models import layers as L
+
+    q, k, v = _prefill_inputs(dev, b, s, g, hd, seed=s)
+    with torch.inference_mode():
+        assert PA.takes(q, k, None, 0.0)
+        want = L.multi_head_attention(q, k, v, q_offset=0)
+        before = dict(_build.LAUNCHES)
+        got = PA.prefill_attention(q, k, v)
+        torch.cuda.synchronize()
+    assert _advanced(before, prefill_attention=1)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert got.is_contiguous()
+    torch.testing.assert_close(got.float(), want.float(), rtol=1.6e-2,
+                               atol=1e-2)
+    exact = _exact_prefill(q, k, v)
+    err_got = float((got.double() - exact).abs().max())
+    err_plain = float((want.double() - exact).abs().max())
+    assert err_got <= 2 * err_plain + 2.0 ** -12, (err_got, err_plain)
+
+
+def test_prefill_attention_reads_strided_values_in_place(dev):
+    """A v laid out heads-outer (a permuted view, 16-byte aligned strides)
+    is read in place and gives the contiguous v's output bit for bit; a
+    v whose rows are not 16-byte aligned is copied first, to the same
+    output."""
+    from repro_torch.kernels import prefill_attention as PA
+
+    q, k, v = _prefill_inputs(dev, 2, 300, 8, 128)
+    heads_outer = v.transpose(1, 2).contiguous().transpose(1, 2)
+    padded = torch.zeros((2, 300, 4 * 128 + 1), dtype=torch.bfloat16,
+                         device=dev)
+    padded[..., :512] = v.reshape(2, 300, 512)
+    odd = padded[..., :512].unflatten(-1, (4, 128))
+    assert not heads_outer.is_contiguous() and torch.equal(heads_outer, v)
+    assert PA.kernel_view(heads_outer) is heads_outer
+    assert PA.kernel_view(odd).data_ptr() != odd.data_ptr()
+    with torch.inference_mode():
+        want = PA.prefill_attention(q, k, v)
+        for other in (heads_outer, odd):
+            assert torch.equal(PA.prefill_attention(q, k, other), want)
+
+
+@pytest.mark.parametrize("case", ["float32", "softcap", "window", "hd256",
+                                  "group32", "grad"])
+def test_prefill_attention_keeps_other_calls_on_the_plain_path(dev, case):
+    """The predicate on the card: float32, soft-capped, windowed calls,
+    head sizes and groups the kernel is not built for, and calls that
+    autograd records keep ``multi_head_attention``; the same bf16 call
+    without them takes the kernel."""
+    from repro_torch.kernels import prefill_attention as PA
+
+    h, kh, hd = {"hd256": (8, 2, 256), "group32": (64, 2, 128)}.get(
+        case, (32, 4, 128))
+    dtype = torch.float32 if case == "float32" else torch.bfloat16
+    q = torch.zeros((1, 16, h, hd), dtype=dtype, device=dev,
+                    requires_grad=case == "grad")
+    k = torch.zeros((1, 16, kh, hd), dtype=dtype, device=dev)
+    window = 8 if case == "window" else None
+    softcap = 50.0 if case == "softcap" else 0.0
+    assert not PA.takes(q, k, window, softcap)
+    if case == "grad":
+        with torch.no_grad():
+            assert PA.takes(q, k, window, softcap)
+        with pytest.raises(ValueError):
+            PA.prefill_attention(q, k, k)
+
+
+@pytest.mark.parametrize("arch", ["codeqwen1.5-7b", "gemma2-9b"])
+def test_prefill_fills_the_cache_as_the_plain_path(dev, arch, monkeypatch):
+    """A prefill of a small seeded bf16 model (head size 128, 8 / 2
+    heads) on the card, through the kernel and through the plain path
+    (the predicate switched off) from the same weights and tokens: layer
+    0's K and V, which no attention output reaches, equal bit for bit;
+    the later layers' and the logits within 2% of their largest
+    magnitude.  The kernel launches once an attention layer a prefill and
+    never in the decode steps after it; gemma2's soft-capped layers never
+    launch it."""
+    from repro_torch.kernels import prefill_attention as PA
+    from repro_torch.models import prefill
+
+    cfg = dataclasses.replace(reduced(get_config(arch)), head_dim=128,
+                              num_heads=8, num_kv_heads=2, num_layers=3,
+                              dtype="bfloat16")
+    routed = sum(spec.kind == "attn" for spec in cfg.layer_specs()) \
+        if cfg.attn_logit_softcap == 0 else 0
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 100)).astype(np.int32)).to(dev)
+    with torch.inference_mode():
+        before = dict(_build.LAUNCHES)
+        with monkeypatch.context() as m:
+            m.setattr(PA, "takes", lambda q, k, window, softcap: False)
+            want, plain = prefill(cfg, params, toks,
+                                  init_cache(cfg, 2, 112, device=dev))
+        assert _advanced(before, prefill_attention=0)
+        got, cache = prefill(cfg, params, toks,
+                             init_cache(cfg, 2, 112, device=dev))
+        torch.cuda.synchronize()
+        assert _advanced(before, prefill_attention=routed)
+    layers = [(g, c) for g, group in enumerate(plain) for c in range(
+        len(group)) if "k" in group[c]]
+    for n, (g, c) in enumerate(layers):
+        for name in ("k", "v"):
+            a, b = cache[g][c][name][:, :100], plain[g][c][name][:, :100]
+            if n == 0 or not routed:
+                assert torch.equal(a, b), (g, c, name)
+            else:
+                scale = float(b.float().abs().max())
+                torch.testing.assert_close(a.float(), b.float(), rtol=2e-2,
+                                           atol=2e-2 * scale)
+    scale = float(want.float().abs().max())
+    torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                               atol=2e-2 * scale)
+    with torch.inference_mode():
+        tok = got.argmax(-1)
+        for pos in range(100, 104):
+            logits, cache, _ = decode_step(cfg, params, tok, cache, pos)
+            tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+    assert _advanced(before, prefill_attention=routed)
+
+
+@pytest.mark.parametrize("hookup", ["codec_fn", "codec_host_fn"])
+def test_engine_prefills_launch_prefill_attention_once_a_layer(dev, hookup):
+    """The serving engine on the card with a small bf16 model (head size
+    128, 8 / 2 heads): every prefill -- each epoch's opening prefill and
+    each batch-1 refill, whole or in the two halves ``codec_host_fn``
+    runs -- launches #11 once an attention layer, and every decode step
+    launches #10 once an attention layer and #11 never."""
+    from repro_torch.serving import Request, ServeEngine
+
+    cfg = dataclasses.replace(reduced(get_config("codeqwen1.5-7b"),
+                                      layers=4),
+                              head_dim=128, num_heads=8, num_kv_heads=2,
+                              dtype="bfloat16")
+    n_attn = sum(spec.kind == "attn" for spec in cfg.layer_specs())
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev)
+    hook = {} if hookup == "codec_fn" else {
+        "codec_host_fn": lambda x: (x, 16.0)}
+    eng = ServeEngine(cfg, params, slots=2, max_seq=64, refill_align=1,
+                      device=dev, **hook)
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, p).astype(
+        np.int32), max_new_tokens=n)
+        for p, n in [(5, 6), (9, 3), (4, 8), (7, 2), (6, 5)]]
+    _build.reset_launches()
+    eng.generate(reqs)
+    torch.cuda.synchronize()
+    c = eng.counters
+    assert c["refills"] > 0 and c["prefills"] == c["epochs"] + c["refills"]
+    assert _build.LAUNCHES["prefill_attention"] == n_attn * c["prefills"]
+    assert _build.LAUNCHES["decode_attention"] == n_attn * c["steps"]
+    assert all(len(r.out_tokens) == r.max_new_tokens for r in reqs)
