@@ -317,18 +317,16 @@ def _stage_parts(cfg, codec, transport: str, ctx):
 
     def edge_part(params, token, cache, pos, whole=False):
         x = T._embed_in(cfg, params, token[:, None], pos0=pos)
-        y = T._apply_group(x, params, edge_layers, cfg, pos=pos,
-                           gcache=cache, positions=T._positions(x, pos),
-                           ctx=ctx)
+        y, _ = T._run_groups(x, params, cfg, [edge_layers], pos=pos,
+                             caches=[cache], ctx=ctx)
         return send(gather_rows(y, ctx) if whole else y)
 
     def cloud_part(params, wire, rows, cache, pos, own=False):
         x = receive(wire, (rows, 1, cfg.d_model))
         if own:
             x = dp_rows(x, ctx)
-        y = T._apply_group(x, params, cloud_layers, cfg, pos=pos,
-                           gcache=cache, positions=T._positions(x, pos),
-                           ctx=ctx)
+        y, _ = T._run_groups(x, params, cfg, [cloud_layers], pos=pos,
+                             caches=[cache], ctx=ctx)
         return T._logits_out(cfg, params, y)[:, 0].to(torch.bfloat16)
 
     def rate_of(counts, rows):

@@ -16,7 +16,7 @@ device it runs the per-tile quantize and histogram kernels.
 ``--transport loopback`` wires the split boundary through a real socket
 pair: a CloudServer thread on localhost receives the streamed, framed
 bitstream and echoes the reconstruction, and the engine round-trips
-every boundary tensor through it *between* the two halves of each step
+every boundary tensor through it at the split boundary of each step
 (``ServeEngine(codec_host_fn=...)``).  The server dequantizes on the
 codec's backend, so ``--device cpu`` runs the whole link on the CPU
 reference and the default runs it on the card.
@@ -113,8 +113,8 @@ def _loopback_codec_fn(codec, chunk_elems: int, tick_ms: float = 0.0,
     codec's backend) on a daemon thread's event loop and returns
     ``(host_roundtrip, cleanup)``: ``host_roundtrip`` is the *host*
     round-trip ``x -> (recon, bits_per_elem)`` for
-    ``ServeEngine(codec_host_fn=...)``, which the engine calls between
-    the two halves of each step; the reported rate is the true wire
+    ``ServeEngine(codec_host_fn=...)``, which the engine calls at the
+    split boundary of each step; the reported rate is the true wire
     bits/element (frames, headers and all).  ``cleanup`` closes the
     client, the server and the loop, in that order, prints the link's
     counters and returns them as a dict.

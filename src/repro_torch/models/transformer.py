@@ -1,10 +1,12 @@
 """Generic decoder LM assembled from the config's layer pattern.
 
 Layers run in order, grouped into the same *groups* as the JAX package
-(``build_groups``): the collaborative-intelligence split point (the
-paper's edge/cloud boundary) falls between two groups, where the
-FeatureCodec fake-quant (``codec_fn``) or a host round-trip between the
-``*_to_boundary`` / ``*_from_boundary`` halves is applied.
+(``build_groups``), and every entry point walks them with one runner
+(:func:`_run_groups`).  The collaborative-intelligence split point (the
+paper's edge/cloud boundary) falls between two groups: a split-layer
+hook ``codec_fn`` (the FeatureCodec's fake-quant, the serving engine's
+host round trip) runs there, or the ``*_to_boundary`` /
+``*_from_boundary`` halves stop and start there.
 
 Parameters are a dict with per-layer entries (``params["layers"][i]``)
 in place of the reference's stacked scan leaves (see
@@ -326,36 +328,49 @@ def _remat_group_size(n: int) -> int:
 
 
 def _run_layers(x, params, members, cfg: ModelConfig, pos: int, positions,
-                ctx=None):
-    for spec, li in members:
-        x = _apply_layer(x, params["layers"][li], spec, cfg, pos=pos,
-                         cache=None, positions=positions, ctx=ctx)
-    return x
-
-
-def _apply_group(x, params, members, cfg: ModelConfig, *, pos: int,
-                 gcache, positions, remat: bool = False, period: int = 1,
-                 ctx=None):
-    """Run one group's layers (``period`` of them a period).  ``remat``
-    (no cache) recomputes each period's activations in the backward pass,
-    as the reference's ``jax.checkpoint`` of its scan body; a group of 64
-    periods or more checkpoints super-steps of ``_remat_group_size``
-    periods instead."""
-    if remat and gcache is None:
-        n = len(members) // period
-        size = period
-        if n >= 64 and _remat_group_size(n) > 1:
-            size = period * _remat_group_size(n)
-        for s in range(0, len(members), size):
-            x = torch.utils.checkpoint.checkpoint(
-                _run_layers, x, params, members[s:s + size], cfg, pos,
-                positions, ctx, use_reentrant=False)
-        return x
+                ctx=None, gcache=None):
+    """Run ``members`` ((spec, layer index) pairs) in order, each layer
+    with its cache from ``gcache`` where given."""
     for j, (spec, li) in enumerate(members):
         x = _apply_layer(x, params["layers"][li], spec, cfg, pos=pos,
-                         cache=gcache[j] if gcache is not None else None,
+                         cache=None if gcache is None else gcache[j],
                          positions=positions, ctx=ctx)
     return x
+
+
+def _run_groups(x, params, cfg: ModelConfig, groups, *, pos: int | None = None,
+                caches=None, hook=None, boundary: int = 0, periods=None,
+                ctx=None):
+    """The walk through the layer stack that every entry point runs:
+    ``groups`` (per group its (spec, layer index) pairs, as
+    :func:`_group_layers` gives them) in order over ``x``, each with its
+    cache from ``caches`` where given, and the split-layer hook
+    ``hook(x) -> (x', rate)`` after the first ``boundary`` of them.
+    ``pos``: a decode step's absolute position (None: a pass over ``x``'s
+    positions from 0).  ``periods``: each group's period length, for a
+    pass without caches whose periods are recomputed in the backward pass,
+    as the reference's ``jax.checkpoint`` of its scan body (a group of 64
+    periods or more checkpoints super-steps of ``_remat_group_size``
+    periods instead).  Returns (x, aux), aux holding the hook's rate where
+    it ran."""
+    positions = (torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+                 if pos is None else
+                 torch.full((1,), pos, dtype=torch.int32, device=x.device))
+    aux = {}
+    for gi, members in enumerate(groups):
+        if periods is None:
+            x = _run_layers(x, params, members, cfg, pos or 0, positions,
+                            ctx, None if caches is None else caches[gi])
+        else:
+            n = len(members) // periods[gi]
+            size = periods[gi] * (_remat_group_size(n) if n >= 64 else 1)
+            for s in range(0, len(members), size):
+                x = torch.utils.checkpoint.checkpoint(
+                    _run_layers, x, params, members[s:s + size], cfg, 0,
+                    positions, ctx, use_reentrant=False)
+        if hook is not None and gi == boundary - 1:
+            x, aux["codec_rate_bits"] = hook(x)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -363,11 +378,13 @@ def _apply_group(x, params, members, cfg: ModelConfig, *, pos: int,
 # ---------------------------------------------------------------------------
 
 def _embed_in(cfg, params, batch_in, pos0: int = 0):
-    """batch_in: tokens (B,S) int or embeddings (B,S,d)."""
+    """batch_in: tokens (B,S) or (B,) int, or embeddings (B,S,d)."""
     if batch_in.dim() == 3:
         x = batch_in.to(torch_dtype(cfg))
     else:
         x = params["embed"]["table"][batch_in.long()]
+        if batch_in.dim() == 1:
+            x = x[:, None]
     if cfg.pos_emb == "sinusoidal":
         s = x.shape[1]
         pe = L.sinusoidal_pos_emb(
@@ -389,12 +406,6 @@ def _logits_out(cfg, params, x):
     return logits
 
 
-def _positions(x, pos: int | None = None):
-    if pos is None:
-        return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    return torch.full((1,), pos, dtype=torch.int32, device=x.device)
-
-
 def _setup(cfg, split, split_after=None):
     groups, boundary = build_groups(cfg, split, split_after=split_after)
     return _group_layers(groups), boundary
@@ -406,29 +417,48 @@ def _need_boundary(cfg, boundary):
                          "full periods)")
 
 
-def _hidden_forward(cfg: ModelConfig, params, batch_in, *, codec_fn,
-                    split: bool, remat: bool, ctx=None):
-    """Backbone only: returns final hidden states (B, S, d) + aux."""
+def _hidden(cfg: ModelConfig, params, batch_in, cache=None, pos=None, *,
+            codec_fn=None, split: bool = False, remat: bool = False,
+            ctx=None):
+    """Embed + every group, ``codec_fn`` at the split boundary.  Returns
+    (final hidden states (B, S, d), aux)."""
     groups, boundary = build_groups(cfg, split or codec_fn is not None)
-    x = _embed_in(cfg, params, batch_in)
-    positions = _positions(x)
-    aux = {}
-    for gi, members in enumerate(_group_layers(groups)):
-        x = _apply_group(x, params, members, cfg, pos=0, gcache=None,
-                         positions=positions, remat=remat,
-                         period=len(groups[gi].specs), ctx=ctx)
-        if codec_fn is not None and boundary and gi == boundary - 1:
-            x, rate = codec_fn(x)
-            aux["codec_rate_bits"] = rate
-    return x, aux
+    return _run_groups(
+        _embed_in(cfg, params, batch_in, pos or 0), params, cfg,
+        _group_layers(groups), pos=pos, caches=cache, hook=codec_fn,
+        boundary=boundary, ctx=ctx,
+        periods=[len(g.specs) for g in groups] if remat else None)
+
+
+def _to_boundary(cfg: ModelConfig, params, batch_in, cache=None, pos=None,
+                 *, split_after=None, ctx=None):
+    """Embed + the groups before the split boundary.  Returns (split-layer
+    activations, those groups' caches)."""
+    groups, boundary = _setup(cfg, True, split_after)
+    _need_boundary(cfg, boundary)
+    x, _ = _run_groups(_embed_in(cfg, params, batch_in, pos or 0), params,
+                       cfg, groups[:boundary], pos=pos, caches=cache, ctx=ctx)
+    return x, None if cache is None else cache[:boundary]
+
+
+def _from_boundary(cfg: ModelConfig, params, x, cache, pos=None, *,
+                   ctx=None):
+    """The groups after the split boundary on its activations ``x``.
+    ``cache`` is the full per-group cache list.  Returns (final hidden
+    states, the post-boundary caches)."""
+    groups, boundary = _setup(cfg, True)
+    x, _ = _run_groups(x.to(torch_dtype(cfg)), params, cfg,
+                       groups[boundary:], pos=pos, caches=cache[boundary:],
+                       ctx=ctx)
+    return x, cache[boundary:]
 
 
 def forward(cfg: ModelConfig, params, batch_in, *, ctx=None,
             codec_fn: Callable | None = None, split: bool = False,
             remat: bool = False):
     """Training/scoring forward pass (no cache).  Returns (logits, aux)."""
-    x, aux = _hidden_forward(cfg, params, batch_in, codec_fn=codec_fn,
-                             split=split, remat=remat, ctx=ctx)
+    x, aux = _hidden(cfg, params, batch_in, codec_fn=codec_fn, split=split,
+                     remat=remat, ctx=ctx)
     return _logits_out(cfg, params, x), aux
 
 
@@ -478,8 +508,8 @@ def loss_fn(cfg: ModelConfig, params, tokens, *, ctx=None, codec_fn=None,
     Returns (loss, aux).  Under a ``ctx`` the rows are this rank's and
     the loss is theirs."""
     batch_in = inputs if inputs is not None else tokens
-    x, aux = _hidden_forward(cfg, params, batch_in, codec_fn=codec_fn,
-                             split=split, remat=remat, ctx=ctx)
+    x, aux = _hidden(cfg, params, batch_in, codec_fn=codec_fn, split=split,
+                     remat=remat, ctx=ctx)
     loss = sharded_xent(cfg, params, x[:, :-1], tokens[:, 1:])
     return loss, aux
 
@@ -488,14 +518,8 @@ def forward_head(cfg: ModelConfig, params, batch_in, *,
                  split_after: int | None = None, ctx=None):
     """Edge half of the split forward: embed + the groups before the
     boundary.  Returns the raw split-layer activations (B, S, d)."""
-    groups, boundary = _setup(cfg, True, split_after)
-    _need_boundary(cfg, boundary)
-    x = _embed_in(cfg, params, batch_in)
-    positions = _positions(x)
-    for gi in range(boundary):
-        x = _apply_group(x, params, groups[gi], cfg, pos=0, gcache=None,
-                         positions=positions, ctx=ctx)
-    return x
+    return _to_boundary(cfg, params, batch_in, split_after=split_after,
+                        ctx=ctx)[0]
 
 
 def forward_from_boundary(cfg: ModelConfig, params, x, *,
@@ -504,43 +528,24 @@ def forward_from_boundary(cfg: ModelConfig, params, x, *,
     Returns logits (B, S, V)."""
     groups, boundary = _setup(cfg, True, split_after)
     _need_boundary(cfg, boundary)
-    x = x.to(torch_dtype(cfg))
-    positions = _positions(x)
-    for gi in range(boundary, len(groups)):
-        x = _apply_group(x, params, groups[gi], cfg, pos=0, gcache=None,
-                         positions=positions, ctx=ctx)
+    x, _ = _run_groups(x.to(torch_dtype(cfg)), params, cfg,
+                       groups[boundary:], ctx=ctx)
     return _logits_out(cfg, params, x)
 
 
 def prefill(cfg: ModelConfig, params, batch_in, cache, *, ctx=None,
             codec_fn=None, split: bool = False):
     """Process a prompt, filling the cache.  Returns (last_logits, cache)."""
-    groups, boundary = _setup(cfg, split or codec_fn is not None)
-    x = _embed_in(cfg, params, batch_in)
-    positions = _positions(x)
-    for gi, members in enumerate(groups):
-        x = _apply_group(x, params, members, cfg, pos=0, gcache=cache[gi],
-                         positions=positions, ctx=ctx)
-        if codec_fn is not None and boundary and gi == boundary - 1:
-            x, _ = codec_fn(x)
-    logits = _logits_out(cfg, params, x[:, -1:])
-    return logits[:, 0], cache
+    x, _ = _hidden(cfg, params, batch_in, cache, codec_fn=codec_fn,
+                   split=split, ctx=ctx)
+    return _logits_out(cfg, params, x[:, -1:])[:, 0], cache
 
 
 def prefill_to_boundary(cfg: ModelConfig, params, batch_in, cache, *,
                         ctx=None):
     """Edge half of a split prefill: embed + the pre-boundary groups.
-
-    Returns (split-layer activations (B, S, d), pre-boundary caches), so
-    a host round-trip can run between the two halves."""
-    groups, boundary = _setup(cfg, True)
-    _need_boundary(cfg, boundary)
-    x = _embed_in(cfg, params, batch_in)
-    positions = _positions(x)
-    for gi in range(boundary):
-        x = _apply_group(x, params, groups[gi], cfg, pos=0,
-                         gcache=cache[gi], positions=positions, ctx=ctx)
-    return x, cache[:boundary]
+    Returns (split-layer activations (B, S, d), pre-boundary caches)."""
+    return _to_boundary(cfg, params, batch_in, cache, ctx=ctx)
 
 
 def prefill_from_boundary(cfg: ModelConfig, params, x, cache, *,
@@ -549,61 +554,29 @@ def prefill_from_boundary(cfg: ModelConfig, params, x, cache, *,
     ``cache`` is the full per-group cache list (only the post-boundary
     entries are touched).  Returns (last-token logits (B, V),
     post-boundary caches)."""
-    groups, boundary = _setup(cfg, True)
-    x = x.to(torch_dtype(cfg))
-    positions = _positions(x)
-    for gi in range(boundary, len(groups)):
-        x = _apply_group(x, params, groups[gi], cfg, pos=0,
-                         gcache=cache[gi], positions=positions, ctx=ctx)
-    logits = _logits_out(cfg, params, x[:, -1:])
-    return logits[:, 0], cache[boundary:]
-
-
-def _token_batch(token_in):
-    return token_in[:, None] if token_in.dim() == 1 else token_in
+    x, post = _from_boundary(cfg, params, x, cache, ctx=ctx)
+    return _logits_out(cfg, params, x[:, -1:])[:, 0], post
 
 
 def decode_to_boundary(cfg: ModelConfig, params, token_in, cache, pos: int,
                        *, ctx=None):
     """Edge half of a split decode step.
     Returns (boundary activations (B, 1, d), pre-boundary caches)."""
-    groups, boundary = _setup(cfg, True)
-    _need_boundary(cfg, boundary)
-    x = _embed_in(cfg, params, _token_batch(token_in), pos0=pos)
-    positions = _positions(x, pos)
-    for gi in range(boundary):
-        x = _apply_group(x, params, groups[gi], cfg, pos=pos,
-                         gcache=cache[gi], positions=positions, ctx=ctx)
-    return x, cache[:boundary]
+    return _to_boundary(cfg, params, token_in, cache, pos, ctx=ctx)
 
 
 def decode_from_boundary(cfg: ModelConfig, params, x, cache, pos: int, *,
                          ctx=None):
     """Cloud half of a split decode step: post-boundary groups + head.
     Returns (logits (B, V), post-boundary caches)."""
-    groups, boundary = _setup(cfg, True)
-    x = x.to(torch_dtype(cfg))
-    positions = _positions(x, pos)
-    for gi in range(boundary, len(groups)):
-        x = _apply_group(x, params, groups[gi], cfg, pos=pos,
-                         gcache=cache[gi], positions=positions, ctx=ctx)
-    logits = _logits_out(cfg, params, x)
-    return logits[:, 0], cache[boundary:]
+    x, post = _from_boundary(cfg, params, x, cache, pos, ctx=ctx)
+    return _logits_out(cfg, params, x)[:, 0], post
 
 
 def decode_step(cfg: ModelConfig, params, token_in, cache, pos: int, *,
                 ctx=None, codec_fn=None, split: bool = False):
     """One decode step.  token_in: (B,) tokens or (B,1,d) embeddings;
     pos: absolute position.  Returns (logits (B,V), cache, aux)."""
-    groups, boundary = _setup(cfg, split or codec_fn is not None)
-    x = _embed_in(cfg, params, _token_batch(token_in), pos0=pos)
-    positions = _positions(x, pos)
-    aux = {}
-    for gi, members in enumerate(groups):
-        x = _apply_group(x, params, members, cfg, pos=pos,
-                         gcache=cache[gi], positions=positions, ctx=ctx)
-        if codec_fn is not None and boundary and gi == boundary - 1:
-            x, rate = codec_fn(x)
-            aux["codec_rate_bits"] = rate
-    logits = _logits_out(cfg, params, x)
-    return logits[:, 0], cache, aux
+    x, aux = _hidden(cfg, params, token_in, cache, pos, codec_fn=codec_fn,
+                     split=split, ctx=ctx)
+    return _logits_out(cfg, params, x)[:, 0], cache, aux

@@ -28,10 +28,10 @@ import torch.distributed as dist
 
 from ..configs.base import ModelConfig
 from ..core.codec import FeatureCodec
-from ..models import (decode_from_boundary, decode_step, decode_to_boundary,
-                      init_cache, prefill, prefill_from_boundary,
-                      prefill_to_boundary, resolve_device)
+from ..models import (build_groups, decode_step, init_cache, prefill,
+                      resolve_device)
 from ..models.context import dp_rows, gather_rows
+from ..models.transformer import _need_boundary
 from ..obs.metrics import BPE_BUCKETS, MetricsRegistry
 from ..obs.tracing import span
 
@@ -68,9 +68,9 @@ class ServeEngine:
 
         ``codec_host_fn`` is the *host round-trip* variant for codecs
         that leave the device (bitstream encode/decode, transports): a
-        plain ``numpy (B, S, d) -> (numpy recon, rate_bits)`` callable.
-        The engine then runs each stage as two halves split at the
-        collaborative-intelligence boundary and calls it in between.
+        plain ``numpy (B, S, d) -> (numpy recon, rate_bits)`` callable,
+        which the engine calls as its split-layer hook
+        (:func:`_host_hook`); the model must have a split boundary.
 
         ``refill_align``: admit mid-epoch refills only at positions that
         are multiples of this (freed slots idle up to
@@ -110,13 +110,15 @@ class ServeEngine:
             and slots % ctx.dp_size == 0
         if codec is not None:
             codec_fn = codec.apply_with_rate
+        if codec_host_fn is not None:
+            _need_boundary(cfg, build_groups(cfg, True)[1])
+            codec_fn = _host_hook(codec_host_fn)
         self.codec_fn = codec_fn
         # the split-layer hook of a step on the whole batch (False) and of
         # one on this rank's block of rows (True); ``_run`` picks
         self._hooks = {False: codec_fn,
                        True: self._block_hook(codec) if self._split
                        else None}
-        self.codec_host_fn = codec_host_fn
         self.slots = slots
         self.max_seq = max_seq
         self.refill_align = max(1, refill_align)
@@ -149,14 +151,10 @@ class ServeEngine:
             "repro_engine_split_rate_bpe",
             "split-layer coded bits/element per decode step",
             buckets=BPE_BUCKETS)
-        if codec_host_fn is not None:
-            self._prefill = self._split_prefill
-            self._decode = self._split_decode
-        else:
-            self._prefill = lambda p, t, c, *, split: prefill(
-                cfg, p, t, c, ctx=ctx, codec_fn=self._hooks[split])
-            self._decode = lambda p, t, c, pos, *, split: decode_step(
-                cfg, p, t, c, pos, ctx=ctx, codec_fn=self._hooks[split])
+        self._prefill = lambda p, t, c, *, split: prefill(
+            cfg, p, t, c, ctx=ctx, codec_fn=self._hooks[split])
+        self._decode = lambda p, t, c, pos, *, split: decode_step(
+            cfg, p, t, c, pos, ctx=ctx, codec_fn=self._hooks[split])
 
     # -- the dp split ---------------------------------------------------------
 
@@ -191,33 +189,6 @@ class ServeEngine:
             y, rate = fn(gather_rows(x, ctx))
             return dp_rows(y, ctx), rate
         return gathered
-
-    def _host_roundtrip(self, x: torch.Tensor, split: bool):
-        if split:
-            x = gather_rows(x, self.ctx)
-        recon, rate = self.codec_host_fn(
-            x.to(torch.float32).cpu().numpy())
-        recon = torch.as_tensor(np.asarray(recon, np.float32),
-                                device=self.device)
-        return (dp_rows(recon, self.ctx) if split else recon), rate
-
-    def _split_prefill(self, p, toks, cache, *, split: bool):
-        """Prefill as two halves with the host codec round-trip run in
-        between (``codec_host_fn`` mode)."""
-        x, pre = prefill_to_boundary(self.cfg, p, toks, cache, ctx=self.ctx)
-        recon, _ = self._host_roundtrip(x, split)
-        logits, post = prefill_from_boundary(self.cfg, p, recon, cache,
-                                             ctx=self.ctx)
-        return logits, list(pre) + list(post)
-
-    def _split_decode(self, p, cur, cache, pos, *, split: bool):
-        x, pre = decode_to_boundary(self.cfg, p, cur, cache, pos,
-                                    ctx=self.ctx)
-        recon, rate = self._host_roundtrip(x, split)
-        logits, post = decode_from_boundary(self.cfg, p, recon, cache, pos,
-                                            ctx=self.ctx)
-        return logits, list(pre) + list(post), \
-            {"codec_rate_bits": np.float32(rate)}
 
     # -- scheduling -----------------------------------------------------------
 
@@ -318,8 +289,7 @@ class ServeEngine:
         if self._split and batch == self.slots:
             batch //= self.ctx.dp_size
         return init_cache(self.cfg, batch=batch, max_seq=self.max_seq,
-                          split=self.codec_fn is not None
-                          or self.codec_host_fn is not None,
+                          split=self.codec_fn is not None,
                           device=self.device)
 
     def _start_epoch(self, queue: list, active: list):
@@ -403,6 +373,20 @@ class ServeEngine:
         if len(r.out_tokens) >= r.max_new_tokens:
             self._retire(active, slot)
         return cache, cur
+
+
+def _host_hook(codec_host_fn):
+    """``codec_host_fn`` as a split-layer hook ``x -> (x', rate)``: the
+    boundary goes to the host in float32, its reconstruction comes back
+    to ``x``'s device in ``x``'s dtype, and the rate is rounded to
+    float32, as the JAX engine's host round trip between its two jitted
+    halves does."""
+    def hook(x):
+        recon, rate = codec_host_fn(x.to(torch.float32).cpu().numpy())
+        recon = torch.as_tensor(np.asarray(recon, np.float32),
+                                device=x.device)
+        return recon.to(x.dtype), np.float32(rate)
+    return hook
 
 
 def _copy_row(full: dict, one: dict, slot: int) -> None:

@@ -613,8 +613,8 @@ class SyncEdgeClient:
     """Blocking facade: owns an event loop on a daemon thread.
 
     Used by the serving launcher's ``--transport loopback`` path, where
-    the engine calls its split-boundary host hook between the two halves
-    of a step and cannot await.
+    the engine calls its split-boundary host hook in the middle of a step
+    and cannot await.
     """
 
     def __init__(self, *args, **kwargs) -> None:

@@ -2014,9 +2014,10 @@ def test_prefill_fills_the_cache_as_the_plain_path(dev, arch, monkeypatch):
 def test_engine_prefills_launch_prefill_attention_once_a_layer(dev, hookup):
     """The serving engine on the card with a small bf16 model (head size
     128, 8 / 2 heads): every prefill -- each epoch's opening prefill and
-    each batch-1 refill, whole or in the two halves ``codec_host_fn``
-    runs -- launches #11 once an attention layer, and every decode step
-    launches #10 once an attention layer and #11 never."""
+    each batch-1 refill, with or without the host round trip
+    ``codec_host_fn`` at the boundary -- launches #11 once an attention
+    layer, and every decode step launches #10 once an attention layer
+    and #11 never."""
     from repro_torch.serving import Request, ServeEngine
 
     cfg = dataclasses.replace(reduced(get_config("codeqwen1.5-7b"),

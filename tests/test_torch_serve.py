@@ -12,6 +12,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro import models as jm
 from repro.configs import get_config as jget_config
@@ -126,6 +127,64 @@ def test_engine_tokens_match_reference(models, samples, hookup, kind):
     assert tc["refills"] > 0 and len(teng.latency_log) == len(treqs)
 
 
+class _LoggingEngine(ServeEngine):
+    """Keeps the logits of every prefill and decode step."""
+
+    def _run(self, fn, toks, cache, *args):
+        out = super()._run(fn, toks, cache, *args)
+        self.logits.append(out[0].numpy().copy())
+        return out
+
+
+def _as_codec_fn(host_fn):
+    """``host_fn`` (numpy in, numpy out) as a device ``codec_fn``."""
+    def codec_fn(x):
+        recon, rate = host_fn(x.to(torch.float32).numpy())
+        recon = torch.from_numpy(np.asarray(recon, np.float32))
+        return recon.to(x.dtype), np.float32(rate)
+    return codec_fn
+
+
+def test_host_hookup_is_the_codec_fn_path(models):
+    """``codec_host_fn=f`` serves as ``codec_fn`` built from ``f``: the
+    same tokens, logits at every prefill and decode step, and rates."""
+    _, _, tcfg, tparams = models
+    host_fn = _host_fn(calibrate(CodecConfig(backend="torch", **CODEC)))
+    engines = []
+    for kw in (dict(codec_host_fn=host_fn),
+               dict(codec_fn=_as_codec_fn(host_fn))):
+        eng = _LoggingEngine(tcfg, tparams, slots=4, max_seq=16,
+                             device="cpu", **kw)
+        eng.logits = []
+        eng.generate(_requests(Request, tcfg.vocab_size))
+        engines.append(eng)
+    host, dev = engines
+    assert host.counters == dev.counters and host.counters["refills"] > 0
+    assert len(host.logits) == len(dev.logits)
+    for a, b in zip(host.logits, dev.logits):
+        np.testing.assert_array_equal(a, b)
+    assert list(host.rate_log) == list(dev.rate_log) and host.rate_log
+
+
+def test_host_hookup_needs_a_split_boundary():
+    """A one-period model has no split boundary: a host hookup raises
+    before any token is generated, and a ``codec_fn`` never runs."""
+    cfg = reduced(get_config("codeqwen1.5-7b"), layers=1)
+    assert tm.build_groups(cfg, True)[1] == 0
+    params = tm.init_params(cfg, torch.Generator().manual_seed(0),
+                            device="cpu")
+    reqs = _requests(Request, cfg.vocab_size)
+    with pytest.raises(ValueError, match="no split boundary"):
+        ServeEngine(cfg, params, slots=2, max_seq=16, device="cpu",
+                    codec_host_fn=lambda x: (x, 8.0)).generate(reqs)
+    assert not any(r.out_tokens for r in reqs)
+    calls = []
+    eng = ServeEngine(cfg, params, slots=2, max_seq=16, device="cpu",
+                      codec_fn=lambda x: calls.append(x) or (x, 8.0))
+    eng.generate(reqs)
+    assert all(r.done for r in reqs) and not calls and not eng.rate_log
+
+
 def test_engine_without_codec_matches_reference(models):
     jcfg, jparams, tcfg, tparams = models
     jreqs = JServeEngine(jcfg, jparams, slots=2, max_seq=16).generate(
@@ -137,7 +196,6 @@ def test_engine_without_codec_matches_reference(models):
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked(models):
-    import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     _, _, tcfg, tparams = models
@@ -234,7 +292,6 @@ def test_serve_cli_loopback_on_cpu(monkeypatch, capsys, workers):
 def test_serve_cli_loopback_needs_the_card_or_the_cpu():
     """Without ``--device cpu`` the launcher runs on the card: with none
     it raises rather than serve the link on the CPU."""
-    import torch
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     args = [a for a in LOOPBACK_ARGS if a not in ("--device", "cpu")]
